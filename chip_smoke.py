@@ -5,13 +5,16 @@
 Run from the root of a checkout, on a machine with one NVIDIA card (the
 kernels are built for sm_90a, an H100). It builds the CUDA kernels from
 ``raytracer_tpu_torch/csrc``, holds each against its plain PyTorch version
-on the card, drives the main path (scene 4 at 1000x800, 20 spp, 5 bounces,
-through ``Renderer``), and times it. Every phase prints one line; any failed
-check raises, so the script exits non-zero. It also exits non-zero, before
-printing any result, when no CUDA device is available. The last line is
-``{"ok": true, "device": {...}}``; the line before it lists the kernels with
-their launches on the main path, their error against the plain version and
-their times.
+on the card (``rt_nearest_hit``, ``rt_fetch_image``, and ``rt_megakernel``
+on scenes 4, 2 and 0), drives two paths through ``Renderer`` at 1000x800,
+20 spp, 5 bounces and times them: the bench.py path (scene 4) and the
+image-texture path (scene 2, the 256x512 earth), then times one frame of
+each bench scene of benchmarks/suite.py through the kernel. Every phase
+prints one line; any failed check raises, so the script exits non-zero. It
+also exits non-zero, before printing any result, when no CUDA device is
+available. The last line is ``{"ok": true, "device": {...}}``; the line
+before it lists the kernels with their launches on the paths, their error
+against the plain version and their times.
 """
 
 from __future__ import annotations
@@ -125,12 +128,57 @@ def phase_hits(dev, n_rays: int) -> dict:
     return rec
 
 
-def camera_rays(width: int, height: int, dev):
+def phase_fetch(dev, n: int) -> dict:
+    """rt_fetch_image (K4 alone) against the plain fetch, bitwise, on
+    numpy-seeded queries over a plane holding the library's earth (256x512,
+    1024 packed rows) and a 1024x2048 procedural earth (16,384 rows)."""
+    import torch
+
+    from raytracer_tpu_torch.models.materials import Material, Texture
+    from raytracer_tpu_torch.models.scene import SceneBuilder
+    from raytracer_tpu_torch.models.scenes import procedural_earth_texture
+    from raytracer_tpu_torch.ops import megakernel as mk
+    from raytracer_tpu_torch.utils.image import (TextureLibrary,
+                                                 find_texture_library)
+    earth = TextureLibrary(find_texture_library()).get("earth.png")
+    b = SceneBuilder()
+    for k, img in enumerate((earth, procedural_earth_texture(1024))):
+        b.add_sphere((k, 0, 3), 0.5, Material.standard(
+            Texture.from_image(img), 0))
+    b.add_sphere((0, 2, 3), 0.5, Material.default())
+    scene = b.build(device=dev)
+    ms = mk.MegaScene(scene)
+    g = np.random.default_rng(2)
+    u = g.uniform(-0.02, 1.02, n).astype(np.float32)
+    v = g.uniform(-0.02, 1.02, n).astype(np.float32)
+    mid = g.integers(0, ms.mat.shape[1], n).astype(np.int32)
+    u, v, mid = (torch.as_tensor(x, device=dev) for x in (u, v, mid))
+
+    def plain():
+        m = ms.mat[:, mid.long()]
+        return torch.stack(mk.fetch_image_reference(
+            ms.tex, ms.img_rows, u, v, m[mk._M_TW], m[mk._M_TH],
+            m[mk._M_TROW]))
+
+    got = mk.fetch_image(ms, u, v, mid)
+    want = plain()
+    rec = {"queries": n, "img_rows": ms.img_rows,
+           "layout": [list(x[1:]) for x in scene.img_layout],
+           "bitwise": bool(torch.equal(got, want)),
+           "max_abs_err": float((got - want).abs().max()),
+           "ms": cuda_ms(lambda: mk.fetch_image(ms, u, v, mid), 20),
+           "plain_ms": cuda_ms(plain, 5)}
+    print("phase 4 rt_fetch_image vs plain:", json.dumps(rec), flush=True)
+    check(rec["bitwise"], "rt_fetch_image differs from the plain fetch")
+    return rec
+
+
+def camera_rays(width: int, height: int, dev, **cam):
     from raytracer_tpu_torch import CameraConfig
     from raytracer_tpu_torch.models.camera import (build_camera,
                                                    morton_order,
                                                    primary_rays)
-    cfg = CameraConfig(width=width, height=height)
+    cfg = CameraConfig(width=width, height=height, **cam)
     o, d = primary_rays(build_camera(cfg), width, height,
                         pixel_order=morton_order(width, height), device=dev)
     return o.T.contiguous(), d.T.contiguous()
@@ -155,12 +203,13 @@ def mega_vs_plain(ms, settings, o, d, frame_key, pixpack=None) -> dict:
     return stats
 
 
-def phase_mega_small(dev, width: int, height: int) -> None:
-    """rt_megakernel against mega_reference at a small size, pixpack 1, 8."""
+def phase_mega_small(dev, num: int, width: int, height: int) -> None:
+    """rt_megakernel against mega_reference on scene ``num`` at a small
+    size, pixpack 1 and 8."""
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.ops import megakernel as mk
     from raytracer_tpu_torch.ops import rng
-    scene, sky = rtt.build_scene(4, seed=0, device=dev)
+    scene, sky = rtt.build_scene(num, device=dev)
     ms = mk.MegaScene(scene)
     settings = rtt.RenderSettings(rays_per_pixel=4, reflect_limit=5,
                                   antialias=True).with_sky(sky)
@@ -168,38 +217,48 @@ def phase_mega_small(dev, width: int, height: int) -> None:
     for k in (1, 8):
         stats = mega_vs_plain(ms, settings, o, d,
                               rng.fold_in(rng.key(0), 3), pixpack=k)
-        print(f"phase 4 rt_megakernel vs mega_reference {width}x{height} "
-              f"spp 4 pixpack {k}:", json.dumps(stats), flush=True)
-        check_pixels(stats, f"pixpack {k}")
+        print(f"phase 5 rt_megakernel vs mega_reference scene {num} "
+              f"{width}x{height} spp 4 pixpack {k}:", json.dumps(stats),
+              flush=True)
+        check_pixels(stats, f"scene {num} pixpack {k}")
         check(stats["segs_rel"] <= SEGS_REL_MAX,
-              f"pixpack {k}: segments differ by {stats['segs_rel']:.3g}")
+              f"scene {num} pixpack {k}: segments differ by "
+              f"{stats['segs_rel']:.3g}")
 
 
-def phase_main(dev, width: int, height: int, spp: int) -> dict:
-    """The main path: Renderer on scene 4, one warm-up frame + 5 frames."""
+def phase_path(dev, num: int, width: int, height: int, spp: int) -> dict:
+    """One path: Renderer on scene ``num``, one warm-up frame + 5 frames,
+    with the launch counts set to 0 just before and read just after."""
     import torch
 
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.ops import megakernel as mk
     from raytracer_tpu_torch.ops import rng
-    scene, sky = rtt.build_scene(4, seed=0)
+    scene, sky = rtt.build_scene(num, seed=0) if num == 4 else \
+        rtt.build_scene(num)
     settings = rtt.RenderSettings(rays_per_pixel=spp, reflect_limit=5,
                                   antialias=True).with_sky(sky)
     cam = rtt.CameraConfig(width=width, height=height)
 
-    mk.LAUNCHES = 0
     r = rtt.Renderer(scene, cam, settings, seed=0, device=dev)
+    mk.LAUNCHES = mk.IMAGE_LAUNCHES = mk.FETCH_LAUNCHES = 0
     r.render_frame(block=True)
     first = r.accum.clone()
     rec = r.render_frames(5)
-    launches = mk.LAUNCHES
+    launches, image_launches = mk.LAUNCHES, mk.IMAGE_LAUNCHES
     r.check_health()
-    out = {"pixpack": r.settings.pixpack, "launches": launches,
+    out = {"scene": num, "img_rows": r._mega.img_rows,
+           "pixpack": r.settings.pixpack, "launches": launches,
+           "image_launches": image_launches,
            "mrays_per_sec": rec["mrays_per_sec"],
            "frame_ms": rec["frame_ms"] / rec["frames"],
            "segments_per_frame": rec["segments"] / rec["frames"]}
-    check(launches == 6, f"main path launched rt_megakernel {launches} "
-          "times, expected 6 (1 warm-up + 5 frames)")
+    check(launches == 6, f"scene {num} path launched rt_megakernel "
+          f"{launches} times, expected 6 (1 warm-up + 5 frames)")
+    want_image = 6 if scene.has_image_tex else 0
+    check(image_launches == want_image,
+          f"scene {num} path ran the image fetch in {image_launches} "
+          f"launches, expected {want_image}")
 
     # the first frame against the plain version on the same rays and key
     fkey = rng.frame_key(rng.key(0), 0)
@@ -232,17 +291,80 @@ def phase_main(dev, width: int, height: int, spp: int) -> dict:
     r.render_frame(block=True)
     r2.render_frame(block=True)
     out["checkpoint_bitwise"] = bool(torch.equal(r.accum, r2.accum))
-    print(f"phase 5 main path {width}x{height} spp {spp}:", json.dumps(out),
+    print(f"phase 6 scene {num} path {width}x{height} spp {spp}:",
+          json.dumps(out), flush=True)
+    print(f"phase 6 scene {num}, one {width}x{height} frame: kernel "
+          f"{out['ms']:.3f} ms, mega_reference {plain_ms:.3f} ms",
           flush=True)
-    print(f"phase 6 one {width}x{height} frame: kernel {out['ms']:.3f} ms, "
-          f"mega_reference {plain_ms:.3f} ms", flush=True)
-    check_pixels(stats, "main path frame vs mega_reference")
+    check_pixels(stats, f"scene {num} path frame vs mega_reference")
     check(stats["frame_mean_rel"] <= FRAME_MEAN_REL_MAX,
           f"frame-mean radiance differs by {stats['frame_mean_rel']:.3g}")
     check(out["checkpoint_bitwise"], "checkpoint round trip not bitwise")
     check(np.isfinite(out["mrays_per_sec"]) and out["mrays_per_sec"] > 0,
           "no ray rate")
     return out
+
+
+# benchmarks/suite.py's scenes at their sizes: (name, builder, width,
+# height, spp, camera position); 5 bounces each.
+BENCH = (
+    ("rtiow_trio_640x360_100spp", "rtiow_trio_scene", {}, 640, 360, 100,
+     (0.0, 0.0, 0.0)),
+    ("cube_1280x720_200spp", "cube_scene", {}, 1280, 720, 200,
+     (0.0, 0.0, 0.0)),
+    ("monkey_1920x1080_100spp", "monkey_light_scene", {}, 1920, 1080, 100,
+     (0.0, 0.0, 0.0)),
+    ("stress10k_1000x800_20spp", "stress_10k_scene", {}, 1000, 800, 20,
+     (0.0, 1.0, -4.0)),
+    ("stress100k_1000x800_4spp", "stress_10k_scene",
+     {"num": 100000, "seed": 1}, 1000, 800, 4, (0.0, 1.0, -4.0)),
+    ("earth2048_1000x800_20spp", None, {}, 1000, 800, 20, (0.0, 0.0, 0.0)),
+)
+
+
+def phase_bench(dev) -> list:
+    """One timed frame of each bench scene through the kernel, at the
+    Renderer's auto pixpack (8 at spp <= 32, else 1)."""
+    import torch
+
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.models import bench_scenes
+    from raytracer_tpu_torch.models.scenes import procedural_earth_texture
+    from raytracer_tpu_torch.ops import megakernel as mk
+    from raytracer_tpu_torch.ops import rng
+    recs = []
+    for name, fn, kw, width, height, spp, pos in BENCH:
+        t0 = time.perf_counter()
+        if fn is None:
+            scene, sky = rtt.build_scene(
+                2, earth_image=procedural_earth_texture(1024))
+        else:
+            scene, sky = getattr(bench_scenes, fn)(**kw)
+        ms = mk.MegaScene(scene.to(dev))
+        build_s = time.perf_counter() - t0
+        settings = rtt.RenderSettings(rays_per_pixel=spp, reflect_limit=5,
+                                      antialias=True).with_sky(sky)
+        o, d = camera_rays(width, height, dev, position=pos)
+        k = 8 if spp <= 32 else 1
+        res = {}
+
+        def frame():
+            res["out"] = mk.render_sample_mean_mega(
+                ms, settings, o, d, rng.frame_key(rng.key(0), 0), pixpack=k)
+        kernel_ms = cuda_ms(frame)
+        mean, segs = res["out"]
+        rec = {"scene": name, "spheres": scene.num_spheres,
+               "triangles": scene.num_triangles, "img_rows": ms.img_rows,
+               "pixpack": k, "build_s": build_s, "frame_ms": kernel_ms,
+               "segments": float(segs),
+               "mrays_per_sec": float(segs) / kernel_ms / 1e3,
+               "finite": bool(torch.isfinite(mean).all()),
+               "mean_radiance": float(mean.mean())}
+        print("phase 7 bench frame:", json.dumps(rec), flush=True)
+        check(rec["finite"], f"{name}: non-finite radiance")
+        check(rec["segments"] > 0, f"{name}: no segments traced")
+        recs.append(rec)
+    return recs
 
 
 def _sync(dev) -> None:
@@ -265,26 +387,44 @@ def main() -> int:
           f" cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
+    from raytracer_tpu_torch.runtime import loader
     t0 = time.perf_counter()
     lib = build.build()
     build.load()
     regs = [ln.strip() for ln in build.BUILD_INFO.get("log", "").splitlines()
             if "registers" in ln or "spill" in ln]
     print(f"phase 2 build {time.perf_counter() - t0:.1f} s -> {lib}; "
-          + " | ".join(regs), flush=True)
+          + " | ".join(regs) + f"; native host BVH: "
+          f"{loader.native_available()}", flush=True)
 
     phase_hits(dev, 1 << 20)
-    phase_mega_small(dev, 256, 128)
-    main_rec = phase_main(dev, 1000, 800, 20)
+    fetch_rec = phase_fetch(dev, 1 << 20)
+    for num in (4, 2, 0):
+        phase_mega_small(dev, num, 256, 128)
+    main_rec = phase_path(dev, 4, 1000, 800, 20)
+    slice_rec = phase_path(dev, 2, 1000, 800, 20)
+    phase_bench(dev)
 
     kernels = [{
         "name": "rt_megakernel", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": "raytracer_tpu/ops/megakernel.py:370",
         "inlines": ["raytracer_tpu/ops/sweep.py:491",
-                    "raytracer_tpu/ops/sweep.py:1170"],
-        "launches": main_rec["launches"],
-        "max_abs_err": main_rec["vs_plain"]["max_abs"],
-        "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"]}]
+                    "raytracer_tpu/ops/sweep.py:1170",
+                    "raytracer_tpu/ops/megakernel.py:260"],
+        "launches": slice_rec["launches"],
+        "launches_by_path": {"scene4": main_rec["launches"],
+                             "scene2": slice_rec["launches"]},
+        "max_abs_err": max(main_rec["vs_plain"]["max_abs"],
+                           slice_rec["vs_plain"]["max_abs"]),
+        "ms": slice_rec["ms"], "plain_ms": slice_rec["plain_ms"],
+        "scene4_ms": main_rec["ms"], "scene4_plain_ms": main_rec["plain_ms"]},
+        {"name": "rt_fetch_image", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": "raytracer_tpu/ops/megakernel.py:260",
+         "launches": slice_rec["image_launches"],
+         "launched_as": "inside rt_megakernel (its image branch) on the "
+                        "scene-2 path; rt_fetch_image runs it alone",
+         "max_abs_err": fetch_rec["max_abs_err"], "ms": fetch_rec["ms"],
+         "plain_ms": fetch_rec["plain_ms"]}]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

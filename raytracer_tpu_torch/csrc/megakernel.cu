@@ -1,15 +1,19 @@
-// Path-tracing megakernel and nearest-hit kernel for Hopper (sm_90a).
+// Path-tracing megakernel, nearest-hit and image-fetch kernels for Hopper
+// (sm_90a).
 //
 // Replaces the TPU kernels of raytracer_tpu:
 //   K1  ops/megakernel.py:370-1150  _kernel, the whole spp x bounce loop
 //   K2  ops/sweep.py:491-1128       sweep_tile, the nearest hit
 //   K3  ops/sweep.py:1170           fetch_winner_param, winner parameters
-// K2 and K3 are __device__ functions here, called by both entry points:
-//   rt_megakernel   K1 with K2 and K3 inlined;
+//   K4  ops/megakernel.py:260-357   _fetch_image, the image texel fetch
+// K2, K3 and K4 are __device__ functions here, called by the entry points:
+//   rt_megakernel   K1 with K2, K3 and K4 inlined;
 //   rt_nearest_hit  K2 + K3 over a batch of rays (no randomness), so the
-//                   hit contract can be checked on the card on its own.
-// Their plain PyTorch versions are ops/megakernel.py::mega_reference and
-// ops/sweep.py::nearest_hit_reference.
+//                   hit contract can be checked on the card on its own;
+//   rt_fetch_image  K4 over a batch of (u, v, material) queries.
+// Their plain PyTorch versions are ops/megakernel.py::mega_reference,
+// ops/sweep.py::nearest_hit_reference and
+// ops/megakernel.py::fetch_image_reference.
 //
 // Layout. One thread per lane slot of the TPU tile: thread g has tile
 // g / 4096, row r = (g % 4096) / 128 and lane l = g % 128, and owns the
@@ -50,6 +54,14 @@
 // compares) and with --fmad=false, so every product and sum rounds on its
 // own like the elementwise ops of the plain PyTorch version. rsqrtf,
 // sinf and cosf are the CUDA library's.
+//
+// K4. On the TPU the texel plane sits in VMEM (or is paged in from HBM)
+// and a tile selects rows with lane gathers, because a vector lane cannot
+// load from its own address. A thread here loads its texel straight from
+// the (img_rows, 128) colour30 plane in global memory: one 4-byte load per
+// image hit, which the L2 (50 MB) holds for every image of the suite (the
+// 1024x2048 earth packs into 8 MB). The indices are clamped before the
+// load, so a NaN or out-of-range UV reads a texel inside the plane.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,12 +102,26 @@ struct RtMegaArgs {
   float* out[5];      // mean r, g, b, segments (on pixel block 0), depth
   const float* mat;   // (16, n_mat) material rows (pack_materials)
   int n_mat;
+  const int* tex;     // (img_rows, 128) colour30 texel plane
+  int img_rows;       // 0: no image texture
   unsigned int seed_w0, seed_w1;
   int tile_offset, n_tiles, pixpack, spp, limit;
   int antialias, rr_start, emissive_terminates, fix_exit_ior;
   int need_sphere_uv, has_refractive;
   float inv_spp;
   float sky[3];
+};
+
+struct RtFetchArgs {
+  const int* tex;     // (img_rows, 128) colour30 texel plane
+  int img_rows;
+  const float* mat;   // (16, n_mat) material rows
+  int n_mat;
+  const float* u;
+  const float* v;
+  const int* mat_id;  // clamped to [0, n_mat)
+  float* out[3];      // r, g, b
+  int n;
 };
 
 }  // extern "C"
@@ -114,11 +140,12 @@ constexpr float kTwoPi = 6.28318530717958647692f;
 
 // material rows (megakernel.py:130-132)
 enum { M_TYPE, M_IOR, M_EMR, M_EMG, M_EMB, M_TEXTYPE, M_LR, M_LG, M_LB,
-       M_DR, M_DG, M_DB, M_NSQ };
+       M_DR, M_DG, M_DB, M_NSQ, M_TW, M_TH, M_TROW };
 constexpr float kMatEmissive = 1.0f;
 constexpr float kMatRefractive = 2.0f;
 constexpr float kTexGradient = 1.0f;
 constexpr float kTexChecker = 2.0f;
+constexpr float kTexImage = 3.0f;
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
@@ -340,6 +367,33 @@ __device__ __forceinline__ float clip1(float x) {
   return fminf(fmaxf(x, -1.0f), 1.0f);
 }
 
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return min(max(x, lo), hi);
+}
+
+// colour30 -> channel c (2 = red, 1 = green, 0 = blue), sweep.py:100-148
+__device__ __forceinline__ float c30(int pa, int shift) {
+  return static_cast<float>((pa >> shift) & 1023) * (1.0f / 1023.0f);
+}
+
+// K4: the nearest texel of (uu, vv) in the image of width mtw and height
+// mth whose rows start at mtrow (megakernel.py:282-292). Float-to-int is
+// XLA's convert: toward zero, saturating, NaN -> 0 (__float2int_rz).
+__device__ __forceinline__ int fetch_texel(const int* __restrict__ tex,
+                                           int img_rows, float uu, float vv,
+                                           float mtw, float mth,
+                                           float mtrow) {
+  const int w_i = __float2int_rz(mtw);
+  const int u_i = clampi(__float2int_rz((mtw - 1.0f) * uu), 0,
+                         max(w_i - 1, 0));
+  const int v_i = clampi(__float2int_rz((mth - 1.0f) * vv), 0,
+                         max(__float2int_rz(mth) - 1, 0));
+  const int nb = (w_i + (kLanes - 1)) >> 7;  // column blocks per image row
+  const int ty = clampi(__float2int_rz(mtrow) + v_i * nb + (u_i >> 7), 0,
+                        img_rows - 1);
+  return tex[ty * kLanes + (u_i & (kLanes - 1))];
+}
+
 __global__ void __launch_bounds__(128)
     nearest_hit_kernel(const RtHitArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -357,6 +411,20 @@ __global__ void __launch_bounds__(128)
   static_cast<float*>(a.out[6])[i] = w.n2;
   static_cast<int*>(a.out[7])[i] = w.pa;
   static_cast<int*>(a.out[8])[i] = w.pb;
+}
+
+// K4 alone, one thread per query.
+__global__ void __launch_bounds__(128) fetch_image_kernel(const RtFetchArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  const int nm = a.n_mat;
+  const int mid = clampi(a.mat_id[i], 0, nm - 1);
+  const int texel =
+      fetch_texel(a.tex, a.img_rows, a.u[i], a.v[i], a.mat[M_TW * nm + mid],
+                  a.mat[M_TH * nm + mid], a.mat[M_TROW * nm + mid]);
+  a.out[0][i] = c30(texel, 20);
+  a.out[1][i] = c30(texel, 10);
+  a.out[2][i] = c30(texel, 0);
 }
 
 // K1 (megakernel.py:370-1150), one thread per lane slot.
@@ -469,7 +537,8 @@ __global__ void __launch_bounds__(128) megakernel(const RtMegaArgs a) {
       const float mtt = mat[M_TEXTYPE * nm + mid];
       const float mnsq = mat[M_NSQ * nm + mid];
 
-      // texture colour: checker / gradient / const (megakernel.py:826-838)
+      // texture colour: checker / gradient / image / const
+      // (megakernel.py:826-863)
       float tex_r, tex_g, tex_b;
       if (mtt == kTexChecker) {
         const int u_c = static_cast<int>(uu * mnsq);
@@ -482,10 +551,17 @@ __global__ void __launch_bounds__(128) megakernel(const RtMegaArgs a) {
         tex_r = uu;
         tex_g = vv;
         tex_b = 0.0f;
+      } else if (mtt == kTexImage && a.img_rows > 0) {
+        const int texel = fetch_texel(
+            a.tex, a.img_rows, uu, vv, mat[M_TW * nm + mid],
+            mat[M_TH * nm + mid], mat[M_TROW * nm + mid]);
+        tex_r = c30(texel, 20);
+        tex_g = c30(texel, 10);
+        tex_b = c30(texel, 0);
       } else {
-        tex_r = static_cast<float>((w.pa >> 20) & 1023) * (1.0f / 1023.0f);
-        tex_g = static_cast<float>((w.pa >> 10) & 1023) * (1.0f / 1023.0f);
-        tex_b = static_cast<float>(w.pa & 1023) * (1.0f / 1023.0f);
+        tex_r = c30(w.pa, 20);
+        tex_g = c30(w.pa, 10);
+        tex_b = c30(w.pa, 0);
       }
 
       // radiance bookkeeping, emissive quirk (megakernel.py:865-880)
@@ -611,6 +687,14 @@ int rt_nearest_hit(const RtHitArgs* args, void* stream) {
   if (args->n <= 0) return 0;
   const int blocks = (args->n + 127) / 128;
   nearest_hit_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      *args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_fetch_image(const RtFetchArgs* args, void* stream) {
+  if (args->n <= 0) return 0;
+  const int blocks = (args->n + 127) / 128;
+  fetch_image_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       *args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -98,7 +98,8 @@ class MegaArgs(ctypes.Structure):
     _fields_ = ([("scene", SceneArgs),
                  ("o", ctypes.c_void_p * 3), ("d", ctypes.c_void_p * 3),
                  ("out", ctypes.c_void_p * 5), ("mat", ctypes.c_void_p),
-                 ("n_mat", ctypes.c_int),
+                 ("n_mat", ctypes.c_int), ("tex", ctypes.c_void_p),
+                 ("img_rows", ctypes.c_int),
                  ("seed_w0", ctypes.c_uint), ("seed_w1", ctypes.c_uint)]
                 + [(n, ctypes.c_int) for n in (
                     "tile_offset", "n_tiles", "pixpack", "spp", "limit",
@@ -106,6 +107,14 @@ class MegaArgs(ctypes.Structure):
                     "fix_exit_ior", "need_sphere_uv", "has_refractive")]
                 + [("inv_spp", ctypes.c_float),
                    ("sky", ctypes.c_float * 3)])
+
+
+class FetchArgs(ctypes.Structure):
+    _fields_ = [("tex", ctypes.c_void_p), ("img_rows", ctypes.c_int),
+                ("mat", ctypes.c_void_p), ("n_mat", ctypes.c_int),
+                ("u", ctypes.c_void_p), ("v", ctypes.c_void_p),
+                ("mat_id", ctypes.c_void_p), ("out", ctypes.c_void_p * 3),
+                ("n", ctypes.c_int)]
 
 
 def scene_args(ps) -> SceneArgs:
@@ -136,7 +145,8 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         for name, args in (("rt_nearest_hit", HitArgs),
-                           ("rt_megakernel", MegaArgs)):
+                           ("rt_megakernel", MegaArgs),
+                           ("rt_fetch_image", FetchArgs)):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
             fn.restype = ctypes.c_int

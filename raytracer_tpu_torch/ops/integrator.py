@@ -20,8 +20,15 @@ def render_sample_mean(scene, settings: RenderSettings, o: torch.Tensor,
                        tile_offset: int = 0):
     """Mean of ``rays_per_pixel`` paths per primary ray
     (src/raytracer.cu:97-107). ``o``/``d`` are (N, 3); returns
-    ((N, 3) mean, segment count). ``auto`` and ``mega`` both take the
-    megakernel: it is the port's only sampler."""
+    ((N, 3) mean, segment count).
+
+    ``auto`` and ``mega`` both take the megakernel, for every scene. The
+    JAX ``auto`` sends two kinds of scene to its wavefront pipeline
+    instead: image planes past 2048 packed rows and scenes over the TPU's
+    SMEM budget (megakernel.py:166-206). Both thresholds were measured on
+    the TPU, whose kernel keeps scene and texels in on-chip memory; a
+    thread on the card reads both from global memory, so neither cliff is
+    carried over."""
     if settings.sampler not in ("auto", "mega"):
         raise NotImplementedError(
             f"sampler={settings.sampler!r} is not ported yet: ROADMAP "

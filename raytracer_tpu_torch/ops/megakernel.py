@@ -6,6 +6,15 @@ words and then either launches ``rt_megakernel`` (csrc/megakernel.cu) for
 CUDA tensors or runs ``mega_reference`` for CPU tensors. There is no
 fallback between the two: a CUDA tensor launches the kernel or raises.
 
+Image textures (K4, ``_fetch_image`` in the JAX kernel): ``pack_textures``
+packs every image into one (img_rows, 128) int32 plane of colour30 texels,
+and the kernel reads one texel per image hit with one global load
+(``fetch_image_reference`` is its plain version, ``fetch_image`` runs it
+alone). The TPU keeps that plane in three residency tiers (static VMEM
+select, clamped select, HBM pages; megakernel.py:136-163); on the card
+they are one load from global memory, and every supported scene,
+whatever its image size, renders through this kernel.
+
 Layout (the JAX kernel's, with one 32-row stream): a tile is 4096 lane
 slots times ``pixpack`` (K) pixels. Lane slot (tile, r, l) owns pixels
 ``tile*4096*K + (k*32 + r)*128 + l`` for k < K. Each lane runs paths with
@@ -24,7 +33,7 @@ import torch
 
 from ..config import ANTIALIAS_OFFSET_RANGE, RenderSettings
 from ..models.materials import (MAT_EMISSIVE, MAT_REFRACTIVE,
-                                TEX_CHECKERBOARD, TEX_GRADIENT)
+                                TEX_CHECKERBOARD, TEX_GRADIENT, TEX_IMAGE)
 from . import rng, sweep
 
 LANES = sweep.LANES
@@ -37,14 +46,18 @@ INF = sweep.INF
  _M_LR, _M_LG, _M_LB, _M_DR, _M_DG, _M_DB, _M_NSQ,
  _M_TW, _M_TH, _M_TROW) = range(16)
 
-# Launches of rt_megakernel by ``render_sample_mean_mega``.
+# Launches of rt_megakernel by ``render_sample_mean_mega``; of those, the
+# launches whose scene has a texel plane, so that the kernel's image fetch
+# (K4) runs inside them; launches of rt_fetch_image by ``fetch_image``.
 LAUNCHES = 0
+IMAGE_LAUNCHES = 0
+FETCH_LAUNCHES = 0
 
 
 def supports(scene) -> bool:
-    """Scenes the port's megakernel renders: no image textures (the
-    in-kernel image fetch, K4, is ROADMAP item 7)."""
-    return not scene.has_image_tex
+    """Scenes the port's megakernel renders: all of them, as long as the
+    texel plane can be indexed with int32 (img_rows * 128 < 2^31)."""
+    return scene.img_rows * LANES < 2 ** 31
 
 
 def mega_tile_for(scene) -> int:
@@ -67,6 +80,56 @@ def pack_materials(scene) -> torch.Tensor:
         scene.tex_height.to(f32)[None, :],
         scene.tex_row.to(f32)[None, :],
     ], dim=0).contiguous()
+
+
+def pack_textures(scene) -> torch.Tensor:
+    """Image textures -> the (img_rows, 128) int32 colour30 texel plane
+    (megakernel.py:209-232), on the scene's device.
+
+    Row ``trow + v * nb + (u >> 7)``, lane ``u & 127`` holds texel (v, u)
+    of the image whose rows start at ``trow``, where ``nb = ceil(w / 128)``
+    is the image's column-block count. A scene without images gets one
+    zero row.
+    """
+    dev = scene.atlas.device
+    if scene.img_rows == 0:
+        return torch.zeros((1, LANES), dtype=torch.int32, device=dev)
+    planes = torch.zeros((scene.img_rows, LANES), dtype=torch.int32,
+                         device=dev)
+    for (off, h, w, row) in scene.img_layout:
+        img = scene.atlas[off:off + h * w].reshape(h, w, 3)
+        packed = sweep.encode_colour30(img)                   # (h, w)
+        nb = -(-w // LANES)
+        packed = torch.nn.functional.pad(packed, (0, nb * LANES - w))
+        planes[row:row + h * nb] = packed.reshape(h * nb, LANES)
+    return planes
+
+
+def _trunc_int(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 toward zero, saturating, NaN -> 0: XLA's convert
+    (which the JAX kernel's ``astype`` runs) and CUDA's __float2int_rz.
+    A bare ``.to(int32)`` is undefined past the int32 range on the CPU."""
+    lim = 2147483520.0                        # largest float32 < 2^31
+    x = torch.nan_to_num(x, nan=0.0, posinf=lim, neginf=-lim)
+    return torch.clamp(x, -lim, lim).to(torch.int32)
+
+
+def fetch_image_reference(tex: torch.Tensor, img_rows: int, uu, vv, mtw,
+                          mth, mtrow):
+    """Plain K4: the nearest texel of (u, v) (megakernel.py:282-292,
+    src/material.cu:119-124) from the texel plane; ``mtw``, ``mth``,
+    ``mtrow`` are the material's width, height and first row as float32.
+    Returns (r, g, b) float32."""
+    w_i = _trunc_int(mtw)
+    u_i = torch.clamp(_trunc_int((mtw - 1.0) * uu), min=0)
+    u_i = torch.minimum(u_i, torch.clamp(w_i - 1, min=0))
+    v_i = torch.clamp(_trunc_int((mth - 1.0) * vv), min=0)
+    v_i = torch.minimum(v_i, torch.clamp(_trunc_int(mth) - 1, min=0))
+    nb = (w_i + (LANES - 1)) >> 7            # column blocks per image row
+    ty = _trunc_int(mtrow) + v_i * nb + (u_i >> 7)
+    ty = torch.clamp(ty, 0, img_rows - 1)
+    texel = tex.reshape(-1)[ty.long() * LANES + (u_i & (LANES - 1)).long()]
+    return sweep.decode_colour30(texel)
 
 
 def resolve_pixpack(settings: RenderSettings, pixpack=None) -> int:
@@ -108,6 +171,7 @@ def _asin(x: torch.Tensor) -> torch.Tensor:
 
 def mega_reference(ps: sweep.PackedScene, mat: torch.Tensor,
                    o: torch.Tensor, d: torch.Tensor, seed, *,
+                   tex: torch.Tensor, img_rows: int,
                    pixpack: int, spp: int, limit: int, antialias: bool,
                    sky, emissive_terminates: bool, fix_exit_ior: bool,
                    need_sphere_uv: bool, has_refractive: bool,
@@ -117,7 +181,8 @@ def mega_reference(ps: sweep.PackedScene, mat: torch.Tensor,
     interpret-mode hash RNG.
 
     ``o``, ``d``: (3, n_pad) padded primary rays, unit d. ``seed``:
-    (w0, w1, tile_offset) from ``rng.seed_words``. Returns (5, n_pad):
+    (w0, w1, tile_offset) from ``rng.seed_words``. ``tex``: the texel
+    plane (``pack_textures``), read when ``img_rows`` > 0. Returns (5, n_pad):
     mean r, g, b, segments (lane totals on pixel block 0) and primary
     depth. All lanes advance together, one loop iteration per step, and
     every update is gated on the lane still being active, as in the JAX
@@ -239,6 +304,14 @@ def mega_reference(ps: sweep.PackedScene, mat: torch.Tensor,
                             torch.where(is_grad, vv, pcol_g))
         tex_b = torch.where(is_chk, torch.where(is_light, m[_M_LB], m[_M_DB]),
                             torch.where(is_grad, 0.0, pcol_b))
+        if img_rows > 0:
+            # K4 (megakernel.py:840-863): the texel replaces the colour
+            is_img = (mtt == float(TEX_IMAGE)) & hit
+            ir, ig, ib = fetch_image_reference(tex, img_rows, uu, vv,
+                                               m[_M_TW], m[_M_TH], m[_M_TROW])
+            tex_r = torch.where(is_img, ir, tex_r)
+            tex_g = torch.where(is_img, ig, tex_g)
+            tex_b = torch.where(is_img, ib, tex_b)
 
         miss = active & ~hit
         rr = rr + torch.where(miss, tr * sky[0], 0.0)
@@ -371,9 +444,9 @@ def mega_reference(ps: sweep.PackedScene, mat: torch.Tensor,
     return out
 
 
-def _mega_cuda(ps, mat, o, d, seed, *, pixpack, spp, limit, antialias, sky,
-               emissive_terminates, fix_exit_ior, need_sphere_uv,
-               has_refractive, rr_start) -> torch.Tensor:
+def _mega_cuda(ps, mat, o, d, seed, *, tex, img_rows, pixpack, spp, limit,
+               antialias, sky, emissive_terminates, fix_exit_ior,
+               need_sphere_uv, has_refractive, rr_start) -> torch.Tensor:
     """Launch rt_megakernel on the current stream; (5, n_pad) outputs."""
     from ..kernels import build
     n_pad = o.shape[1]
@@ -382,7 +455,8 @@ def _mega_cuda(ps, mat, o, d, seed, *, pixpack, spp, limit, antialias, sky,
     args = build.MegaArgs(
         scene=build.scene_args(ps), o=build.ptrs3(o), d=build.ptrs3(d),
         out=(ctypes.c_void_p * 5)(*[out[i].data_ptr() for i in range(5)]),
-        mat=mat.data_ptr(), n_mat=mat.shape[1], seed_w0=w0, seed_w1=w1,
+        mat=mat.data_ptr(), n_mat=mat.shape[1], tex=tex.data_ptr(),
+        img_rows=img_rows, seed_w0=w0, seed_w1=w1,
         tile_offset=tile_offset, n_tiles=n_pad // (MEGA_TILE * pixpack),
         pixpack=pixpack, spp=spp, limit=limit, antialias=int(antialias),
         rr_start=rr_start, emissive_terminates=int(emissive_terminates),
@@ -394,29 +468,73 @@ def _mega_cuda(ps, mat, o, d, seed, *, pixpack, spp, limit, antialias, sky,
     rc = lib.rt_megakernel(ctypes.byref(args),
                            ctypes.c_void_p(build.stream(o.device)))
     build.check(lib, rc, "rt_megakernel")
-    global LAUNCHES
+    global LAUNCHES, IMAGE_LAUNCHES
     LAUNCHES += 1
+    if img_rows > 0:
+        IMAGE_LAUNCHES += 1
     return out
 
 
 class MegaScene:
     """A scene packed for the megakernel: the sweep pools, the material
-    rows and the static flags, on the scene's device. Build once per
-    scene and reuse across frames."""
+    rows, the texel plane and the static flags, on the scene's device.
+    Build once per scene and reuse across frames."""
 
     def __init__(self, scene):
         if not supports(scene):
-            raise NotImplementedError(
-                "image textures (the in-kernel fetch K4) are not ported "
-                "yet: ROADMAP item 7")
+            raise ValueError(f"texel plane of {scene.img_rows} rows is too "
+                             "big to index with int32")
         self.packed = sweep.pack(scene)
         self.mat = pack_materials(scene)
+        self.tex = pack_textures(scene)
+        self.img_rows = int(scene.img_rows)
         self.need_sphere_uv = bool(scene.needs_sphere_uv)
         self.has_refractive = bool(scene.has_refractive)
 
     @property
     def device(self) -> torch.device:
         return self.packed.device
+
+
+def fetch_image(ms: MegaScene, u: torch.Tensor, v: torch.Tensor,
+                mat_id: torch.Tensor):
+    """K4 alone: the texel of material ``mat_id`` at (u, v) for N queries,
+    as the megakernel fetches it on an image hit. ``u``, ``v``: (N,)
+    float32; ``mat_id``: (N,) int32, clamped to the material table.
+    Returns (3, N) float32. CPU tensors take the plain version; CUDA
+    tensors launch ``rt_fetch_image`` (or raise)."""
+    n = u.shape[0]
+    if (u.dtype != torch.float32 or v.dtype != torch.float32
+            or mat_id.dtype != torch.int32 or u.shape != (n,)
+            or v.shape != (n,) or mat_id.shape != (n,)):
+        raise ValueError("u, v must be (N,) float32 and mat_id (N,) int32")
+    if not (u.device == v.device == mat_id.device == ms.device):
+        raise ValueError("queries and scene must share one device")
+    if ms.img_rows == 0:
+        raise ValueError("the scene has no image texture")
+    if u.device.type == "cpu":
+        mid = mat_id.long().clamp(0, ms.mat.shape[1] - 1)
+        m = ms.mat[:, mid]
+        return torch.stack(fetch_image_reference(
+            ms.tex, ms.img_rows, u, v, m[_M_TW], m[_M_TH], m[_M_TROW]))
+    if u.device.type != "cuda":
+        raise ValueError(f"no image fetch for device {u.device}")
+    from ..kernels import build
+    out = torch.empty((3, n), dtype=torch.float32, device=u.device)
+    u, v, mat_id = u.contiguous(), v.contiguous(), mat_id.contiguous()
+    args = build.FetchArgs(
+        tex=ms.tex.data_ptr(), img_rows=ms.img_rows, mat=ms.mat.data_ptr(),
+        n_mat=ms.mat.shape[1], u=u.data_ptr(), v=v.data_ptr(),
+        mat_id=mat_id.data_ptr(),
+        out=(ctypes.c_void_p * 3)(*[out[i].data_ptr() for i in range(3)]),
+        n=n)
+    lib = build.load()
+    rc = lib.rt_fetch_image(ctypes.byref(args),
+                            ctypes.c_void_p(build.stream(u.device)))
+    build.check(lib, rc, "rt_fetch_image")
+    global FETCH_LAUNCHES
+    FETCH_LAUNCHES += 1
+    return out
 
 
 def mega_inputs(ms: MegaScene, settings: RenderSettings, o: torch.Tensor,
@@ -434,7 +552,8 @@ def mega_inputs(ms: MegaScene, settings: RenderSettings, o: torch.Tensor,
     k = resolve_pixpack(settings, pixpack)
     o_p, d_p = pad_rays(o, d, k)
     seed = rng.seed_words(frame_key, tile_offset)
-    kw = dict(pixpack=k, spp=int(settings.rays_per_pixel),
+    kw = dict(tex=ms.tex, img_rows=ms.img_rows,
+              pixpack=k, spp=int(settings.rays_per_pixel),
               limit=int(settings.reflect_limit),
               antialias=bool(settings.antialias),
               sky=tuple(float(c) for c in settings.sky_colour),

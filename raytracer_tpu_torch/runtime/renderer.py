@@ -22,6 +22,7 @@ from ..models.camera import build_camera, morton_order, primary_rays
 from ..ops import film, rng
 from ..ops.integrator import render_frame, render_sample_mean
 from ..ops.megakernel import MegaScene
+from ..utils.image import save_png
 
 
 def _device(device) -> torch.device:
@@ -153,8 +154,7 @@ class Renderer:
                           self.camera_cfg.height, gamma=self.settings.gamma)
 
     def save_png(self, path: str) -> None:
-        from PIL import Image
-        Image.fromarray(self.image()).save(path)
+        save_png(path, self.image())
 
     # -- checkpoint / resume --------------------------------------------------
     def save_checkpoint(self, path: str) -> None:

@@ -19,6 +19,9 @@ import torch
 
 import raytracer_tpu_torch as rtt
 from raytracer_tpu_torch.models import camera as tcam
+from raytracer_tpu_torch.models.materials import Material, Texture
+from raytracer_tpu_torch.models.scene import SceneBuilder
+from raytracer_tpu_torch.models.scenes import procedural_earth_texture
 from raytracer_tpu_torch.ops import megakernel as tmk
 from raytracer_tpu_torch.ops import rng as trng
 from raytracer_tpu_torch.ops import sweep as tsweep
@@ -67,18 +70,53 @@ def test_nearest_hit_kernel_matches_plain(dev):
         assert torch.equal(a[same], b[same])
 
 
+def test_fetch_image_kernel_matches_plain(dev):
+    """rt_fetch_image (K4) is bitwise the plain fetch: two images of 1, 2
+    and 4 column blocks, a const material, UVs past [0, 1], NaN and
+    infinities."""
+    b = SceneBuilder()
+    for k, img in enumerate((procedural_earth_texture(50),      # 50x100
+                             procedural_earth_texture(96)[:, :129],
+                             procedural_earth_texture(256))):   # 256x512
+        b.add_sphere((k, 0, 3), 0.5, Material.standard(
+            Texture.from_image(img), 0))
+    b.add_sphere((0, 2, 3), 0.5, Material.default())
+    ms = tmk.MegaScene(b.build(device=dev))
+    g = np.random.default_rng(7)
+    n = 1 << 16
+    u = g.uniform(-0.1, 1.1, n).astype(np.float32)
+    v = g.uniform(-0.1, 1.1, n).astype(np.float32)
+    u[:5] = [np.nan, np.inf, -np.inf, 1e9, 1.0]
+    v[5:10] = [np.nan, np.inf, -np.inf, 1e9, 1.0]
+    mid = g.integers(0, ms.mat.shape[1] + 1, n).astype(np.int32)
+    u, v, mid = (torch.as_tensor(x, device=dev) for x in (u, v, mid))
+    before = tmk.FETCH_LAUNCHES
+    got = tmk.fetch_image(ms, u, v, mid)
+    torch.cuda.synchronize()
+    assert tmk.FETCH_LAUNCHES == before + 1
+    m = ms.mat[:, mid.long().clamp(0, ms.mat.shape[1] - 1)]
+    want = torch.stack(tmk.fetch_image_reference(
+        ms.tex, ms.img_rows, u, v, m[tmk._M_TW], m[tmk._M_TH],
+        m[tmk._M_TROW]))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("num", [4, 2])
 @pytest.mark.parametrize("pixpack", [1, 8])
-def test_megakernel_matches_plain(dev, pixpack):
-    scene, sky = rtt.build_scene(4, seed=0, device=dev)
+def test_megakernel_matches_plain(dev, pixpack, num):
+    """Scene 4 and scene 2 (the image-textured earth: K4 inside K1)."""
+    scene, sky = rtt.build_scene(num, seed=0, device=dev) if num == 4 else \
+        rtt.build_scene(num, device=dev)
     ms = tmk.MegaScene(scene)
     s = rtt.RenderSettings(rays_per_pixel=4, reflect_limit=5).with_sky(sky)
     o, d = _rays(dev)
     key = trng.fold_in(trng.key(0), 1)
-    before = tmk.LAUNCHES
+    before = (tmk.LAUNCHES, tmk.IMAGE_LAUNCHES)
     mean, segs, depth = tmk.render_sample_mean_mega(
         ms, s, o, d, key, want_depth=True, pixpack=pixpack)
     torch.cuda.synchronize()
-    assert tmk.LAUNCHES == before + 1
+    assert (tmk.LAUNCHES, tmk.IMAGE_LAUNCHES) == (
+        before[0] + 1, before[1] + int(num == 2))
     o_p, d_p, seed, kw = tmk.mega_inputs(ms, s, o, d, key, pixpack=pixpack)
     ref = tmk.mega_reference(ms.packed, ms.mat, o_p, d_p, seed, **kw)
     n = o.shape[1]

@@ -20,7 +20,6 @@ from raytracer_tpu.models import camera as jcam
 from raytracer_tpu.ops import film as jfilm
 from raytracer_tpu.ops import megakernel as jmk
 from raytracer_tpu.ops import rng as jrng
-from raytracer_tpu.runtime import loader as jloader
 from raytracer_tpu_torch.ops import integrator as tint
 from raytracer_tpu_torch.ops import rng as trng
 
@@ -40,13 +39,12 @@ def _port_renderer(width=64, height=64, spp=2, **kw):
     return rtt.Renderer(scene, cam, settings, seed=0, device="cpu")
 
 
-def test_renderer_matches_jax_accumulator(monkeypatch):
+def test_renderer_matches_jax_accumulator():
     r = _port_renderer(pixpack=1)
     for _ in range(2):
         r.render_frame(block=True)
     assert r.frame_num == 2 and len(r.stats_log) == 2
 
-    monkeypatch.setattr(jloader, "_get_lib", lambda: None)
     js, sky = rt.build_scene(4, seed=0)
     settings = rt.RenderSettings(rays_per_pixel=2, reflect_limit=5,
                                  antialias=True, pixpack=1).with_sky(sky)
@@ -149,6 +147,12 @@ def test_device_policy_and_unported_modes(monkeypatch):
 def test_import_leaves_jax_out():
     code = ("import sys, raytracer_tpu_torch\n"
             "import raytracer_tpu_torch.kernels.build\n"
+            "import raytracer_tpu_torch.models.bench_scenes\n"
+            "import raytracer_tpu_torch.models.obj_loader\n"
+            "import raytracer_tpu_torch.runtime.loader\n"
+            "import raytracer_tpu_torch.utils.image\n"
+            "raytracer_tpu_torch.build_scene(0)\n"
+            "raytracer_tpu_torch.build_scene(2)\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'raytracer_tpu.')) or m == 'raytracer_tpu']\n"
             "assert not bad, bad\n")

@@ -22,8 +22,8 @@ from jax.experimental import pallas as pl
 import raytracer_tpu as rt
 import raytracer_tpu_torch as rtt
 from raytracer_tpu.ops import intersect as jint
-from raytracer_tpu.runtime import loader as jloader
 from raytracer_tpu_torch.ops import sweep as tsweep
+from raytracer_tpu_torch.runtime import loader as tloader
 
 torch.set_num_threads(2)
 
@@ -35,9 +35,11 @@ UV_ABS = 1e-4            # texture UV of triangle winners
 
 
 @pytest.fixture
-def numpy_bvh(monkeypatch):
-    """Same primitive order on both sides (see test_torch_scene.py)."""
-    monkeypatch.setattr(jloader, "_get_lib", lambda: None)
+def same_bvh():
+    """Same primitive order on both sides: both packages take their
+    native BVH build where g++ builds it (see test_torch_scene.py)."""
+    from test_torch_scene import jax_native_loaded
+    assert jax_native_loaded() == tloader.native_available()
 
 
 def _rays(seed=0, n=N_RAYS):
@@ -56,7 +58,7 @@ def _rays(seed=0, n=N_RAYS):
     return o, d
 
 
-def test_nearest_hit_matches_wavefront_oracle(numpy_bvh):
+def test_nearest_hit_matches_wavefront_oracle(same_bvh):
     js, _ = rt.build_scene(4, seed=0)
     ts, _ = rtt.build_scene(4, seed=0)
     o, d = _rays()

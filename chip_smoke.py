@@ -9,17 +9,29 @@ on the card (``rt_nearest_hit``, ``rt_fetch_image``, and ``rt_megakernel``
 on scenes 4, 2 and 0), drives two paths through ``Renderer`` at 1000x800,
 20 spp, 5 bounces and times them: the bench.py path (scene 4) and the
 image-texture path (scene 2, the 256x512 earth), then times one frame of
-each bench scene of benchmarks/suite.py through the kernel. Every phase
-prints one line; any failed check raises, so the script exits non-zero. It
-also exits non-zero, before printing any result, when no CUDA device is
-available. The last line is ``{"ok": true, "device": {...}}``; the line
-before it lists the kernels with their launches on the paths, their error
-against the plain version and their times.
+each bench scene of benchmarks/suite.py through the kernel.
+
+Then the wavefront samplers: ``rt_lane_randoms`` (1M lanes), K5
+``rt_hit_resolve`` (1M rays over scenes 4 and 2) and K6
+``rt_hit_resolve_blocked`` (stress100k) against their plain versions, one
+``Renderer`` frame of each sampler (regen, scan, rebin, lanesort) against
+the plain route with rebin and lanesort bitwise equal to regen, and three
+regen paths through ``Renderer`` at 1000x800, 5 bounces: scene 4 at 20 spp
+(K5), stress100k at 4 spp (K6) and the 1024x2048 earth at 20 spp (K5 + the
+atlas gather), each with its first frame against the plain route at
+256x128.
+
+Every phase prints one line; any failed check raises, so the script exits
+non-zero. It also exits non-zero, before printing any result, when no CUDA
+device is available. The last line is ``{"ok": true, "device": {...}}``;
+the line before it lists the kernels with their launches on the paths,
+their error against the plain version and their times.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -43,11 +55,30 @@ SEGS_REL_MAX = 5e-3              # traced segments of the frame
 FRAME_MEAN_REL_MAX = 1e-3        # frame-mean radiance, kernel vs plain
 
 KERNEL_SOURCE = "raytracer_tpu_torch/csrc/megakernel.cu"
+WAVEFRONT_SOURCE = "raytracer_tpu_torch/csrc/wavefront.cu"
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke FAILED: {what}")
+
+
+def ptxas_summary(log: str) -> list:
+    """'kernel: registers, spills' per entry function of nvcc's -v log."""
+    out, name = [], "?"
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", ln)
+        if m:
+            mangled = m.group(1)
+            name = next((k for k in (
+                "hit_resolve_blocked_kernel", "hit_resolve_kernel",
+                "nearest_hit_kernel", "fetch_image_kernel",
+                "lane_randoms_kernel", "megakernel") if k in mangled),
+                mangled)
+        elif "spill" in ln or "registers" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
+    return out
 
 
 def card_line() -> str:
@@ -367,6 +398,306 @@ def phase_bench(dev) -> list:
     return recs
 
 
+def _hit_agreement(got, want) -> dict:
+    """Winner code mismatch, t error where the winners agree, and whether
+    every other output is equal there (K5 / K6 against a reference)."""
+    import torch
+    same = got[1] == want[1]
+    t_g, t_w = got[0][same], want[0][same]
+    return {"code_mismatch": float((~same).float().mean()),
+            "t_rel_max": float(((t_g - t_w).abs()
+                                / t_w.abs().clamp(min=1.0)).max()),
+            "t_abs_max": float((t_g - t_w).abs().max()),
+            "params_equal": all(torch.equal(a[same], b[same])
+                                for a, b in zip(got[2:], want[2:])),
+            "hit_share": float((want[0] < 1e30).float().mean())}
+
+
+def check_hits(rec: dict, what: str) -> None:
+    check(rec["code_mismatch"] <= HIT_CODE_MISMATCH_MAX,
+          f"{what}: winner code mismatch {rec['code_mismatch']} > "
+          f"{HIT_CODE_MISMATCH_MAX}")
+    check(rec["t_rel_max"] <= HIT_T_REL_MAX,
+          f"{what}: hit t rel err {rec['t_rel_max']} > {HIT_T_REL_MAX}")
+    check(rec["params_equal"],
+          f"{what}: winner parameters differ where the winner agrees")
+
+
+def field_rays(dev, n: int, seed: int, scene):
+    """n rays with origins uniform in the box of the scene's sphere
+    centres and triangle corners, directions uniform on the sphere."""
+    import torch
+    pts = np.concatenate([scene.sph_center.cpu().numpy(),
+                          scene.tri_v0.cpu().numpy()])
+    lo, hi = pts.min(axis=0), pts.max(axis=0)
+    g = np.random.default_rng(seed)
+    o = np.stack([g.uniform(lo[k], hi[k], n) for k in range(3)])
+    d = g.standard_normal((3, n))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    return (torch.as_tensor(o.astype(np.float32), device=dev),
+            torch.as_tensor(d.astype(np.float32), device=dev))
+
+
+def phase_lane_randoms(dev, n: int) -> dict:
+    """rt_lane_randoms against its plain version on n lanes: the per-lane
+    keys of a frame, random samples and bounces, with the russian-roulette
+    draw."""
+    import torch
+
+    from raytracer_tpu_torch.ops import rng
+    g = np.random.default_rng(6)
+    keys = rng.per_ray_keys(rng.frame_key(rng.key(0), 0),
+                            torch.arange(n, device=dev))
+    s = torch.as_tensor(g.integers(0, 20, n).astype(np.int32), device=dev)
+    b = torch.as_tensor(g.integers(0, 5, n).astype(np.int32), device=dev)
+    got = torch.cat([x.reshape(-1, n) for x in rng.lane_randoms(
+        keys, s, b, with_rr=True)])
+    want = rng.lane_randoms_reference(keys, s, b, with_rr=True)
+    uni = [0, 1, 2, 6, 7]
+    rec = {"lanes": n, "uniforms_bitwise": bool(torch.equal(got[uni],
+                                                            want[uni])),
+           "normals_bitwise": bool(torch.equal(got[3:6], want[3:6])),
+           "normals_equal_share": float((got[3:6] == want[3:6]).float()
+                                        .mean()),
+           "max_abs_err": float((got - want).abs().max()),
+           "ms": cuda_ms(lambda: rng.lane_randoms(keys, s, b, True), 20),
+           "plain_ms": cuda_ms(lambda: rng.lane_randoms_reference(
+               keys, s, b, True), 3)}
+    print("phase 8 rt_lane_randoms vs plain:", json.dumps(rec), flush=True)
+    check(rec["uniforms_bitwise"], "rt_lane_randoms uniforms differ")
+    check(rec["normals_bitwise"],
+          f"rt_lane_randoms normals differ: {rec['normals_equal_share']} "
+          f"equal, max |d| {rec['max_abs_err']}")
+    return rec
+
+
+def phase_k5(dev, n: int) -> dict:
+    """K5 (rt_hit_resolve) against the plain K5 on n rays over scenes 4
+    and 2; timed on scene 4."""
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    recs = {}
+    for num in (4, 2):
+        scene, _ = rtt.build_scene(num, seed=0, device=dev) if num == 4 \
+            else rtt.build_scene(num, device=dev)
+        ws = ic.WaveScene(scene)
+        check(not ws.blocked, f"scene {num} routed to K6")
+        o, d = field_rays(dev, n, 7 + num, scene)
+        got = ic.hit_resolve_unit(ws, o, d)
+        rec = _hit_agreement(got, ic.hit_resolve_unit(ws, o, d, plain=True))
+        rec["ms"] = cuda_ms(lambda: ic.hit_resolve_unit(ws, o, d), 5)
+        rec["plain_ms"] = cuda_ms(
+            lambda: ic.hit_resolve_unit(ws, o, d, plain=True))
+        print(f"phase 9 rt_hit_resolve (K5) vs plain, scene {num}, {n} "
+              "rays:", json.dumps(rec), flush=True)
+        check_hits(rec, f"K5 scene {num}")
+        recs[num] = rec
+    return recs
+
+
+def phase_k6(dev, n_check: int, n_time: int) -> dict:
+    """K6 (rt_hit_resolve_blocked) on stress100k against the plain K6 and
+    against K5, first on n_check rays inside the field, then on the n_time
+    rays it is timed on (about the ~800k rays a K6 launch gets on the
+    stress100k path): the timed runs' outputs are the ones checked."""
+    import torch
+
+    from raytracer_tpu_torch.models import bench_scenes
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    scene, _ = bench_scenes.stress_10k_scene(num=100000, seed=1)
+    scene = scene.to(dev)
+    wb = ic.WaveScene(scene)
+    check(wb.blocked, "stress100k not routed to K6 by fits_smem")
+    wr = ic.WaveScene(scene, blocked=False)
+
+    def against_plain_and_k5(got, plain, k5, n):
+        rec = _hit_agreement(got, plain)
+        differ = got[1] != k5[1]
+        rec.update(rays=n, vs_k5_code_mismatch=int(differ.sum()),
+                   vs_k5_mismatch_ties_only=torch.equal(got[0][differ],
+                                                        k5[0][differ]))
+        return rec
+
+    o, d = field_rays(dev, n_check, 11, scene)
+    rec = against_plain_and_k5(ic.hit_resolve_unit(wb, o, d),
+                               ic.hit_resolve_unit(wb, o, d, plain=True),
+                               ic.hit_resolve_unit(wr, o, d), n_check)
+    rec["blocks"] = wb.tables.nblocks
+    o, d = field_rays(dev, n_time, 12, scene)
+    out = {}
+
+    def run(name, ws, plain=False):
+        def fn():
+            out[name] = ic.hit_resolve_unit(ws, o, d, plain=plain)
+        return fn
+    rec["ms"] = cuda_ms(run("k6", wb), 3)
+    rec["k5_ms"] = cuda_ms(run("k5", wr), 3)
+    rec["plain_ms"] = cuda_ms(run("plain", wb, plain=True))
+    rec["timed"] = against_plain_and_k5(out["k6"], out["plain"], out["k5"],
+                                        n_time)
+    print("phase 10 rt_hit_resolve_blocked (K6) vs plain K6 and K5, "
+          "stress100k:", json.dumps(rec), flush=True)
+    for r, n in ((rec, n_check), (rec["timed"], n_time)):
+        check_hits(r, f"K6 vs plain K6 on {n} rays")
+        check(r["vs_k5_mismatch_ties_only"],
+              f"K6 and K5 pick other winners at other distances on {n} rays")
+    return rec
+
+
+def phase_samplers(dev, width: int, height: int) -> dict:
+    """One frame of each wavefront sampler through Renderer on the card
+    (scene 4, 4 spp), counts set to 0 just before and read just after;
+    each frame against the plain route on the same rays and key, rebin
+    and lanesort bitwise equal to regen, and a checkpoint round trip."""
+    import torch
+
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.ops import integrator as integ
+    from raytracer_tpu_torch.ops import rng
+    scene, sky = rtt.build_scene(4, seed=0)
+    cam = rtt.CameraConfig(width=width, height=height,
+                           position=(0.0, 0.5, -6.0))
+    frames, recs = {}, {}
+    for s in ("regen", "scan", "rebin", "lanesort"):
+        settings = rtt.RenderSettings(rays_per_pixel=4, reflect_limit=5,
+                                      antialias=True,
+                                      sampler=s).with_sky(sky)
+        r = rtt.Renderer(scene, cam, settings, seed=0, device=dev)
+        _zero_counts()
+        r.render_frame(block=True)
+        launches = _wave_counts()
+        r.check_health()
+        frames[s] = r.accum.clone()
+        ref, ref_segs = integ.render_sample_mean(
+            r.packed_scene, settings, r._o, r._d,
+            rng.frame_key(r.base_key, 0), ray_idx=r._ray_idx,
+            backend="plain")
+        stats = pixel_diff(frames[s], ref)
+        segs = r.total_segments
+        stats["segs_rel"] = abs(segs - float(ref_segs)) / float(ref_segs)
+        with tempfile.TemporaryDirectory() as tmp:
+            r.save_checkpoint(f"{tmp}/ckpt.npz")
+            r2 = rtt.Renderer(scene, cam, settings, seed=123, device=dev)
+            r2.load_checkpoint(f"{tmp}/ckpt.npz")
+        r.render_frame(block=True)
+        r2.render_frame(block=True)
+        recs[s] = {"launches": launches, "segments": segs,
+                   "vs_plain": stats,
+                   "checkpoint_bitwise": bool(torch.equal(r.accum, r2.accum))}
+        check(launches["rt_hit_resolve"] > 0
+              and launches["rt_lane_randoms"] > 0,
+              f"sampler {s}: the Renderer frame launched {launches}")
+        check_pixels(stats, f"sampler {s} frame vs the plain route")
+        check(stats["segs_rel"] <= SEGS_REL_MAX,
+              f"sampler {s}: segments differ by {stats['segs_rel']:.3g}")
+        check(recs[s]["checkpoint_bitwise"],
+              f"sampler {s}: checkpoint round trip not bitwise")
+    for s in ("rebin", "lanesort"):
+        recs[s]["bitwise_regen"] = bool(
+            torch.equal(frames[s], frames["regen"])
+            and recs[s]["segments"] == recs["regen"]["segments"])
+    print(f"phase 11 Renderer frame per sampler, scene 4 {width}x{height} "
+          "spp 4, vs the plain route; rebin / lanesort bitwise == regen:",
+          json.dumps(recs), flush=True)
+    check(all(recs[s]["bitwise_regen"] for s in ("rebin", "lanesort")),
+          "rebin or lanesort differs from regen")
+    return recs
+
+
+def _wave_counts():
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    from raytracer_tpu_torch.ops import rng
+    return {"rt_hit_resolve": ic.LAUNCHES,
+            "rt_hit_resolve_blocked": ic.BLOCKED_LAUNCHES,
+            "rt_lane_randoms": rng.LAUNCHES}
+
+
+def _zero_counts() -> None:
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    from raytracer_tpu_torch.ops import megakernel as mk
+    from raytracer_tpu_torch.ops import rng
+    ic.LAUNCHES = ic.BLOCKED_LAUNCHES = rng.LAUNCHES = 0
+    mk.LAUNCHES = mk.IMAGE_LAUNCHES = mk.FETCH_LAUNCHES = 0
+
+
+def phase_wave_path(dev, name: str, scene, sky, spp: int, pos,
+                    width=1000, height=800, check_size=(256, 128)) -> dict:
+    """One regen path through Renderer: a warm-up frame and 5 frames,
+    counts set to 0 just before and read just after; then its first frame
+    at check_size through the kernel route against the plain route."""
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.ops import integrator as integ
+    from raytracer_tpu_torch.ops import rng
+    settings = rtt.RenderSettings(rays_per_pixel=spp, reflect_limit=5,
+                                  antialias=True,
+                                  sampler="regen").with_sky(sky)
+    cam = rtt.CameraConfig(width=width, height=height, position=pos)
+    r = rtt.Renderer(scene, cam, settings, seed=0, device=dev)
+    _zero_counts()
+    r.render_frame(block=True)
+    rec = r.render_frames(5)
+    launches = _wave_counts()
+    r.check_health()
+    out = {"path": name, "spp": spp, "blocked": r.packed_scene.blocked,
+           "launches": launches,
+           "frame_ms": rec["frame_ms"] / rec["frames"],
+           "mrays_per_sec": rec["mrays_per_sec"],
+           "segments_per_frame": rec["segments"] / rec["frames"]}
+    hit_kernel = "rt_hit_resolve_blocked" if out["blocked"] else \
+        "rt_hit_resolve"
+    check(launches[hit_kernel] > 0 and launches["rt_lane_randoms"] > 0,
+          f"{name}: the path launched {launches}")
+
+    w, h = check_size
+    o, d = camera_rays(w, h, dev, position=pos)
+    order = camera_order(w, h, dev)
+    fkey = rng.frame_key(rng.key(0), 0)
+    mean, segs = integ.render_sample_mean(r.packed_scene, settings, o.T,
+                                          d.T, fkey, ray_idx=order)
+    t0 = time.perf_counter()
+    ref, ref_segs = integ.render_sample_mean(r.packed_scene, settings, o.T,
+                                             d.T, fkey, ray_idx=order,
+                                             backend="plain")
+    _sync(dev)
+    stats = pixel_diff(mean, ref)
+    stats["segs_rel"] = abs(float(segs) - float(ref_segs)) / float(ref_segs)
+    stats["plain_frame_ms"] = (time.perf_counter() - t0) * 1e3
+    out["vs_plain"] = stats
+    print(f"phase 12 wavefront path {name} {width}x{height} spp {spp}:",
+          json.dumps(out), flush=True)
+    check_pixels(stats, f"{name} first frame vs the plain route")
+    check(stats["segs_rel"] <= SEGS_REL_MAX,
+          f"{name}: segments differ by {stats['segs_rel']:.3g}")
+    check(np.isfinite(out["mrays_per_sec"]) and out["mrays_per_sec"] > 0,
+          f"{name}: no ray rate")
+    return out
+
+
+def camera_order(width: int, height: int, dev):
+    import torch
+
+    from raytracer_tpu_torch.models.camera import morton_order
+    return torch.as_tensor(morton_order(width, height), device=dev)
+
+
+def phase_wave_paths(dev) -> list:
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.models import bench_scenes
+    from raytracer_tpu_torch.models.scenes import procedural_earth_texture
+    paths = []
+    scene, sky = rtt.build_scene(4, seed=0)
+    paths.append(phase_wave_path(dev, "scene4_regen", scene, sky, 20,
+                                 (0.0, 0.0, 0.0)))
+    scene, sky = bench_scenes.stress_10k_scene(num=100000, seed=1)
+    paths.append(phase_wave_path(dev, "stress100k_regen", scene, sky, 4,
+                                 (0.0, 1.0, -4.0)))
+    scene, sky = rtt.build_scene(2,
+                                 earth_image=procedural_earth_texture(1024))
+    paths.append(phase_wave_path(dev, "earth2048_regen", scene, sky, 20,
+                                 (0.0, 0.0, 0.0)))
+    return paths
+
+
 def _sync(dev) -> None:
     import torch
     if dev.type == "cuda":
@@ -391,11 +722,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = build.build()
     build.load()
-    regs = [ln.strip() for ln in build.BUILD_INFO.get("log", "").splitlines()
-            if "registers" in ln or "spill" in ln]
     print(f"phase 2 build {time.perf_counter() - t0:.1f} s -> {lib}; "
-          + " | ".join(regs) + f"; native host BVH: "
-          f"{loader.native_available()}", flush=True)
+          + " | ".join(ptxas_summary(build.BUILD_INFO.get("log", "")))
+          + f"; native host BVH: {loader.native_available()}", flush=True)
 
     phase_hits(dev, 1 << 20)
     fetch_rec = phase_fetch(dev, 1 << 20)
@@ -404,6 +733,17 @@ def main() -> int:
     main_rec = phase_path(dev, 4, 1000, 800, 20)
     slice_rec = phase_path(dev, 2, 1000, 800, 20)
     phase_bench(dev)
+    lane_rec = phase_lane_randoms(dev, 1 << 20)
+    k5_rec = phase_k5(dev, 1 << 20)
+    k6_rec = phase_k6(dev, 1 << 16, 1 << 20)
+    samplers = phase_samplers(dev, 256, 128)
+    paths = phase_wave_paths(dev)
+    by_path = {f"scene4_256x128_{s}": r["launches"]
+               for s, r in samplers.items()}
+    by_path.update({p["path"]: p["launches"] for p in paths})
+
+    def total(kernel):
+        return sum(v[kernel] for v in by_path.values())
 
     kernels = [{
         "name": "rt_megakernel", "route": "cuda", "source": KERNEL_SOURCE,
@@ -424,7 +764,34 @@ def main() -> int:
          "launched_as": "inside rt_megakernel (its image branch) on the "
                         "scene-2 path; rt_fetch_image runs it alone",
          "max_abs_err": fetch_rec["max_abs_err"], "ms": fetch_rec["ms"],
-         "plain_ms": fetch_rec["plain_ms"]}]
+         "plain_ms": fetch_rec["plain_ms"]},
+        {"name": "rt_hit_resolve", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": "raytracer_tpu/ops/intersect_pallas.py:60",
+         "launches": total("rt_hit_resolve"),
+         "launches_by_path": {k: v["rt_hit_resolve"]
+                              for k, v in by_path.items()},
+         "max_abs_err": max(r["t_abs_max"] for r in k5_rec.values()),
+         "ms": k5_rec[4]["ms"], "plain_ms": k5_rec[4]["plain_ms"],
+         "timed": "1M rays over scene 4"},
+        {"name": "rt_hit_resolve_blocked", "route": "cuda",
+         "source": WAVEFRONT_SOURCE,
+         "replaces": "raytracer_tpu/ops/intersect_pallas.py:150",
+         "launches": total("rt_hit_resolve_blocked"),
+         "launches_by_path": {k: v["rt_hit_resolve_blocked"]
+                              for k, v in by_path.items()},
+         "max_abs_err": max(k6_rec["t_abs_max"],
+                            k6_rec["timed"]["t_abs_max"]),
+         "ms": k6_rec["ms"],
+         "plain_ms": k6_rec["plain_ms"], "k5_ms": k6_rec["k5_ms"],
+         "timed": "1M rays over stress100k"},
+        {"name": "rt_lane_randoms", "route": "cuda",
+         "source": WAVEFRONT_SOURCE,
+         "replaces": "raytracer_tpu/ops/rng.py:75 (XLA, not a TPU kernel)",
+         "launches": total("rt_lane_randoms"),
+         "launches_by_path": {k: v["rt_lane_randoms"]
+                              for k, v in by_path.items()},
+         "max_abs_err": lane_rec["max_abs_err"], "ms": lane_rec["ms"],
+         "plain_ms": lane_rec["plain_ms"], "timed": "1M lanes"}]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,9 +18,9 @@ SKY_COLOUR = (0.8, 1.0, 1.0)
 # Antialias direction-jitter half-range (src/ray.cu:4).
 ANTIALIAS_OFFSET_RANGE = 0.001
 
-# Samplers the port serves: the megakernel path only. The wavefront
-# samplers (scan / regen / rebin / lanesort) are ROADMAP item 8.
-_SERVED_SAMPLERS = ("auto", "mega")
+# Samplers the port serves: the megakernel (auto, mega) and the wavefront
+# samplers (ops/integrator.py).
+_SERVED_SAMPLERS = ("auto", "mega", "scan", "regen", "rebin", "lanesort")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +57,10 @@ class RenderSettings:
         if self.coherent:
             raise NotImplementedError(
                 "coherent=True (tile-shared scatter sampling) is not ported "
-                "yet: ROADMAP item 8")
+                "yet: ROADMAP item 11")
         if self.sampler not in _SERVED_SAMPLERS:
-            raise NotImplementedError(
-                f"sampler={self.sampler!r} is not ported yet (the wavefront "
-                "samplers are ROADMAP item 8); use 'auto' or 'mega'")
+            raise ValueError(f"unknown sampler {self.sampler!r}; use one "
+                             f"of {_SERVED_SAMPLERS}")
 
     def with_sky(self, use_sky: bool) -> "RenderSettings":
         """Cornell-box scenes zero the sky (src/main.cu:325-329)."""

@@ -1,19 +1,25 @@
-// Path-tracing megakernel, nearest-hit and image-fetch kernels for Hopper
-// (sm_90a).
+// Path-tracing megakernel, nearest-hit, wavefront hit and image-fetch
+// kernels for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of raytracer_tpu:
 //   K1  ops/megakernel.py:370-1150  _kernel, the whole spp x bounce loop
 //   K2  ops/sweep.py:491-1128       sweep_tile, the nearest hit
 //   K3  ops/sweep.py:1170           fetch_winner_param, winner parameters
 //   K4  ops/megakernel.py:260-357   _fetch_image, the image texel fetch
+//   K5  ops/intersect_pallas.py:60  _kernel, the wavefront nearest hit
+//                                   with its decoded winner parameters
 // K2, K3 and K4 are __device__ functions here, called by the entry points:
 //   rt_megakernel   K1 with K2, K3 and K4 inlined;
 //   rt_nearest_hit  K2 + K3 over a batch of rays (no randomness), so the
 //                   hit contract can be checked on the card on its own;
+//   rt_hit_resolve  K5: K2 with exact triangle division + K3, the winner's
+//                   material id, colour and smoothness decoded;
 //   rt_fetch_image  K4 over a batch of (u, v, material) queries.
 // Their plain PyTorch versions are ops/megakernel.py::mega_reference,
-// ops/sweep.py::nearest_hit_reference and
-// ops/megakernel.py::fetch_image_reference.
+// ops/sweep.py::nearest_hit_reference,
+// ops/intersect_cuda.py::hit_resolve_reference and
+// ops/megakernel.py::fetch_image_reference. The primitive tests live in
+// sweep.cuh, shared with K6 (wavefront.cu).
 //
 // Layout. One thread per lane slot of the TPU tile: thread g has tile
 // g / 4096, row r = (g % 4096) / 128 and lane l = g % 128, and owns the
@@ -67,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sweep.cuh"
+
 extern "C" {
 
 struct RtScene {
@@ -92,6 +100,15 @@ struct RtHitArgs {
   const float* o[3];
   const float* d[3];  // unit directions
   void* out[9];       // t, code, u, v, n0, n1, n2, pa, pb
+  int n;
+};
+
+struct RtResolveArgs {
+  RtScene scene;
+  const float* o[3];
+  const float* d[3];  // unit directions
+  // t, code, u, v, n0, n1, n2, mat, colour r, g, b, smoothness
+  void* out[12];
   int n;
 };
 
@@ -128,8 +145,6 @@ struct RtFetchArgs {
 
 namespace {
 
-constexpr float kEps = 1e-6f;
-constexpr float kInf = 1e30f;
 constexpr int kLanes = 128;
 constexpr int kRows = 32;
 constexpr int kTileLanes = kRows * kLanes;  // lane slots per tile
@@ -147,94 +162,30 @@ constexpr float kTexGradient = 1.0f;
 constexpr float kTexChecker = 2.0f;
 constexpr float kTexImage = 3.0f;
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-};
-
-struct Hit {
-  float t;
-  int code;  // prim * 2 + is_triangle
-  float bu, bv;
-};
-
 struct Winner {
   float u, v, n0, n1, n2;
   int pa, pb;
 };
 
-// FAST_DIV reciprocal: float32 1 / bf16(x), then one Newton step
-// (sweep.py:972-986 as Pallas interpret mode evaluates it).
-__device__ __forceinline__ float fast_recip(float x) {
-  const float xb = __bfloat162float(__float2bfloat16_rn(x));
-  const float r0 = __frcp_rn(xb);
-  return r0 * (2.0f - x * r0);
-}
-
-__device__ __forceinline__ float safe_inv(float c) {
-  return c == 0.0f ? kInf : 1.0f / c;
-}
-
-// Slab test of one AABB row against the ray (sweep.py:561-580).
-__device__ __forceinline__ bool slab(const float* __restrict__ box,
-                                     const Ray& r, float ix, float iy,
-                                     float iz, float bt) {
-  float t1 = (box[0] - r.ox) * ix;
-  float t2 = (box[3] - r.ox) * ix;
-  float tmin = fminf(t1, t2);
-  float tmax = fmaxf(t1, t2);
-  t1 = (box[1] - r.oy) * iy;
-  t2 = (box[4] - r.oy) * iy;
-  tmin = fmaxf(tmin, fminf(t1, t2));
-  tmax = fminf(tmax, fmaxf(t1, t2));
-  t1 = (box[2] - r.oz) * iz;
-  t2 = (box[5] - r.oz) * iz;
-  tmin = fmaxf(tmin, fminf(t1, t2));
-  tmax = fminf(tmax, fmaxf(t1, t2));
-  tmin = fmaxf(tmin, 0.0f);
-  return (tmin <= tmax) && (tmax > 0.0f) && (tmin < bt);
-}
-
 // Sphere i (sweep.py:821-860): half-b quadratic, NaN on a miss.
 __device__ __forceinline__ void sphere_test(const RtScene& s, int i,
                                             const Ray& r, float ddo,
                                             float osq, Hit& h) {
-  const float* __restrict__ f = s.sph_f;
-  const int n = s.n_sph;
-  const float cx = f[i], cy = f[n + i], cz = f[2 * n + i];
-  const float cr2 = f[3 * n + i];
-  const float dc = r.dx * cx + r.dy * cy + r.dz * cz;
-  const float oc = r.ox * cx + r.oy * cy + r.oz * cz;
-  const float hh = dc - ddo;
-  const float cq = (cr2 + osq) - (oc + oc);
-  const float disc = hh * hh - cq;
-  const float t = hh - sqrtf(disc);
+  const float t = sphere_t(s.sph_f + i, s.n_sph, r, ddo, osq);
   if (t > kEps && t < h.t) {
     h.t = t;
     h.code = 2 * i;
   }
 }
 
-// Triangle k (sweep.py:961-1032): Woop rows, FAST_DIV, one-way cull.
+// Triangle k (sweep.py:961-1032): Woop rows, one-way cull; FAST_DIV or
+// exact division.
+template <bool kFastDiv>
 __device__ __forceinline__ void triangle_test(const RtScene& s, int k,
                                               const Ray& r, Hit& h) {
-  const float* __restrict__ f = s.tri_f + k;
-  const int n = s.n_tri;
-#define W(row) f[(row) * n]
-  const float ow = W(8) * r.ox + W(9) * r.oy + W(10) * r.oz + W(11);
-  const float dw = W(8) * r.dx + W(9) * r.dy + W(10) * r.dz;
-  const float t = -ow * fast_recip(dw);
-  const float ou = W(0) * r.ox + W(1) * r.oy + W(2) * r.oz + W(3);
-  const float du = W(0) * r.dx + W(1) * r.dy + W(2) * r.dz;
-  const float u = ou + t * du;
-  const float ov = W(4) * r.ox + W(5) * r.oy + W(6) * r.oz + W(7);
-  const float dv = W(4) * r.dx + W(5) * r.dy + W(6) * r.dz;
-  const float v = ov + t * dv;
-  bool valid = (t > kEps) && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f);
-  if (s.has_one_way) {
-    const float cull = W(15) * r.dx + W(16) * r.dy + W(17) * r.dz;
-    valid = valid && (cull >= 0.0f);
-  }
-#undef W
+  float t, u, v;
+  const bool valid =
+      triangle_t<kFastDiv>(s.tri_f + k, s.n_tri, r, s.has_one_way, t, u, v);
   if (valid && t < h.t) {
     h.t = t;
     h.code = 2 * k + 1;
@@ -245,7 +196,7 @@ __device__ __forceinline__ void triangle_test(const RtScene& s, int k,
 
 // One pool: supers -> clusters -> leaves when the scene has them, else
 // every slot in order. Each box is gated per thread.
-template <bool kTri>
+template <bool kTri, bool kFastDiv>
 __device__ void sweep_pool(const RtScene& s, const Ray& r, float ddo,
                            float osq, float ix, float iy, float iz, Hit& h) {
   const float* __restrict__ cl = kTri ? s.tri_cl : s.sph_cl;
@@ -257,7 +208,7 @@ __device__ void sweep_pool(const RtScene& s, const Ray& r, float ddo,
   auto leaf_sweep = [&](int c) {
     for (int i = c * leaf; i < (c + 1) * leaf; ++i) {
       if (kTri) {
-        triangle_test(s, i, r, h);
+        triangle_test<kFastDiv>(s, i, r, h);
       } else {
         sphere_test(s, i, r, ddo, osq, h);
       }
@@ -280,7 +231,7 @@ __device__ void sweep_pool(const RtScene& s, const Ray& r, float ddo,
   } else {
     for (int i = 0; i < n_prim; ++i) {
       if (kTri) {
-        triangle_test(s, i, r, h);
+        triangle_test<kFastDiv>(s, i, r, h);
       } else {
         sphere_test(s, i, r, ddo, osq, h);
       }
@@ -289,13 +240,14 @@ __device__ void sweep_pool(const RtScene& s, const Ray& r, float ddo,
 }
 
 // K2: nearest hit of a unit-direction ray.
+template <bool kFastDiv>
 __device__ Hit nearest(const RtScene& s, const Ray& r) {
   const float ddo = r.dx * r.ox + r.dy * r.oy + r.dz * r.oz;
   const float osq = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
   const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
   Hit h{kInf, 0, 0.0f, 0.0f};
-  sweep_pool<false>(s, r, ddo, osq, ix, iy, iz, h);
-  sweep_pool<true>(s, r, ddo, osq, ix, iy, iz, h);
+  sweep_pool<false, kFastDiv>(s, r, ddo, osq, ix, iy, iz, h);
+  sweep_pool<true, kFastDiv>(s, r, ddo, osq, ix, iy, iz, h);
   return h;
 }
 
@@ -371,11 +323,6 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
 
-// colour30 -> channel c (2 = red, 1 = green, 0 = blue), sweep.py:100-148
-__device__ __forceinline__ float c30(int pa, int shift) {
-  return static_cast<float>((pa >> shift) & 1023) * (1.0f / 1023.0f);
-}
-
 // K4: the nearest texel of (uu, vv) in the image of width mtw and height
 // mth whose rows start at mtrow (megakernel.py:282-292). Float-to-int is
 // XLA's convert: toward zero, saturating, NaN -> 0 (__float2int_rz).
@@ -400,7 +347,7 @@ __global__ void __launch_bounds__(128)
   if (i >= a.n) return;
   const Ray r{a.o[0][i], a.o[1][i], a.o[2][i],
               a.d[0][i], a.d[1][i], a.d[2][i]};
-  const Hit h = nearest(a.scene, r);
+  const Hit h = nearest<true>(a.scene, r);
   const Winner w = fetch_winner(a.scene, h);
   static_cast<float*>(a.out[0])[i] = h.t;
   static_cast<int*>(a.out[1])[i] = h.code;
@@ -411,6 +358,33 @@ __global__ void __launch_bounds__(128)
   static_cast<float*>(a.out[6])[i] = w.n2;
   static_cast<int*>(a.out[7])[i] = w.pa;
   static_cast<int*>(a.out[8])[i] = w.pb;
+}
+
+// K5 (intersect_pallas.py:60-120): the nearest hit with exact triangle
+// division, the winner's parameters and its decoded material; a miss
+// keeps the sweep's zero carry.
+__global__ void __launch_bounds__(128)
+    hit_resolve_kernel(const RtResolveArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  const Ray r{a.o[0][i], a.o[1][i], a.o[2][i],
+              a.d[0][i], a.d[1][i], a.d[2][i]};
+  const Hit h = nearest<false>(a.scene, r);
+  Winner w = fetch_winner(a.scene, h);
+  if (!(h.t < kInf)) w = Winner{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0, 0};
+  static_cast<float*>(a.out[0])[i] = h.t;
+  static_cast<int*>(a.out[1])[i] = h.code;
+  static_cast<float*>(a.out[2])[i] = w.u;
+  static_cast<float*>(a.out[3])[i] = w.v;
+  static_cast<float*>(a.out[4])[i] = w.n0;
+  static_cast<float*>(a.out[5])[i] = w.n1;
+  static_cast<float*>(a.out[6])[i] = w.n2;
+  static_cast<int*>(a.out[7])[i] = w.pb & 0xFFFF;
+  static_cast<float*>(a.out[8])[i] = c30(w.pa, 20);
+  static_cast<float*>(a.out[9])[i] = c30(w.pa, 10);
+  static_cast<float*>(a.out[10])[i] = c30(w.pa, 0);
+  static_cast<float*>(a.out[11])[i] =
+      static_cast<float>((w.pb >> 16) & 255) * (1.0f / 255.0f);
 }
 
 // K4 alone, one thread per query.
@@ -489,7 +463,7 @@ __global__ void __launch_bounds__(128) megakernel(const RtMegaArgs a) {
     const float gx = rs * cosf(phi), gy = rs * sinf(phi), gz = z;
     const float fres_u = uni(b2);
 
-    const Hit h = nearest(s, ray);
+    const Hit h = nearest<true>(s, ray);
     const bool hit = h.t < kInf;
     if (bounce == 0 && sample == cur_k * spp) {
       out_depth[base + cur_k * kTileLanes] = h.t;
@@ -687,6 +661,14 @@ int rt_nearest_hit(const RtHitArgs* args, void* stream) {
   if (args->n <= 0) return 0;
   const int blocks = (args->n + 127) / 128;
   nearest_hit_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      *args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rt_hit_resolve(const RtResolveArgs* args, void* stream) {
+  if (args->n <= 0) return 0;
+  const int blocks = (args->n + 127) / 128;
+  hit_resolve_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       *args);
   return static_cast<int>(cudaGetLastError());
 }

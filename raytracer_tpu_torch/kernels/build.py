@@ -1,11 +1,13 @@
 """Build and bind the port's CUDA kernels.
 
-``load()`` compiles ``csrc/*.cu`` with nvcc for sm_90a into a shared
-library with a plain C interface, at first use, under ``build/`` at the
-root of the checkout (listed in .gitignore), and loads it with ctypes. The
-library file is named by a hash of the sources and flags, so a changed
-source is rebuilt and an unchanged one is reused. Nothing here runs when
-the module is imported: the CPU tests import it without nvcc.
+``load()`` compiles the CUDA sources of ``csrc/`` with nvcc for sm_90a, one
+nvcc per source, all started together, links them into one shared library
+with a plain C interface, at first use, under ``build/`` at the root of the
+checkout (listed in .gitignore), and loads it with ctypes. The library file
+is named by a hash of every CUDA source and header under ``csrc/`` and of
+the flags, so a changed file is rebuilt and an unchanged one is reused. Nothing
+here runs when the module is imported: the CPU tests import it without
+nvcc.
 
 The C interface: each entry point takes a pointer to an argument struct
 (mirrored below as ctypes Structures) and a CUDA stream, launches on that
@@ -25,11 +27,10 @@ import time
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("megakernel.cu",)
+SOURCES = ("megakernel.cu", "wavefront.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
 
 _lib = None
 # What the last build reported: seconds, library path, nvcc's output
@@ -52,10 +53,27 @@ def nvcc() -> str:
 
 
 def library_path() -> pathlib.Path:
+    """The library's path, named by a hash of the flags and of every CUDA
+    source and header under csrc/ (the build reads no other file)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return BUILD_DIR / f"libraytracer_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _run_all(cmds):
+    """Run the commands in parallel; raise with nvcc's output on a
+    failure. Returns their combined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+    return "".join(logs)
 
 
 def build() -> pathlib.Path:
@@ -64,17 +82,19 @@ def build() -> pathlib.Path:
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
+    stem = path.with_suffix(f".{os.getpid()}")
+    objs = [f"{stem}.{pathlib.Path(src).stem}.o" for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    log = _run_all([[nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)]
+                    for src, obj in zip(SOURCES, objs)])
+    tmp = f"{stem}.tmp"
+    log += _run_all([[nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                      "-shared", "-o", tmp, *objs]])
     os.replace(tmp, path)
+    for obj in objs:
+        os.remove(obj)
     BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(path),
-                      log=proc.stdout + proc.stderr)
+                      log=log)
     return path
 
 
@@ -92,6 +112,30 @@ class HitArgs(ctypes.Structure):
     _fields_ = [("scene", SceneArgs),
                 ("o", ctypes.c_void_p * 3), ("d", ctypes.c_void_p * 3),
                 ("out", ctypes.c_void_p * 9), ("n", ctypes.c_int)]
+
+
+class ResolveArgs(ctypes.Structure):
+    _fields_ = [("scene", SceneArgs),
+                ("o", ctypes.c_void_p * 3), ("d", ctypes.c_void_p * 3),
+                ("out", ctypes.c_void_p * 12), ("n", ctypes.c_int)]
+
+
+class BlockedArgs(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "sphf", "sphi", "trif", "trii", "sph_cl", "tri_cl", "sph_sup",
+        "tri_sup", "bbox")]
+        + [(n, ctypes.c_int) for n in (
+            "nblocks", "sph_blocks", "tri_blocks", "sph_leaf", "tri_leaf",
+            "sc_rows", "tc_rows", "ss_rows", "ts_rows", "has_one_way",
+            "needs_tri_uv")]
+        + [("o", ctypes.c_void_p * 3), ("d", ctypes.c_void_p * 3),
+           ("out", ctypes.c_void_p * 9), ("n", ctypes.c_int)])
+
+
+class LaneArgs(ctypes.Structure):
+    _fields_ = [("keys", ctypes.c_void_p), ("sample", ctypes.c_void_p),
+                ("bounce", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("n", ctypes.c_int), ("rows", ctypes.c_int)]
 
 
 class MegaArgs(ctypes.Structure):
@@ -145,8 +189,11 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         for name, args in (("rt_nearest_hit", HitArgs),
+                           ("rt_hit_resolve", ResolveArgs),
                            ("rt_megakernel", MegaArgs),
-                           ("rt_fetch_image", FetchArgs)):
+                           ("rt_fetch_image", FetchArgs),
+                           ("rt_hit_resolve_blocked", BlockedArgs),
+                           ("rt_lane_randoms", LaneArgs)):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
             fn.restype = ctypes.c_int

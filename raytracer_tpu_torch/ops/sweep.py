@@ -260,12 +260,16 @@ def fast_recip(x: torch.Tensor) -> torch.Tensor:
 _CHUNK_ELEMS = 1 << 24
 
 
-def _sweep_chunk(ps: PackedScene, ox, oy, oz, dx, dy, dz):
+def _sweep_chunk(sph_f: torch.Tensor, tri_f: torch.Tensor,
+                 has_one_way: bool, ox, oy, oz, dx, dy, dz,
+                 fast_div: bool = True):
     """Plain nearest hit for (n, 1) ray columns: every primitive is tested
     (no cluster gate), which gives the gated sweep's winner except where a
-    ray hits a primitive without entering its padded box."""
+    ray hits a primitive without entering its padded box. ``fast_div``
+    picks the megakernel's FAST_DIV reciprocal; False divides exactly, as
+    the wavefront kernels do (hazard H2)."""
     # spheres (sweep.py:821-860)
-    cx, cy, cz, cr2 = (ps.sph_f[k][None, :] for k in range(4))
+    cx, cy, cz, cr2 = (sph_f[k][None, :] for k in range(4))
     ddo = dx * ox + dy * oy + dz * oz
     osq = ox * ox + oy * oy + oz * oz
     dc = dx * cx + dy * cy + dz * cz
@@ -279,10 +283,10 @@ def _sweep_chunk(ps: PackedScene, ox, oy, oz, dx, dy, dz):
     s_t = torch.gather(t, 1, s_idx[:, None])[:, 0]
 
     # triangles (sweep.py:961-1032)
-    w = [ps.tri_f[k][None, :] for k in range(T_F32_ROWS)]
+    w = [tri_f[k][None, :] for k in range(T_F32_ROWS)]
     ow = w[T_WW] * ox + w[T_WW + 1] * oy + w[T_WW + 2] * oz + w[T_WW + 3]
     dw = w[T_WW] * dx + w[T_WW + 1] * dy + w[T_WW + 2] * dz
-    t = -ow * fast_recip(dw)
+    t = -ow * fast_recip(dw) if fast_div else -ow / dw
     ou = w[T_WU] * ox + w[T_WU + 1] * oy + w[T_WU + 2] * oz + w[T_WU + 3]
     du = w[T_WU] * dx + w[T_WU + 1] * dy + w[T_WU + 2] * dz
     u = ou + t * du
@@ -290,7 +294,7 @@ def _sweep_chunk(ps: PackedScene, ox, oy, oz, dx, dy, dz):
     dv = w[T_WV] * dx + w[T_WV + 1] * dy + w[T_WV + 2] * dz
     v = ov + t * dv
     valid = (t > EPS) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-    if ps.has_one_way:
+    if has_one_way:
         cull = (w[T_CULL] * dx + w[T_CULL + 1] * dy + w[T_CULL + 2] * dz)
         valid &= cull >= 0.0
     t = torch.where(valid, t, INF)
@@ -341,15 +345,17 @@ def fetch_winner(ps: PackedScene, code: torch.Tensor, bu, bv):
 
 
 def nearest_hit_reference(ps: PackedScene, o: torch.Tensor,
-                          d: torch.Tensor):
+                          d: torch.Tensor, fast_div: bool = True):
     """Plain version of ``rt_nearest_hit``: o, d (3, N) float32 with unit
-    d -> (t, code, u, v, n0, n1, n2, pa, pb), each (N,)."""
+    d -> (t, code, u, v, n0, n1, n2, pa, pb), each (N,). With
+    ``fast_div=False`` triangles divide exactly (the plain K5)."""
     n = o.shape[1]
     chunk = max(1, _CHUNK_ELEMS // max(ps.n_sph, ps.n_tri))
     parts = []
     for lo in range(0, n, chunk):
         cols = [x[lo:lo + chunk, None] for x in (*o, *d)]
-        bt, code, bu, bv = _sweep_chunk(ps, *cols)
+        bt, code, bu, bv = _sweep_chunk(ps.sph_f, ps.tri_f, ps.has_one_way,
+                                        *cols, fast_div=fast_div)
         parts.append((bt, code) + fetch_winner(ps, code, bu, bv))
     return tuple(torch.cat(p) for p in zip(*parts))
 

@@ -5,7 +5,10 @@ Port of ``raytracer_tpu/runtime/renderer.py`` for one device, without
 temporal mode. The accumulator lives on the render device and is updated
 in place every frame; frames are enqueued without a host sync until a
 caller asks for one (``block=True`` or ``render_frames``). A renderer on
-``device="cuda"`` runs the CUDA megakernel and never moves to the CPU.
+``device="cuda"`` runs the CUDA kernels (the megakernel, or K5/K6 for the
+wavefront samplers) and never moves to the CPU. The Renderer always takes
+the kernel route; the plain versions and the oracles are reached only
+through ``ops.integrator.render_sample_mean(backend=...)``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from ..config import CameraConfig, RenderSettings
 from ..models.camera import build_camera, morton_order, primary_rays
 from ..ops import film, rng
 from ..ops.integrator import render_frame, render_sample_mean
+from ..ops.intersect_cuda import WaveScene
 from ..ops.megakernel import MegaScene
 from ..utils.image import save_png
 
@@ -65,10 +69,15 @@ class Renderer:
                 settings, pixpack=8 if settings.rays_per_pixel <= 32 else 1)
         self.settings = settings
         self.scene = scene.to(self.device)
-        self._mega = MegaScene(self.scene)
+        # the scene packed once for the sampler that reads it
+        mega = settings.sampler in ("auto", "mega")
+        self._mega = MegaScene(self.scene) if mega else None
+        self._wave = None if mega else WaveScene(self.scene)
         self.camera_cfg = camera
-        # Morton order: consecutive rays cover compact screen blocks
+        # Morton order: consecutive rays cover compact screen blocks; a
+        # ray's global pixel index keys its wavefront random streams
         self._pixel_order = morton_order(camera.width, camera.height)
+        self._ray_idx = torch.as_tensor(self._pixel_order, device=self.device)
         self._o, self._d = primary_rays(
             build_camera(camera), camera.width, camera.height,
             pixel_order=self._pixel_order, device=self.device)
@@ -80,12 +89,18 @@ class Renderer:
         self.last_frame_ms = float("nan")
         self.stats_log: list = []
 
+    @property
+    def packed_scene(self):
+        """The scene as the sampler reads it: a MegaScene or a WaveScene."""
+        return self._wave if self._mega is None else self._mega
+
     # -- frame loop ----------------------------------------------------------
     def render_frame(self, block: bool = False) -> torch.Tensor:
         """Render one progressive frame; returns the (device) accumulator."""
         t0 = time.perf_counter()
-        _, segs = render_frame(self._mega, self.settings, self._o, self._d,
-                               self.accum, self.frame_num, self.base_key)
+        _, segs = render_frame(self.packed_scene, self.settings, self._o,
+                               self._d, self.accum, self.frame_num,
+                               self.base_key, ray_idx=self._ray_idx)
         if block:
             _sync(self.device)
         dt = time.perf_counter() - t0
@@ -109,8 +124,9 @@ class Renderer:
                 self.settings,
                 rays_per_pixel=self.settings.rays_per_pixel * n)
             fkey = rng.frame_key(self.base_key, self.frame_num)
-            mean, segs = render_sample_mean(self._mega, batch, self._o,
-                                            self._d, fkey)
+            mean, segs = render_sample_mean(self.packed_scene, batch,
+                                            self._o, self._d, fkey,
+                                            ray_idx=self._ray_idx)
             fn = float(self.frame_num)
             self.accum.mul_(fn).add_(mean * float(n)).div_(fn + n)
             self.frame_num += n
@@ -118,9 +134,10 @@ class Renderer:
         else:
             seg_handles = []
             for _ in range(n):
-                _, segs = render_frame(self._mega, self.settings, self._o,
-                                       self._d, self.accum, self.frame_num,
-                                       self.base_key)
+                _, segs = render_frame(self.packed_scene, self.settings,
+                                       self._o, self._d, self.accum,
+                                       self.frame_num, self.base_key,
+                                       ray_idx=self._ray_idx)
                 self.frame_num += 1
                 seg_handles.append(segs)
         _sync(self.device)

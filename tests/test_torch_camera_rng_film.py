@@ -184,6 +184,9 @@ def test_config_mirrors_jax():
 @pytest.mark.parametrize("kw", [{"coherent": True}, {"sampler": "regen"},
                                 {"sampler": "scan"}, {"sampler": "lanesort"}])
 def test_unported_settings_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        rtt.RenderSettings(**kw)
+    """Coherent (tile-shared) sampling is not ported, on any sampler; the
+    wavefront samplers themselves are served."""
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        rtt.RenderSettings(**{**kw, "coherent": True})
+    rtt.RenderSettings(**{**kw, "coherent": False})
     rtt.RenderSettings(sampler="mega", coherent=False)

@@ -143,3 +143,125 @@ def test_cuda_renderer_checkpoint_is_bitwise(dev, tmp_path):
     r2.render_frame(block=True)
     assert torch.equal(r.accum, r2.accum)
     assert r.image().shape == (64, 96, 3)
+
+
+# -- the wavefront samplers' kernels: rt_lane_randoms, K5, K6 ---------------
+
+def _field_scene(dev, n_sph=6000, n_tri=40, seed=3):
+    """Random spheres, a few textured triangles and a one-way quad: more
+    than one 4096-sphere block, so K6 pops and merges several blocks."""
+    g = np.random.default_rng(seed)
+    b = SceneBuilder()
+    b.add_spheres(g.uniform(-10, 10, (n_sph, 3)), g.uniform(0.1, 0.4, n_sph),
+                  Material.standard(Texture.const_colour((1, 1, 1)), 0.3),
+                  colours=g.uniform(0, 1, (n_sph, 3)))
+    white = Material.standard(Texture.checkerboard((1, 1, 1), (0, 0, 0), 4),
+                              0)
+    for _ in range(n_tri):
+        p = g.uniform(-10, 10, 3)
+        b.add_triangle(p, p + g.uniform(-1, 1, 3), p + g.uniform(-1, 1, 3),
+                       white, uvs=((0, 0), (1, 0), (0, 1)))
+    # a one-way quad: the kernels read the triangles' cull rows too
+    b.add_one_way_quad((-8, -8, 0), (8, -8, 0), (8, 8, 0), (-8, 8, 0),
+                       False, white)
+    scene = b.build(device=dev)
+    assert scene.has_one_way and scene.needs_tri_uv
+    return scene
+
+
+def _field_rays(dev, n, seed=4):
+    g = np.random.default_rng(seed)
+    o = g.uniform(-10, 10, (3, n)).astype(np.float32)
+    d = g.standard_normal((3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    return torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
+
+
+def test_lane_randoms_kernel_matches_plain(dev):
+    """rt_lane_randoms: key folds and uniforms bitwise, normals too (the
+    same float32 operations and CUDA's log1pf on both sides)."""
+    from raytracer_tpu_torch.ops import rng
+    n = 1 << 16
+    g = np.random.default_rng(9)
+    keys = rng.per_ray_keys(rng.key(5), torch.arange(n, device=dev))
+    s = torch.as_tensor(g.integers(0, 64, n).astype(np.int32), device=dev)
+    b = torch.as_tensor(g.integers(0, 6, n).astype(np.int32), device=dev)
+    for sample, rr in ((s, False), (s, True), (None, False)):
+        before = rng.LAUNCHES
+        got = rng.lane_randoms(keys, sample, b, with_rr=rr)
+        torch.cuda.synchronize()
+        assert rng.LAUNCHES == before + 1
+        want = rng.lane_randoms_reference(keys, sample, b, with_rr=rr)
+        got = torch.cat([got[0], got[1], got[2][None]] +
+                        ([got[3][None]] if rr else []))
+        uni = [0, 1, 2, 6] + ([7] if rr else [])
+        assert torch.equal(got[uni], want[uni])
+        assert torch.equal(got[3:6], want[3:6])
+
+
+def _k5_k6_agree(got, want, code_mismatch_max=1e-4):
+    same = got[1] == want[1]
+    assert float((~same).float().mean()) <= code_mismatch_max
+    t_g, t_w = got[0][same], want[0][same]
+    assert float(((t_g - t_w).abs() / t_w.abs().clamp(min=1.0)).max()) \
+        <= 1e-5
+    for a, b in zip(got[2:], want[2:]):
+        assert torch.equal(a[same], b[same])
+
+
+def test_hit_resolve_kernel_matches_plain(dev):
+    """K5 (rt_hit_resolve) against its plain version on scene 4 and on a
+    textured triangle scene."""
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    for scene in (rtt.build_scene(4, seed=0, device=dev)[0],
+                  _field_scene(dev, n_sph=300)):
+        ws = ic.WaveScene(scene, blocked=False)
+        o, d = _field_rays(dev, 1 << 15)
+        before = ic.LAUNCHES
+        got = ic.hit_resolve_unit(ws, o, d)
+        torch.cuda.synchronize()
+        assert ic.LAUNCHES == before + 1
+        _k5_k6_agree(got, ic.hit_resolve_unit(ws, o, d, plain=True))
+
+
+def test_hit_resolve_blocked_kernel_matches_plain(dev):
+    """K6 (rt_hit_resolve_blocked) against plain K6 on two sphere blocks,
+    and against K5 on the same rays: only exact ties may differ."""
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    scene = _field_scene(dev)
+    wb = ic.WaveScene(scene, blocked=True)
+    assert wb.tables.nblocks == 2
+    o, d = _field_rays(dev, 1 << 15)
+    before = ic.BLOCKED_LAUNCHES
+    got = ic.hit_resolve_unit(wb, o, d)
+    torch.cuda.synchronize()
+    assert ic.BLOCKED_LAUNCHES == before + 1
+    _k5_k6_agree(got, ic.hit_resolve_unit(wb, o, d, plain=True))
+    k5 = ic.hit_resolve_unit(ic.WaveScene(scene, blocked=False), o, d)
+    differ = got[1] != k5[1]
+    assert torch.equal(got[0][differ], k5[0][differ])
+
+
+@pytest.mark.parametrize("sampler", ["regen", "scan", "rebin", "lanesort"])
+def test_wavefront_frame_matches_plain_route(dev, sampler):
+    """One small frame of each wavefront sampler through a Renderer on the
+    card (K5 and the lane randoms launched) against the plain route (every
+    kernel replaced by its plain version) on the same rays and key."""
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    from raytracer_tpu_torch.ops import integrator as tint
+    scene, sky = rtt.build_scene(4, seed=0)
+    s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=5,
+                           sampler=sampler).with_sky(sky)
+    cam = rtt.CameraConfig(width=64, height=32, position=(0.0, 0.5, -6.0))
+    r = rtt.Renderer(scene, cam, s, device=dev)
+    before = (ic.LAUNCHES, trng.LAUNCHES)
+    r.render_frame(block=True)
+    assert ic.LAUNCHES > before[0] and trng.LAUNCHES > before[1]
+    assert r.accum.device.type == "cuda"
+    ref, ref_segs = tint.render_sample_mean(
+        r.packed_scene, s, r._o, r._d, trng.frame_key(r.base_key, 0),
+        ray_idx=r._ray_idx, backend="plain")
+    err = (r.accum - ref).abs().amax(dim=1)
+    assert float((err <= PIXEL_ABS).float().mean()) >= PIXEL_SHARE_MIN
+    assert abs(r.total_segments - float(ref_segs)) <= \
+        SEGS_REL * float(ref_segs)

@@ -11,7 +11,8 @@
 // K2, K3 and K4 are __device__ functions here, called by the entry points:
 //   rt_megakernel   K1 with K2, K3 and K4 inlined;
 //   rt_nearest_hit  K2 + K3 over a batch of rays (no randomness), so the
-//                   hit contract can be checked on the card on its own;
+//                   hit contract can be checked on the card on its own,
+//                   with the same group walk as K1;
 //   rt_hit_resolve  K5: K2 with exact triangle division + K3, the winner's
 //                   material id, colour and smoothness decoded; with a
 //                   stats pointer, also each ray's primitive-test count
@@ -23,43 +24,60 @@
 // primitive_tests_reference) and ops/megakernel.py::fetch_image_reference.
 // The primitive tests live in sweep.cuh, shared with K6 (wavefront.cu).
 //
-// Layout. One thread per lane slot of the TPU tile: thread g has tile
-// g / 4096, row r = (g % 4096) / 128 and lane l = g % 128, and owns the
-// pixpack (K) pixels tile*4096*K + (k*32 + r)*128 + l, k = 0..K-1 (the JAX
-// layout, megakernel.py:435-449, with one stream of 32 rows). Each thread
-// runs its own loop until its budget of spp*K samples is spent; a retired
-// lane of the TPU tile loop is a no-op, so the per-lane results are the
-// same. Random bits come from the counter hash that the JAX kernel uses in
-// interpret mode (megakernel.py:406-417, 560-571), keyed by (frame key
-// words, global tile, loop iteration, element id), so this kernel, its
-// plain version and the JAX interpret-mode kernel draw the same bits.
-// Coherent sampling (megakernel.py:525-559, 636) keys the draw by the
-// tile alone: every thread of a tile hashes the same seven elements of an
-// iteration (lane 0 of an 8-row draw) and so scatters alike after a
-// bounce. Each thread computes the seven hashes itself.
+// Layout. A group of G consecutive threads of a warp (G = 1, 2, 4 or 8,
+// a template parameter the wrapper picks by a rule) shares one lane slot
+// of the TPU tile: group g has tile g / 4096, row r = (g % 4096) / 128 and
+// lane l = g % 128, and owns the pixpack (K) pixels
+// tile*4096*K + (k*32 + r)*128 + l, k = 0..K-1 (the JAX layout,
+// megakernel.py:435-449, with one stream of 32 rows). Each group runs its
+// own loop until its budget of spp*K samples is spent; a retired lane of
+// the TPU tile loop is a no-op, so the per-lane results are the same.
+// Every thread of a group carries the same path state and computes the
+// same hashes; only the group's leader (rank 0) writes the outputs. Random
+// bits come from the counter hash that the JAX kernel uses in interpret
+// mode (megakernel.py:406-417, 560-571), keyed by (frame key words, global
+// tile, loop iteration, element id), so this kernel, its plain version and
+// the JAX interpret-mode kernel draw the same bits. Coherent sampling
+// (megakernel.py:525-559, 636) keys the draw by the tile alone: every
+// thread of a tile hashes the same seven elements of an iteration (lane 0
+// of an 8-row draw) and so scatters alike after a bounce.
 //
-// Sweep. Each thread walks the cluster arrays of pack_scene in index
-// order: supers (if any), then the clusters they cover, each behind a slab
-// test against the thread's own best t, then the leaf primitives; spheres
-// first, triangles second, strict '<' throughout, so an exact tie keeps
-// the first primitive visited. Two differences from the TPU tile sweep:
-// the gate is per thread (the tile sweeps a leaf when any lane enters its
-// box, so a ray that misses a padded box can still win a primitive there
-// through float error on the TPU, and cannot here), and scenes with cell
-// orders are walked in index order instead of the tile's near-first order
-// (that changes only which of two exactly tied primitives in different
-// clusters wins).
+// Sweep (K2, nearest_group). The group walks the cluster arrays of
+// pack_scene near-first: it slab-tests the boxes of a level (supers, then
+// the clusters under the super being visited, or the clusters alone)
+// strided over its G threads, each thread keeping its kNearSlots nearest
+// entered boxes in registers, and visits the nearest remaining box of the
+// group (shuffles) until that box is entered beyond the group's best t.
+// The primitives of a leaf are strided over the G threads and each leaf's
+// candidates are merged with __shfl_xor_sync on the key (t, is_triangle,
+// primitive index): the plain version's argmin, where an exact tie goes to
+// the sphere, then to the lower index (ops/sweep.py:301-325). So the
+// visit order does not show in the result, and gating a box entered
+// beyond the best t leaves the ungated argmin. A box entered exactly at
+// the best t is still visited: it may hold a tied primitive of lower key.
+// The gate is per group (the TPU tile sweeps a leaf when any lane enters
+// its box, so a ray that misses a padded box can still win a primitive
+// there through float error on the TPU, and cannot here). stage_boxes
+// copies the gate tables into shared memory per block when the wrapper
+// asks. K5 keeps the one-thread index-order walk (sweep_pool), whose
+// primitive-test counts depend on the visit order. group = 0 runs K1 and
+// rt_nearest_hit on that walk too, one thread per lane slot with the sums
+// kept in global memory, as the design before the groups did: the
+// baseline that chip_smoke.py times the groups against.
 //
-// What bounds it on an H100: each thread runs a long, divergent loop of
+// What bounds it on an H100: each lane slot runs a long, divergent loop of
 // dependent scalar float math and data-dependent branches (hit or miss,
 // material, path end). It is bound by latency, occupancy and registers,
 // not by bytes: the scene is ~4 KB for the RTiOW scene and stays in L1/L2,
-// the card draws a small share of its power limit while it runs, and a
-// frame gets faster with more threads in flight (smaller pixpack; PERF.md).
-// What this first design does about that: nothing yet. It is written to
-// be right first; the scene stays in global memory behind const
-// __restrict__ pointers and per-pixel sums are read-modify-written in
-// global memory by their owning thread.
+// and a frame gets faster with more threads in flight. What the design
+// does about that: at the Renderer's pixpack of 8 a 1000x800 frame has
+// only 102,400 lane slots, under half of what the card keeps resident, so
+// G threads share each slot: G times the threads without changing any
+// random stream, the slot's serial chain of box and primitive tests cut
+// by about G, and 32/G paths a warp instead of 32, so a warp diverges
+// less. The near-first gate prunes the boxes behind the first hits (the
+// stress scenes' hundreds of supers). Per-pixel sums stay in registers
+// and are written once per pixel.
 //
 // Numerics. Built with IEEE division and sqrt (no --use_fast_math: the
 // NaN-on-miss sphere test and the 0/0 padding triangles need IEEE NaN
@@ -107,6 +125,7 @@ struct RtHitArgs {
   const float* d[3];  // unit directions
   void* out[9];       // t, code, u, v, n0, n1, n2, pa, pb
   int n;
+  int group;          // threads per ray: 1, 2, 4, 8; 0 = the baseline walk
 };
 
 struct RtResolveArgs {
@@ -134,6 +153,8 @@ struct RtMegaArgs {
   int need_sphere_uv, has_refractive, coherent;
   float inv_spp;
   float sky[3];
+  int group;        // threads per lane slot: 1, 2, 4, 8; 0 = the baseline
+  int stage_boxes;  // copy the gate tables into shared memory per block
 };
 
 struct RtFetchArgs {
@@ -276,6 +297,229 @@ __device__ Hit nearest(const RtScene& s, const Ray& r) {
   return nearest<kFastDiv, false>(s, r, unused);
 }
 
+// ---- K2 for a group of G threads that share one ray ----------------------
+
+// Entered boxes one thread of a group keeps, nearest first, in registers.
+constexpr int kNearSlots = 4;
+constexpr int kNoBox = 0x7FFFFFFF;
+
+// The G threads of a warp that share one lane slot: their lanes and the
+// thread's rank among them. Groups are aligned to G within the warp.
+template <int G>
+struct Group {
+  unsigned mask;
+  int rank;
+};
+
+template <int G>
+__device__ __forceinline__ Group<G> this_group() {
+  const int lane = threadIdx.x & 31;
+  return Group<G>{((1u << G) - 1u) << (lane & ~(G - 1)), lane & (G - 1)};
+}
+
+// The plain version's order of hits: t, then spheres before triangles,
+// then the lower primitive index (code = 2 * index + is_triangle).
+__device__ __forceinline__ uint32_t hit_rank(int code) {
+  return (static_cast<uint32_t>(code & 1) << 31) |
+         static_cast<uint32_t>(code >> 1);
+}
+
+__device__ __forceinline__ bool hit_before(float t, int code, const Hit& h) {
+  return t < h.t || (t == h.t && hit_rank(code) < hit_rank(h.code));
+}
+
+// Every thread of the group ends with the group's first hit in that order;
+// a triangle's barycentrics ride with it.
+template <int G>
+__device__ __forceinline__ void merge_hits(Hit& h, unsigned mask) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    const float t = __shfl_xor_sync(mask, h.t, off);
+    const int code = __shfl_xor_sync(mask, h.code, off);
+    const float bu = __shfl_xor_sync(mask, h.bu, off);
+    const float bv = __shfl_xor_sync(mask, h.bv, off);
+    if (hit_before(t, code, h)) h = Hit{t, code, bu, bv};
+  }
+}
+
+__device__ __forceinline__ void sphere_candidate(const RtScene& s, int i,
+                                                 const Ray& r, float ddo,
+                                                 float osq, Hit& h) {
+  const float t = sphere_t(s.sph_f + i, s.n_sph, r, ddo, osq);
+  if (t > kEps && hit_before(t, 2 * i, h)) {
+    h.t = t;
+    h.code = 2 * i;
+  }
+}
+
+__device__ __forceinline__ void triangle_candidate(const RtScene& s, int k,
+                                                   const Ray& r, Hit& h) {
+  float t, u, v;
+  if (triangle_t<true>(s.tri_f + k, s.n_tri, r, s.has_one_way, t, u, v) &&
+      hit_before(t, 2 * k + 1, h)) {
+    h = Hit{t, 2 * k + 1, u, v};
+  }
+}
+
+// (entry, index) order of two boxes.
+__device__ __forceinline__ bool box_before(float e, int i, float f, int j) {
+  return e < f || (e == f && i < j);
+}
+
+// Visit boxes first .. first + count - 1 of a gate table (rows of 8
+// floats) that the ray enters no later than the group's best t, nearest
+// first, calling visit(box) with the whole group. Thread rank tests boxes
+// first + rank, + G, ... and keeps its kNearSlots nearest not yet visited
+// in a sorted register list; the group visits the nearest head of its
+// threads' lists. A thread that dropped boxes from a full list lists them
+// again, past the last box it gave up, when its list runs empty. visit()
+// must leave h equal across the group, as merge_hits does.
+template <int G, typename Visit>
+__device__ __forceinline__ void near_first(const float* __restrict__ boxes,
+                                           int first, int count,
+                                           const Ray& r, float ix, float iy,
+                                           float iz, Hit& h,
+                                           const Group<G>& grp,
+                                           Visit&& visit) {
+  float le[kNearSlots];
+  int li[kNearSlots];
+  int len = 0;
+  bool more = true;      // entered boxes may remain unlisted
+  float last_e = -1.0f;  // the last box this thread gave up
+  int last_i = -1;
+  while (true) {
+    if (len == 0 && more) {
+      more = false;
+      for (int b = first + grp.rank; b < first + count; b += G) {
+        const float e = box_entry(boxes + 8 * b, r, ix, iy, iz);
+        if (!(e < kInf && e <= h.t) || !box_before(last_e, last_i, e, b)) {
+          continue;
+        }
+        float ce = e;
+        int ci = b;
+#pragma unroll
+        for (int k = 0; k < kNearSlots; ++k) {
+          if (k < len) {
+            if (box_before(ce, ci, le[k], li[k])) {
+              const float te = le[k];
+              const int ti = li[k];
+              le[k] = ce;
+              li[k] = ci;
+              ce = te;
+              ci = ti;
+            }
+          } else if (k == len) {
+            le[k] = ce;
+            li[k] = ci;
+          }
+        }
+        if (len < kNearSlots) {
+          ++len;
+        } else {
+          more = true;
+        }
+      }
+    }
+    float e = len > 0 ? le[0] : kInf;
+    int i = len > 0 ? li[0] : kNoBox;
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+      const float oe = __shfl_xor_sync(grp.mask, e, off);
+      const int oi = __shfl_xor_sync(grp.mask, i, off);
+      if (box_before(oe, oi, e, i)) {
+        e = oe;
+        i = oi;
+      }
+    }
+    if (!(e < kInf && e <= h.t)) break;
+    if (len > 0 && li[0] == i) {
+      last_e = le[0];
+      last_i = i;
+#pragma unroll
+      for (int k = 0; k + 1 < kNearSlots; ++k) {
+        le[k] = le[k + 1];
+        li[k] = li[k + 1];
+      }
+      --len;
+    }
+    visit(i);
+  }
+}
+
+// One pool, walked by the group: supers -> clusters -> leaves near-first
+// when the scene has them, else every slot strided over the group.
+template <bool kTri, int G>
+__device__ __forceinline__ void group_pool(const RtScene& s, const Ray& r,
+                                           float ddo, float osq, float ix,
+                                           float iy, float iz, Hit& h,
+                                           const Group<G>& grp) {
+  const float* __restrict__ cl = kTri ? s.tri_cl : s.sph_cl;
+  const float* __restrict__ sup = kTri ? s.tri_sup : s.sph_sup;
+  const int n_cl = kTri ? s.n_tri_cl : s.n_sph_cl;
+  const int n_sup = kTri ? s.n_tri_sup : s.n_sph_sup;
+  const int leaf = kTri ? s.tri_leaf : s.sph_leaf;
+  const int n_prim = kTri ? s.n_tri : s.n_sph;
+  auto test = [&](int i) {
+    if (kTri) {
+      triangle_candidate(s, i, r, h);
+    } else {
+      sphere_candidate(s, i, r, ddo, osq, h);
+    }
+  };
+  auto leaf_sweep = [&](int c) {
+    for (int i = c * leaf + grp.rank; i < (c + 1) * leaf; i += G) test(i);
+    merge_hits<G>(h, grp.mask);
+  };
+  if (n_sup > 0) {
+    near_first<G>(sup, 0, n_sup, r, ix, iy, iz, h, grp, [&](int g) {
+      const float* box = sup + 8 * g;
+      near_first<G>(cl, static_cast<int>(box[6]), static_cast<int>(box[7]),
+                    r, ix, iy, iz, h, grp, leaf_sweep);
+    });
+  } else if (n_cl > 0) {
+    near_first<G>(cl, 0, n_cl, r, ix, iy, iz, h, grp, leaf_sweep);
+  } else {
+    for (int i = grp.rank; i < n_prim; i += G) test(i);
+    merge_hits<G>(h, grp.mask);
+  }
+}
+
+// K2 for a group: every thread of the group returns the same hit, the
+// plain version's winner (FAST_DIV triangles).
+template <int G>
+__device__ Hit nearest_group(const RtScene& s, const Ray& r,
+                             const Group<G>& grp) {
+  const float ddo = r.dx * r.ox + r.dy * r.oy + r.dz * r.oz;
+  const float osq = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+  const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
+  Hit h{kInf, 0, 0.0f, 0.0f};
+  group_pool<false, G>(s, r, ddo, osq, ix, iy, iz, h, grp);
+  group_pool<true, G>(s, r, ddo, osq, ix, iy, iz, h, grp);
+  return h;
+}
+
+// Copy the four gate tables into the block's shared memory and point the
+// scene at the copies; every thread of the block calls it.
+__device__ __forceinline__ void stage_boxes(RtScene& s, float* smem) {
+  const float* src[4] = {s.sph_cl, s.tri_cl, s.sph_sup, s.tri_sup};
+  const int rows[4] = {s.n_sph_cl, s.n_tri_cl, s.n_sph_sup, s.n_tri_sup};
+  float* dst[4];
+  float* at = smem;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    dst[k] = at;
+    for (int j = threadIdx.x; j < 8 * rows[k]; j += blockDim.x) {
+      at[j] = src[k][j];
+    }
+    at += 8 * rows[k];
+  }
+  __syncthreads();
+  s.sph_cl = dst[0];
+  s.tri_cl = dst[1];
+  s.sph_sup = dst[2];
+  s.tri_sup = dst[3];
+}
+
 // K3: the winner's centre or normal, colour30, smooth|mat and texture UV
 // (megakernel.py:651-701 over pack_param_planes).
 __device__ Winner fetch_winner(const RtScene& s, const Hit& h) {
@@ -370,13 +614,23 @@ __device__ __forceinline__ int fetch_texel(const int* __restrict__ tex,
   return tex[ty * kLanes + (u_i & (kLanes - 1))];
 }
 
+// K2 + K3 over a batch of rays, G threads a ray (the baseline: one thread
+// a ray on the index-order walk).
+template <int G, bool kBaseline>
 __global__ void __launch_bounds__(128)
     nearest_hit_kernel(const RtHitArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (i >= a.n) return;  // whole groups: the G threads share i
   const Ray r{a.o[0][i], a.o[1][i], a.o[2][i],
               a.d[0][i], a.d[1][i], a.d[2][i]};
-  const Hit h = nearest<true>(a.scene, r);
+  const Group<G> grp = this_group<G>();
+  Hit h;
+  if constexpr (kBaseline) {
+    h = nearest<true>(a.scene, r);
+  } else {
+    h = nearest_group<G>(a.scene, r, grp);
+  }
+  if (grp.rank != 0) return;
   const Winner w = fetch_winner(a.scene, h);
   static_cast<float*>(a.out[0])[i] = h.t;
   static_cast<int*>(a.out[1])[i] = h.code;
@@ -434,11 +688,25 @@ __global__ void __launch_bounds__(128) fetch_image_kernel(const RtFetchArgs a) {
   a.out[2][i] = c30(texel, 0);
 }
 
-// K1 (megakernel.py:370-1150), one thread per lane slot.
-__global__ void __launch_bounds__(128) megakernel(const RtMegaArgs a) {
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= a.n_tiles * kTileLanes) return;
-  const RtScene& s = a.scene;
+// Blocks of 128 threads an SM must keep resident for K1's group arms:
+// it caps their registers (ptxas -v; PERF.md).
+constexpr int kMegaMinBlocks = 1;
+
+// K1 (megakernel.py:370-1150), G threads per lane slot; the baseline arm
+// (kBaseline, G = 1) keeps the index-order walk and the per-pixel sums in
+// global memory.
+template <int G, bool kBaseline>
+__global__ void __launch_bounds__(128, kBaseline ? 1 : kMegaMinBlocks)
+    megakernel(const RtMegaArgs a) {
+  extern __shared__ float4 staged[];
+  RtScene s = a.scene;
+  if (!kBaseline && a.stage_boxes) {
+    stage_boxes(s, reinterpret_cast<float*>(staged));
+  }
+  const int g = (blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (g >= a.n_tiles * kTileLanes) return;  // whole groups
+  const Group<G> grp = this_group<G>();
+  const bool leader = grp.rank == 0;
   const int tile = g / kTileLanes;
   const int rl = g % kTileLanes;  // r * 128 + l
   const int K = a.pixpack;
@@ -455,18 +723,21 @@ __global__ void __launch_bounds__(128) megakernel(const RtMegaArgs a) {
   const float* __restrict__ mat = a.mat;
   const int nm = a.n_mat;
 
-  for (int k = 0; k < K; ++k) {
-    const int p = base + k * kTileLanes;
-    out_r[p] = 0.0f;
-    out_g[p] = 0.0f;
-    out_b[p] = 0.0f;
-    out_depth[p] = kInf;
+  if (leader) {
+    for (int k = 0; k < K; ++k) {
+      const int p = base + k * kTileLanes;
+      out_r[p] = 0.0f;
+      out_g[p] = 0.0f;
+      out_b[p] = 0.0f;
+      out_depth[p] = kInf;
+    }
   }
 
   Ray ray{a.o[0][base], a.o[1][base], a.o[2][base],
           a.d[0][base], a.d[1][base], a.d[2][base]};
   float tr = 1.0f, tg = 1.0f, tb = 1.0f;  // throughput
   float rr = 0.0f, rg = 0.0f, rb = 0.0f;  // path radiance
+  float sr = 0.0f, sg = 0.0f, sb = 0.0f;  // the pixel's banked sum
   float ior = 1.0f;
   float segs = 0.0f;
   int bounce = 0, sample = 0, cur_k = 0;
@@ -512,9 +783,14 @@ __global__ void __launch_bounds__(128) megakernel(const RtMegaArgs a) {
     const float gx = rs * cosf(phi), gy = rs * sinf(phi), gz = z;
     const float fres_u = uni(b2);
 
-    const Hit h = nearest<true>(s, ray);
+    Hit h;
+    if constexpr (kBaseline) {
+      h = nearest<true>(s, ray);
+    } else {
+      h = nearest_group<G>(s, ray, grp);
+    }
     const bool hit = h.t < kInf;
-    if (bounce == 0 && sample == cur_k * spp) {
+    if (leader && bounce == 0 && sample == cur_k * spp) {
       out_depth[base + cur_k * kTileLanes] = h.t;
     }
 
@@ -677,12 +953,29 @@ __global__ void __launch_bounds__(128) megakernel(const RtMegaArgs a) {
     if (!continues || bounce + 1 >= a.limit) {
       // bank the path into its pixel, regenerate onto the next sample
       const int p = base + cur_k * kTileLanes;
-      out_r[p] = out_r[p] + rr;
-      out_g[p] = out_g[p] + rg;
-      out_b[p] = out_b[p] + rb;
+      if constexpr (kBaseline) {
+        out_r[p] = out_r[p] + rr;
+        out_g[p] = out_g[p] + rg;
+        out_b[p] = out_b[p] + rb;
+      } else {
+        sr = sr + rr;
+        sg = sg + rg;
+        sb = sb + rb;
+      }
       ++sample;
       bounce = 0;
-      if (sample == (cur_k + 1) * spp) cur_k = min(cur_k + 1, K - 1);
+      if (sample == (cur_k + 1) * spp) {
+        if constexpr (!kBaseline) {
+          // the pixel's last sample: its mean, once
+          if (leader) {
+            out_r[p] = sr * a.inv_spp;
+            out_g[p] = sg * a.inv_spp;
+            out_b[p] = sb * a.inv_spp;
+          }
+          sr = sg = sb = 0.0f;
+        }
+        cur_k = min(cur_k + 1, K - 1);
+      }
       const int q = base + cur_k * kTileLanes;
       ray = Ray{a.o[0][q], a.o[1][q], a.o[2][q],
                 a.d[0][q], a.d[1][q], a.d[2][q]};
@@ -694,12 +987,57 @@ __global__ void __launch_bounds__(128) megakernel(const RtMegaArgs a) {
     }
   }
 
+  if (!leader) return;
   for (int k = 0; k < K; ++k) {
     const int p = base + k * kTileLanes;
-    out_r[p] = out_r[p] * a.inv_spp;
-    out_g[p] = out_g[p] * a.inv_spp;
-    out_b[p] = out_b[p] * a.inv_spp;
+    if constexpr (kBaseline) {
+      out_r[p] = out_r[p] * a.inv_spp;
+      out_g[p] = out_g[p] * a.inv_spp;
+      out_b[p] = out_b[p] * a.inv_spp;
+    }
     a.out[3][p] = k == 0 ? segs : 0.0f;
+  }
+}
+
+// Dynamic shared memory of stage_boxes: the four gate tables.
+size_t staged_bytes(const RtScene& s) {
+  return sizeof(float) * 8 *
+         static_cast<size_t>(s.n_sph_cl + s.n_tri_cl + s.n_sph_sup +
+                             s.n_tri_sup);
+}
+
+template <int G, bool kBaseline>
+int launch_nearest(const RtHitArgs& a, cudaStream_t st) {
+  const int blocks = static_cast<int>(
+      (static_cast<long long>(a.n) * G + 127) / 128);
+  nearest_hit_kernel<G, kBaseline><<<blocks, 128, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int G, bool kBaseline>
+int launch_mega(const RtMegaArgs& a, cudaStream_t st) {
+  const int blocks = a.n_tiles * kTileLanes / 128 * G;
+  const size_t smem = a.stage_boxes ? staged_bytes(a.scene) : 0;
+  megakernel<G, kBaseline><<<blocks, 128, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel instance of (kind, group): kind 0 is K1, 1 rt_nearest_hit;
+// group 0 is the baseline arm. Null for another group.
+template <int G, bool kBaseline>
+const void* kernel_ptr(int kind) {
+  return kind ? (const void*)nearest_hit_kernel<G, kBaseline>
+              : (const void*)megakernel<G, kBaseline>;
+}
+
+const void* kernel_of(int kind, int group) {
+  switch (group) {
+    case 0: return kernel_ptr<1, true>(kind);
+    case 1: return kernel_ptr<1, false>(kind);
+    case 2: return kernel_ptr<2, false>(kind);
+    case 4: return kernel_ptr<4, false>(kind);
+    case 8: return kernel_ptr<8, false>(kind);
+    default: return nullptr;
   }
 }
 
@@ -709,10 +1047,35 @@ extern "C" {
 
 int rt_nearest_hit(const RtHitArgs* args, void* stream) {
   if (args->n <= 0) return 0;
-  const int blocks = (args->n + 127) / 128;
-  nearest_hit_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      *args);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (args->group) {
+    case 0: return launch_nearest<1, true>(*args, st);
+    case 1: return launch_nearest<1, false>(*args, st);
+    case 2: return launch_nearest<2, false>(*args, st);
+    case 4: return launch_nearest<4, false>(*args, st);
+    case 8: return launch_nearest<8, false>(*args, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Blocks of 128 threads that one SM keeps resident for kernel `kind` (0:
+// K1, 1: rt_nearest_hit) at group size `group` (0: the baseline arm) with
+// `smem` bytes of dynamic shared memory, and the device's SM count.
+int rt_occupancy(int kind, int group, int smem, int* blocks_per_sm,
+                 int* sm_count) {
+  const void* fn = kernel_of(kind, group);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) {
+    rc = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount,
+                                dev);
+  }
+  if (rc == cudaSuccess) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, 128,
+                                                       smem);
+  }
+  return static_cast<int>(rc);
 }
 
 int rt_hit_resolve(const RtResolveArgs* args, void* stream) {
@@ -737,9 +1100,18 @@ int rt_fetch_image(const RtFetchArgs* args, void* stream) {
 
 int rt_megakernel(const RtMegaArgs* args, void* stream) {
   if (args->n_tiles <= 0) return 0;
-  const int blocks = args->n_tiles * kTileLanes / 128;
-  megakernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(*args);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (args->group == 0 && args->stage_boxes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (args->group) {
+    case 0: return launch_mega<1, true>(*args, st);
+    case 1: return launch_mega<1, false>(*args, st);
+    case 2: return launch_mega<2, false>(*args, st);
+    case 4: return launch_mega<4, false>(*args, st);
+    case 8: return launch_mega<8, false>(*args, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* rt_error_string(int code) {

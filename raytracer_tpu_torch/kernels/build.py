@@ -111,7 +111,8 @@ class SceneArgs(ctypes.Structure):
 class HitArgs(ctypes.Structure):
     _fields_ = [("scene", SceneArgs),
                 ("o", ctypes.c_void_p * 3), ("d", ctypes.c_void_p * 3),
-                ("out", ctypes.c_void_p * 9), ("n", ctypes.c_int)]
+                ("out", ctypes.c_void_p * 9), ("n", ctypes.c_int),
+                ("group", ctypes.c_int)]
 
 
 class ResolveArgs(ctypes.Structure):
@@ -158,7 +159,8 @@ class MegaArgs(ctypes.Structure):
                     "fix_exit_ior", "need_sphere_uv", "has_refractive",
                     "coherent")]
                 + [("inv_spp", ctypes.c_float),
-                   ("sky", ctypes.c_float * 3)])
+                   ("sky", ctypes.c_float * 3),
+                   ("group", ctypes.c_int), ("stage_boxes", ctypes.c_int)])
 
 
 class FetchArgs(ctypes.Structure):
@@ -223,6 +225,9 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.rt_occupancy.argtypes = [ctypes.c_int] * 3 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        lib.rt_occupancy.restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -5,9 +5,12 @@ codecs, ``pack_scene`` and ``pack_param_planes`` (bitwise the same arrays),
 and the sweep's hit math. On the TPU the sweep walks a tile of rays through
 cluster gates (K2, sweep.py:491) and fetches the winner's parameters with
 lane gathers (K3, sweep.py:1170). Here both are ``__device__`` functions of
-``csrc/megakernel.cu``: each thread walks the same cluster arrays for its
-own ray. ``nearest_hit`` runs them alone over a batch of rays
+``csrc/megakernel.cu``: a group of G threads walks the cluster arrays
+near-first for one ray, the boxes and a leaf's primitives strided over the
+group. ``nearest_hit`` runs them alone over a batch of rays
 (``rt_nearest_hit``); ``nearest_hit_reference`` is its plain version.
+``group_size`` is the rule that picks G from the rays (or the megakernel's
+lane slots) and the threads the card keeps resident.
 
 The hit contract, kept by both versions:
 
@@ -18,8 +21,11 @@ The hit contract, kept by both versions:
   ``1 / bf16(dw)`` in float32 plus one Newton step, which is what
   ``pl.reciprocal(approx=True)`` evaluates to in Pallas interpret mode;
   all-zero padding rows give ``t = NaN``;
-- ``t > 1e-6`` and a strict ``t < best`` over spheres in index order, then
-  triangles in index order, so an exact tie goes to the first primitive.
+- ``t > 1e-6``, and the winner is the first hit in the order (t,
+  is_triangle, primitive index): an exact tie goes to the sphere, then to
+  the lower index, whatever order the kernel visits the boxes in. The
+  plain version's argmin over each pool, with ``is_tri = t_t < s_t``, is
+  that order.
 """
 
 from __future__ import annotations
@@ -51,6 +57,57 @@ T_I32_ROWS = 2
 
 # Launches of the rt_nearest_hit kernel by ``nearest_hit``.
 LAUNCHES = 0
+
+# Threads that share one ray in rt_nearest_hit and one lane slot in
+# rt_megakernel (the kernels' template instances), and the waves of
+# resident threads the group rule fills (set from the G sweep, PERF.md).
+# Group 0, which only the private ``_group`` keywords take, is the
+# baseline: one thread a ray on the index-order walk of the design before
+# the groups.
+GROUPS = (1, 2, 4, 8)
+GROUP_WAVES = 1
+KIND_MEGAKERNEL, KIND_NEAREST = 0, 1
+
+
+def group_size(slots: int, resident) -> int:
+    """G for ``slots`` lane slots or rays: the largest G of GROUPS whose
+    ``slots * G`` threads fit in GROUP_WAVES waves of the threads the card
+    keeps resident, ``resident[G]``; 1 when none does."""
+    for g in sorted(GROUPS, reverse=True):
+        if slots * g <= GROUP_WAVES * resident[g]:
+            return g
+    return 1
+
+
+def check_group(group) -> None:
+    if group is not None and group not in (0,) + GROUPS:
+        raise ValueError(f"group must be one of {(0,) + GROUPS}, got {group}")
+
+
+def resident_threads(kind: int, group: int, smem: int = 0) -> int:
+    """Threads of the kernel ``kind`` at ``group`` that the current CUDA
+    device keeps resident at once (cudaOccupancy..., times its SMs)."""
+    key = (kind, group, smem, torch.cuda.current_device())
+    if key not in _RESIDENT:
+        from ..kernels import build
+        lib = build.load()
+        blocks, sms = ctypes.c_int(), ctypes.c_int()
+        rc = lib.rt_occupancy(kind, group, smem, ctypes.byref(blocks),
+                              ctypes.byref(sms))
+        build.check(lib, rc, "rt_occupancy")
+        _RESIDENT[key] = blocks.value * 128 * sms.value
+    return _RESIDENT[key]
+
+
+_RESIDENT: dict = {}
+
+
+def pick_group(kind: int, slots: int, group=None) -> int:
+    """``group`` when given, else the rule's G for ``slots``."""
+    check_group(group)
+    if group is not None:
+        return group
+    return group_size(slots, {g: resident_threads(kind, g) for g in GROUPS})
 
 
 def leaf_size(n: int) -> int:
@@ -381,16 +438,20 @@ def _check_rays(o: torch.Tensor, d: torch.Tensor):
         raise ValueError("o and d must match in shape and device")
 
 
-def nearest_hit(ps: PackedScene, o: torch.Tensor, d: torch.Tensor):
+def nearest_hit(ps: PackedScene, o: torch.Tensor, d: torch.Tensor, *,
+                _group=None):
     """Nearest hit + winner parameters for rays o, d (3, N), unit d.
 
     CPU tensors take ``nearest_hit_reference``; CUDA tensors launch
-    ``rt_nearest_hit`` (or raise). Returns (t, code, u, v, n0, n1, n2,
-    pa, pb), each (N,): t f32 (1e30 = miss), code i32 = prim * 2 +
-    is_triangle, u/v f32 texture UV of a triangle winner, n f32 sphere
-    centre or triangle normal, pa colour30 i32, pb smooth|mat i32.
+    ``rt_nearest_hit`` (or raise) with G threads a ray, G by
+    ``group_size`` (``_group`` forces it, for the tests and chip_smoke.py).
+    Returns (t, code, u, v, n0, n1, n2, pa, pb), each (N,): t f32
+    (1e30 = miss), code i32 = prim * 2 + is_triangle, u/v f32 texture UV
+    of a triangle winner, n f32 sphere centre or triangle normal, pa
+    colour30 i32, pb smooth|mat i32.
     """
     _check_rays(o, d)
+    check_group(_group)
     if o.device.type == "cpu":
         return nearest_hit_reference(ps, o, d)
     if o.device.type != "cuda" or ps.device != o.device:
@@ -411,7 +472,8 @@ def nearest_hit(ps: PackedScene, o: torch.Tensor, d: torch.Tensor):
     args = build.HitArgs(
         scene=build.scene_args(ps),
         o=build.ptrs3(o), d=build.ptrs3(d),
-        out=(ctypes.c_void_p * 9)(*[x.data_ptr() for x in outs]), n=n)
+        out=(ctypes.c_void_p * 9)(*[x.data_ptr() for x in outs]), n=n,
+        group=pick_group(KIND_NEAREST, n, _group))
     rc = lib.rt_nearest_hit(ctypes.byref(args),
                             ctypes.c_void_p(build.stream(o.device)))
     build.check(lib, rc, "rt_nearest_hit")

@@ -10,12 +10,20 @@ float32 operations in the same order (the kernels are built without FMA
 contraction) and draw the same hash bits, so they are held tightly: a
 pixel may differ only where a path runs another way, which the per-thread
 cluster gate could cause for a ray that hits a primitive without entering
-its padded box.
+its padded box. The megakernel and rt_nearest_hit are held bitwise at
+every group size G (``GROUP_CASES``: the rule's G, each forced G and the
+baseline walk, group 0), on scenes 4 and 2, stress10k tiles and the
+exact-tie scene of tie_scene.py.
 """
+
+import dataclasses
+import functools
 
 import numpy as np
 import pytest
 import torch
+
+import tie_scene
 
 import raytracer_tpu_torch as rtt
 from raytracer_tpu_torch.models import camera as tcam
@@ -29,8 +37,17 @@ from raytracer_tpu_torch.ops import sweep as tsweep
 PIXEL_ABS = 1e-4
 PIXEL_SHARE_MIN = 0.99
 SEGS_REL = 5e-3
+# None: the group rule's G; 0: the baseline walk; then each G
+GROUP_CASES = [None, 0, 1, 2, 4, 8]
 
 pytestmark = pytest.mark.cuda
+
+
+def _force_group(monkeypatch, group):
+    """Make render_sample_mean_mega launch rt_megakernel at ``group``."""
+    if group is not None:
+        monkeypatch.setattr(tmk, "_mega_cuda", functools.partial(
+            tmk._mega_cuda, _group=group))
 
 
 @pytest.fixture
@@ -40,15 +57,16 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _rays(dev, width=128, height=64):
-    cfg = rtt.CameraConfig(width=width, height=height)
+def _rays(dev, width=128, height=64, **cam):
+    cfg = rtt.CameraConfig(width=width, height=height, **cam)
     o, d = tcam.primary_rays(tcam.build_camera(cfg), width, height,
                              pixel_order=tcam.morton_order(width, height),
                              device=dev)
     return o.T.contiguous(), d.T.contiguous()
 
 
-def test_nearest_hit_kernel_matches_plain(dev):
+@pytest.mark.parametrize("group", GROUP_CASES)
+def test_nearest_hit_kernel_matches_plain(dev, group):
     scene, _ = rtt.build_scene(4, seed=0, device=dev)
     ps = tsweep.pack(scene)
     g = np.random.default_rng(5)
@@ -59,7 +77,7 @@ def test_nearest_hit_kernel_matches_plain(dev):
     d /= np.linalg.norm(d, axis=0, keepdims=True)
     o, d = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
     before = tsweep.LAUNCHES
-    got = tsweep.nearest_hit(ps, o, d)
+    got = tsweep.nearest_hit(ps, o, d, _group=group)
     torch.cuda.synchronize()
     assert tsweep.LAUNCHES == before + 1
     want = tsweep.nearest_hit_reference(ps, o, d)
@@ -68,6 +86,39 @@ def test_nearest_hit_kernel_matches_plain(dev):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a[same], b[same])
+        assert torch.equal(a, b)
+
+
+def _tie_scene(dev):
+    """tie_scene.py's scene with A duplicated into another cluster."""
+    from raytracer_tpu_torch.models.materials import Material as TMaterial
+    scene = tie_scene.build(SceneBuilder(), TMaterial.default())
+    c, r, cl, ab = tie_scene.duplicate_a(
+        scene.sph_center.numpy(), scene.sph_radius.numpy(),
+        scene.sph_clusters.numpy(), int(scene.sph_leaf))
+    scene = dataclasses.replace(scene, sph_center=torch.as_tensor(c),
+                                sph_radius=torch.as_tensor(r),
+                                sph_clusters=torch.as_tensor(cl))
+    return scene.to(dev), ab
+
+
+@pytest.mark.parametrize("group", GROUP_CASES)
+def test_nearest_hit_kernel_exact_ties(dev, group):
+    """On exact ties (a sphere and a triangle at one t; two identical
+    spheres in two clusters, entered in either order) the kernel returns
+    the plain version's winner at every G: the sphere, then the lower
+    index."""
+    scene, ab = _tie_scene(dev)
+    ps = tsweep.pack(scene)
+    o, d = (torch.as_tensor(x, device=dev) for x in tie_scene.rays())
+    got = tsweep.nearest_hit(ps, o, d, _group=group)
+    want = tsweep.nearest_hit_reference(ps, o, d)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    n = tie_scene.N_AXIS
+    assert bool((got[1][n:2 * n] == 2 * min(ab)).all())
+    assert not bool((got[1] == 2 * max(ab)).any())
+    assert bool(((got[1] & 1)[:n] == 0).all())
 
 
 def test_fetch_image_kernel_matches_plain(dev):
@@ -101,10 +152,13 @@ def test_fetch_image_kernel_matches_plain(dev):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("group", GROUP_CASES)
 @pytest.mark.parametrize("num", [4, 2])
 @pytest.mark.parametrize("pixpack", [1, 8])
-def test_megakernel_matches_plain(dev, pixpack, num):
-    """Scene 4 and scene 2 (the image-textured earth: K4 inside K1)."""
+def test_megakernel_matches_plain(dev, pixpack, num, group, monkeypatch):
+    """Scene 4 and scene 2 (the image-textured earth: K4 inside K1), at
+    every group size: bitwise with mega_reference."""
+    _force_group(monkeypatch, group)
     scene, sky = rtt.build_scene(num, seed=0, device=dev) if num == 4 else \
         rtt.build_scene(num, device=dev)
     ms = tmk.MegaScene(scene)
@@ -125,14 +179,19 @@ def test_megakernel_matches_plain(dev, pixpack, num):
     ref_segs = float(ref[3, :n].double().sum())
     assert abs(float(segs) - ref_segs) <= SEGS_REL * ref_segs
     assert torch.equal(depth < tmk.INF, ref[4, :n] < tmk.INF)
+    assert torch.equal(mean, ref[:3, :n]) and torch.equal(depth, ref[4, :n])
+    assert float(segs) == ref_segs
 
 
+@pytest.mark.parametrize("group", GROUP_CASES)
 @pytest.mark.parametrize("rr", [0, 2])
 @pytest.mark.parametrize("pixpack", [1, 8])
-def test_coherent_megakernel_matches_plain(dev, pixpack, rr):
+def test_coherent_megakernel_matches_plain(dev, pixpack, rr, group,
+                                           monkeypatch):
     """rt_megakernel's coherent arm (one draw per tile and iteration)
     against mega_reference's on scene 4 at 256x128, russian roulette off
-    and on: held as tightly as the per-lane arm."""
+    and on, at every group size: bitwise, as the per-lane arm."""
+    _force_group(monkeypatch, group)
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
     ms = tmk.MegaScene(scene)
     s = rtt.RenderSettings(rays_per_pixel=4, reflect_limit=5, coherent=True,
@@ -152,11 +211,42 @@ def test_coherent_megakernel_matches_plain(dev, pixpack, rr):
     assert float((err <= PIXEL_ABS).float().mean()) >= PIXEL_SHARE_MIN
     ref_segs = float(ref[3, :n].double().sum())
     assert abs(float(segs) - ref_segs) <= SEGS_REL * ref_segs
+    assert torch.equal(mean, ref[:3, :n]) and float(segs) == ref_segs
     per_lane, _ = tmk.render_sample_mean_mega(
         ms, rtt.RenderSettings(rays_per_pixel=4, reflect_limit=5,
                                russian_roulette=rr).with_sky(sky),
         o, d, key, pixpack=pixpack)
     assert not torch.equal(per_lane, mean)
+
+
+def _tiles_vs_plain(ms, s, o, d, key, tiles, group):
+    """rt_megakernel at ``group`` and mega_reference on the megakernel
+    tiles t0 <= t < t1 of the frame (their rays, their tile offset):
+    (kernel, plain) (5, pixels) outputs."""
+    o_p, d_p, seed, kw = tmk.mega_inputs(ms, s, o, d, key)
+    per = tmk.MEGA_TILE * kw["pixpack"]
+    a, b = tiles[0] * per, tiles[1] * per
+    o_p, d_p = o_p[:, a:b].contiguous(), d_p[:, a:b].contiguous()
+    seed = (seed[0], seed[1], seed[2] + tiles[0])
+    got = tmk._mega_cuda(ms.packed, ms.mat, o_p, d_p, seed, **kw,
+                         _group=group)
+    return got, tmk.mega_reference(ms.packed, ms.mat, o_p, d_p, seed, **kw)
+
+
+def test_megakernel_stress10k_tiles(dev):
+    """Two 1000x800 stress10k tiles (64 supers over 313 clusters) at G = 8
+    and pixpack 8: bitwise with mega_reference."""
+    from raytracer_tpu_torch.models import bench_scenes
+    scene, sky = bench_scenes.stress_10k_scene(num=10000, seed=1)
+    ms = tmk.MegaScene(scene.to(dev))
+    assert ms.packed.n_sph_sup > 0
+    s = rtt.RenderSettings(rays_per_pixel=4, reflect_limit=5,
+                           pixpack=8).with_sky(sky)
+    o, d = _rays(dev, 1000, 800, position=(0.0, 1.0, -4.0))
+    got, want = _tiles_vs_plain(ms, s, o, d, trng.fold_in(trng.key(0), 4),
+                                (11, 13), 8)
+    assert torch.equal(got, want)
+    assert float((want[4] < tmk.INF).float().mean()) > 0.5
 
 
 def test_cuda_renderer_checkpoint_is_bitwise(dev, tmp_path):

@@ -45,9 +45,9 @@
 // Sweep (K2, nearest_group). The group walks the cluster arrays of
 // pack_scene near-first: it slab-tests the boxes of a level (supers, then
 // the clusters under the super being visited, or the clusters alone)
-// strided over its G threads, each thread keeping its kNearSlots nearest
-// entered boxes in registers, and visits the nearest remaining box of the
-// group (shuffles) until that box is entered beyond the group's best t.
+// strided over its G threads, each thread listing its nearest
+// entered boxes in shared memory, and visits the nearest remaining box of
+// the group (shuffles) until that box is entered beyond the group's best t.
 // The primitives of a leaf are strided over the G threads and each leaf's
 // candidates are merged with __shfl_xor_sync on the key (t, is_triangle,
 // primitive index): the plain version's argmin, where an exact tie goes to
@@ -57,13 +57,12 @@
 // the best t is still visited: it may hold a tied primitive of lower key.
 // The gate is per group (the TPU tile sweeps a leaf when any lane enters
 // its box, so a ray that misses a padded box can still win a primitive
-// there through float error on the TPU, and cannot here). stage_boxes
-// copies the gate tables into shared memory per block when the wrapper
-// asks. K5 keeps the one-thread index-order walk (sweep_pool), whose
-// primitive-test counts depend on the visit order. group = 0 runs K1 and
-// rt_nearest_hit on that walk too, one thread per lane slot with the sums
-// kept in global memory, as the design before the groups did: the
-// baseline that chip_smoke.py times the groups against.
+// there through float error on the TPU, and cannot here). K5 keeps the
+// one-thread index-order walk (sweep_pool), whose primitive-test counts
+// depend on the visit order. group = 0 runs K1 and rt_nearest_hit on that
+// walk too, one thread per lane slot with the sums kept in global memory,
+// as the design before the groups did: the baseline that chip_smoke.py
+// times the groups against.
 //
 // What bounds it on an H100: each lane slot runs a long, divergent loop of
 // dependent scalar float math and data-dependent branches (hit or miss,
@@ -153,8 +152,7 @@ struct RtMegaArgs {
   int need_sphere_uv, has_refractive, coherent;
   float inv_spp;
   float sky[3];
-  int group;        // threads per lane slot: 1, 2, 4, 8; 0 = the baseline
-  int stage_boxes;  // copy the gate tables into shared memory per block
+  int group;  // threads per lane slot: 1, 2, 4, 8; 0 = the baseline
 };
 
 struct RtFetchArgs {
@@ -299,8 +297,13 @@ __device__ Hit nearest(const RtScene& s, const Ray& r) {
 
 // ---- K2 for a group of G threads that share one ray ----------------------
 
-// Entered boxes one thread of a group keeps, nearest first, in registers.
-constexpr int kNearSlots = 4;
+// The near-first walk's box list in shared memory: kListSlots entered
+// clusters a thread (a pool without supers has at most 16 by the scene
+// build), the block's threads interleaved (entry k of a thread at
+// k * kBlock). Both kernels that walk in groups launch kBlock threads a
+// block.
+constexpr int kBlock = 128;
+constexpr int kListSlots = 16;
 constexpr int kNoBox = 0x7FFFFFFF;
 
 // The G threads of a warp that share one lane slot: their lanes and the
@@ -309,12 +312,14 @@ template <int G>
 struct Group {
   unsigned mask;
   int rank;
+  int base;  // the group's first lane in the warp
 };
 
 template <int G>
 __device__ __forceinline__ Group<G> this_group() {
   const int lane = threadIdx.x & 31;
-  return Group<G>{((1u << G) - 1u) << (lane & ~(G - 1)), lane & (G - 1)};
+  return Group<G>{((1u << G) - 1u) << (lane & ~(G - 1)), lane & (G - 1),
+                  lane & ~(G - 1)};
 }
 
 // The plain version's order of hits: t, then spheres before triangles,
@@ -342,11 +347,14 @@ __device__ __forceinline__ void merge_hits(Hit& h, unsigned mask) {
   }
 }
 
+// hit_before for a candidate of the pool being walked: the key is read
+// only when t does not lose outright (t <= h.t is rare), and a sphere's
+// rank is its code while the best is a sphere (spheres are walked first).
 __device__ __forceinline__ void sphere_candidate(const RtScene& s, int i,
                                                  const Ray& r, float ddo,
                                                  float osq, Hit& h) {
   const float t = sphere_t(s.sph_f + i, s.n_sph, r, ddo, osq);
-  if (t > kEps && hit_before(t, 2 * i, h)) {
+  if (t > kEps && t <= h.t && (t < h.t || 2 * i < h.code)) {
     h.t = t;
     h.code = 2 * i;
   }
@@ -356,7 +364,7 @@ __device__ __forceinline__ void triangle_candidate(const RtScene& s, int k,
                                                    const Ray& r, Hit& h) {
   float t, u, v;
   if (triangle_t<true>(s.tri_f + k, s.n_tri, r, s.has_one_way, t, u, v) &&
-      hit_before(t, 2 * k + 1, h)) {
+      t <= h.t && (t < h.t || ((h.code & 1) && 2 * k + 1 < h.code))) {
     h = Hit{t, 2 * k + 1, u, v};
   }
 }
@@ -369,59 +377,57 @@ __device__ __forceinline__ bool box_before(float e, int i, float f, int j) {
 // Visit boxes first .. first + count - 1 of a gate table (rows of 8
 // floats) that the ray enters no later than the group's best t, nearest
 // first, calling visit(box) with the whole group. Thread rank tests boxes
-// first + rank, + G, ... and keeps its kNearSlots nearest not yet visited
-// in a sorted register list; the group visits the nearest head of its
-// threads' lists. A thread that dropped boxes from a full list lists them
-// again, past the last box it gave up, when its list runs empty. visit()
-// must leave h equal across the group, as merge_hits does.
+// first + rank, + G, ... and lists its kListSlots nearest not yet visited,
+// sorted, in ``list`` (its shared-memory column); the group visits the
+// nearest head of its threads' lists. A thread that dropped boxes from a
+// full list lists them again, past the last box it gave up, when its list
+// runs out. visit() must leave h equal across the group, as merge_hits
+// does.
 template <int G, typename Visit>
 __device__ __forceinline__ void near_first(const float* __restrict__ boxes,
                                            int first, int count,
                                            const Ray& r, float ix, float iy,
                                            float iz, Hit& h,
                                            const Group<G>& grp,
+                                           float2* __restrict__ list,
                                            Visit&& visit) {
-  float le[kNearSlots];
-  int li[kNearSlots];
-  int len = 0;
+  int head = 0, len = 0;
   bool more = true;      // entered boxes may remain unlisted
   float last_e = -1.0f;  // the last box this thread gave up
   int last_i = -1;
   while (true) {
-    if (len == 0 && more) {
+    if (head == len && more) {
+      head = len = 0;
       more = false;
       for (int b = first + grp.rank; b < first + count; b += G) {
         const float e = box_entry(boxes + 8 * b, r, ix, iy, iz);
         if (!(e < kInf && e <= h.t) || !box_before(last_e, last_i, e, b)) {
           continue;
         }
-        float ce = e;
-        int ci = b;
-#pragma unroll
-        for (int k = 0; k < kNearSlots; ++k) {
-          if (k < len) {
-            if (box_before(ce, ci, le[k], li[k])) {
-              const float te = le[k];
-              const int ti = li[k];
-              le[k] = ce;
-              li[k] = ci;
-              ce = te;
-              ci = ti;
-            }
-          } else if (k == len) {
-            le[k] = ce;
-            li[k] = ci;
-          }
-        }
-        if (len < kNearSlots) {
-          ++len;
-        } else {
+        if (len == kListSlots) {  // full: the farthest of the list drops
           more = true;
+          const float2 tail = list[(kListSlots - 1) * kBlock];
+          if (!box_before(e, b, tail.x, __float_as_int(tail.y))) continue;
+          --len;
         }
+        int k = len;
+        for (; k > 0; --k) {
+          const float2 prev = list[(k - 1) * kBlock];
+          if (!box_before(e, b, prev.x, __float_as_int(prev.y))) break;
+          list[k * kBlock] = prev;
+        }
+        list[k * kBlock] = make_float2(e, __int_as_float(b));
+        ++len;
       }
     }
-    float e = len > 0 ? le[0] : kInf;
-    int i = len > 0 ? li[0] : kNoBox;
+    float e = kInf;
+    int own = kNoBox;
+    if (head < len) {
+      const float2 top = list[head * kBlock];
+      e = top.x;
+      own = __float_as_int(top.y);
+    }
+    int i = own;
 #pragma unroll
     for (int off = G / 2; off > 0; off >>= 1) {
       const float oe = __shfl_xor_sync(grp.mask, e, off);
@@ -432,27 +438,58 @@ __device__ __forceinline__ void near_first(const float* __restrict__ boxes,
       }
     }
     if (!(e < kInf && e <= h.t)) break;
-    if (len > 0 && li[0] == i) {
-      last_e = le[0];
+    if (own == i) {
+      last_e = e;
       last_i = i;
-#pragma unroll
-      for (int k = 0; k + 1 < kNearSlots; ++k) {
-        le[k] = le[k + 1];
-        li[k] = li[k + 1];
-      }
-      --len;
+      ++head;
     }
     visit(i);
   }
 }
 
-// One pool, walked by the group: supers -> clusters -> leaves near-first
-// when the scene has them, else every slot strided over the group.
+// Visit the boxes first .. first + count - 1 that the ray enters no later
+// than the group's best t in index order, G at a time: thread rank tests
+// box c + rank of each chunk c, and the group visits the chunk's entered
+// boxes in order, each gated again against the best t it meets. A group
+// of one tests and visits box by box, with no warp intrinsic.
+template <int G, typename Visit>
+__device__ __forceinline__ void in_order(const float* __restrict__ boxes,
+                                         int first, int count, const Ray& r,
+                                         float ix, float iy, float iz, Hit& h,
+                                         const Group<G>& grp, Visit&& visit) {
+  if constexpr (G == 1) {
+    for (int b = first; b < first + count; ++b) {
+      const float e = box_entry(boxes + 8 * b, r, ix, iy, iz);
+      if (e < kInf && e <= h.t) visit(b);
+    }
+  } else {
+    for (int c = first; c < first + count; c += G) {
+      const int b = c + grp.rank;
+      const float e =
+          b < first + count ? box_entry(boxes + 8 * b, r, ix, iy, iz) : kInf;
+      unsigned entered =
+          (__ballot_sync(grp.mask, e < kInf && e <= h.t) >> grp.base) &
+          ((1u << G) - 1u);
+      while (entered) {
+        const int k = __ffs(entered) - 1;
+        entered &= entered - 1;
+        const float ek = __shfl_sync(grp.mask, e, grp.base + k);
+        if (ek <= h.t) visit(c + k);
+      }
+    }
+  }
+}
+
+// One pool, walked by the group: supers -> clusters -> leaves in index
+// order (the groups of a warp then test the same boxes and sweep the same
+// leaves together), clusters -> leaves near-first in a pool without
+// supers, else every slot strided over the group.
 template <bool kTri, int G>
 __device__ __forceinline__ void group_pool(const RtScene& s, const Ray& r,
                                            float ddo, float osq, float ix,
                                            float iy, float iz, Hit& h,
-                                           const Group<G>& grp) {
+                                           const Group<G>& grp,
+                                           float2* __restrict__ lists) {
   const float* __restrict__ cl = kTri ? s.tri_cl : s.sph_cl;
   const float* __restrict__ sup = kTri ? s.tri_sup : s.sph_sup;
   const int n_cl = kTri ? s.n_tri_cl : s.n_sph_cl;
@@ -471,13 +508,13 @@ __device__ __forceinline__ void group_pool(const RtScene& s, const Ray& r,
     merge_hits<G>(h, grp.mask);
   };
   if (n_sup > 0) {
-    near_first<G>(sup, 0, n_sup, r, ix, iy, iz, h, grp, [&](int g) {
+    in_order<G>(sup, 0, n_sup, r, ix, iy, iz, h, grp, [&](int g) {
       const float* box = sup + 8 * g;
-      near_first<G>(cl, static_cast<int>(box[6]), static_cast<int>(box[7]),
-                    r, ix, iy, iz, h, grp, leaf_sweep);
+      in_order<G>(cl, static_cast<int>(box[6]), static_cast<int>(box[7]), r,
+                  ix, iy, iz, h, grp, leaf_sweep);
     });
   } else if (n_cl > 0) {
-    near_first<G>(cl, 0, n_cl, r, ix, iy, iz, h, grp, leaf_sweep);
+    near_first<G>(cl, 0, n_cl, r, ix, iy, iz, h, grp, lists, leaf_sweep);
   } else {
     for (int i = grp.rank; i < n_prim; i += G) test(i);
     merge_hits<G>(h, grp.mask);
@@ -485,39 +522,20 @@ __device__ __forceinline__ void group_pool(const RtScene& s, const Ray& r,
 }
 
 // K2 for a group: every thread of the group returns the same hit, the
-// plain version's winner (FAST_DIV triangles).
+// plain version's winner (FAST_DIV triangles). The block has kBlock
+// threads.
 template <int G>
 __device__ Hit nearest_group(const RtScene& s, const Ray& r,
                              const Group<G>& grp) {
+  __shared__ float2 box_lists[kListSlots * kBlock];
+  float2* lists = box_lists + threadIdx.x;
   const float ddo = r.dx * r.ox + r.dy * r.oy + r.dz * r.oz;
   const float osq = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
   const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
   Hit h{kInf, 0, 0.0f, 0.0f};
-  group_pool<false, G>(s, r, ddo, osq, ix, iy, iz, h, grp);
-  group_pool<true, G>(s, r, ddo, osq, ix, iy, iz, h, grp);
+  group_pool<false, G>(s, r, ddo, osq, ix, iy, iz, h, grp, lists);
+  group_pool<true, G>(s, r, ddo, osq, ix, iy, iz, h, grp, lists);
   return h;
-}
-
-// Copy the four gate tables into the block's shared memory and point the
-// scene at the copies; every thread of the block calls it.
-__device__ __forceinline__ void stage_boxes(RtScene& s, float* smem) {
-  const float* src[4] = {s.sph_cl, s.tri_cl, s.sph_sup, s.tri_sup};
-  const int rows[4] = {s.n_sph_cl, s.n_tri_cl, s.n_sph_sup, s.n_tri_sup};
-  float* dst[4];
-  float* at = smem;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    dst[k] = at;
-    for (int j = threadIdx.x; j < 8 * rows[k]; j += blockDim.x) {
-      at[j] = src[k][j];
-    }
-    at += 8 * rows[k];
-  }
-  __syncthreads();
-  s.sph_cl = dst[0];
-  s.tri_cl = dst[1];
-  s.sph_sup = dst[2];
-  s.tri_sup = dst[3];
 }
 
 // K3: the winner's centre or normal, colour30, smooth|mat and texture UV
@@ -617,7 +635,7 @@ __device__ __forceinline__ int fetch_texel(const int* __restrict__ tex,
 // K2 + K3 over a batch of rays, G threads a ray (the baseline: one thread
 // a ray on the index-order walk).
 template <int G, bool kBaseline>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kBlock)
     nearest_hit_kernel(const RtHitArgs a) {
   const int i = (blockIdx.x * blockDim.x + threadIdx.x) / G;
   if (i >= a.n) return;  // whole groups: the G threads share i
@@ -688,21 +706,20 @@ __global__ void __launch_bounds__(128) fetch_image_kernel(const RtFetchArgs a) {
   a.out[2][i] = c30(texel, 0);
 }
 
-// Blocks of 128 threads an SM must keep resident for K1's group arms:
-// it caps their registers (ptxas -v; PERF.md).
-constexpr int kMegaMinBlocks = 1;
+// Blocks of kBlock threads an SM must keep resident for K1's group arms:
+// it caps their registers at 72, so 7 blocks of an SM hold 896 threads
+// and a 1000x800 pixpack-8 frame's 800 blocks fit in one wave on 132 SMs
+// (the baseline arm's 80 registers leave 8 blocks for a second wave;
+// ptxas -v and the sweep in PERF.md).
+constexpr int kMegaMinBlocks = 7;
 
 // K1 (megakernel.py:370-1150), G threads per lane slot; the baseline arm
 // (kBaseline, G = 1) keeps the index-order walk and the per-pixel sums in
 // global memory.
 template <int G, bool kBaseline>
-__global__ void __launch_bounds__(128, kBaseline ? 1 : kMegaMinBlocks)
+__global__ void __launch_bounds__(kBlock, kBaseline ? 1 : kMegaMinBlocks)
     megakernel(const RtMegaArgs a) {
-  extern __shared__ float4 staged[];
-  RtScene s = a.scene;
-  if (!kBaseline && a.stage_boxes) {
-    stage_boxes(s, reinterpret_cast<float*>(staged));
-  }
+  const RtScene& s = a.scene;
   const int g = (blockIdx.x * blockDim.x + threadIdx.x) / G;
   if (g >= a.n_tiles * kTileLanes) return;  // whole groups
   const Group<G> grp = this_group<G>();
@@ -999,26 +1016,18 @@ __global__ void __launch_bounds__(128, kBaseline ? 1 : kMegaMinBlocks)
   }
 }
 
-// Dynamic shared memory of stage_boxes: the four gate tables.
-size_t staged_bytes(const RtScene& s) {
-  return sizeof(float) * 8 *
-         static_cast<size_t>(s.n_sph_cl + s.n_tri_cl + s.n_sph_sup +
-                             s.n_tri_sup);
-}
-
 template <int G, bool kBaseline>
 int launch_nearest(const RtHitArgs& a, cudaStream_t st) {
   const int blocks = static_cast<int>(
-      (static_cast<long long>(a.n) * G + 127) / 128);
-  nearest_hit_kernel<G, kBaseline><<<blocks, 128, 0, st>>>(a);
+      (static_cast<long long>(a.n) * G + kBlock - 1) / kBlock);
+  nearest_hit_kernel<G, kBaseline><<<blocks, kBlock, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int G, bool kBaseline>
 int launch_mega(const RtMegaArgs& a, cudaStream_t st) {
-  const int blocks = a.n_tiles * kTileLanes / 128 * G;
-  const size_t smem = a.stage_boxes ? staged_bytes(a.scene) : 0;
-  megakernel<G, kBaseline><<<blocks, 128, smem, st>>>(a);
+  const int blocks = a.n_tiles * kTileLanes / kBlock * G;
+  megakernel<G, kBaseline><<<blocks, kBlock, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1058,11 +1067,10 @@ int rt_nearest_hit(const RtHitArgs* args, void* stream) {
   }
 }
 
-// Blocks of 128 threads that one SM keeps resident for kernel `kind` (0:
-// K1, 1: rt_nearest_hit) at group size `group` (0: the baseline arm) with
-// `smem` bytes of dynamic shared memory, and the device's SM count.
-int rt_occupancy(int kind, int group, int smem, int* blocks_per_sm,
-                 int* sm_count) {
+// Blocks of kBlock threads that one SM keeps resident for kernel `kind`
+// (0: K1, 1: rt_nearest_hit) at group size `group` (0: the baseline arm),
+// and the device's SM count.
+int rt_occupancy(int kind, int group, int* blocks_per_sm, int* sm_count) {
   const void* fn = kernel_of(kind, group);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
@@ -1072,8 +1080,8 @@ int rt_occupancy(int kind, int group, int smem, int* blocks_per_sm,
                                 dev);
   }
   if (rc == cudaSuccess) {
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, 128,
-                                                       smem);
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                       kBlock, 0);
   }
   return static_cast<int>(rc);
 }
@@ -1101,9 +1109,6 @@ int rt_fetch_image(const RtFetchArgs* args, void* stream) {
 int rt_megakernel(const RtMegaArgs* args, void* stream) {
   if (args->n_tiles <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (args->group == 0 && args->stage_boxes) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   switch (args->group) {
     case 0: return launch_mega<1, true>(*args, st);
     case 1: return launch_mega<1, false>(*args, st);

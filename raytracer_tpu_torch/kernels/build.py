@@ -160,7 +160,7 @@ class MegaArgs(ctypes.Structure):
                     "coherent")]
                 + [("inv_spp", ctypes.c_float),
                    ("sky", ctypes.c_float * 3),
-                   ("group", ctypes.c_int), ("stage_boxes", ctypes.c_int)])
+                   ("group", ctypes.c_int)])
 
 
 class FetchArgs(ctypes.Structure):
@@ -225,7 +225,7 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.rt_occupancy.argtypes = [ctypes.c_int] * 3 + [
+        lib.rt_occupancy.argtypes = [ctypes.c_int] * 2 + [
             ctypes.POINTER(ctypes.c_int)] * 2
         lib.rt_occupancy.restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]

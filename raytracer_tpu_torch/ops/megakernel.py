@@ -465,30 +465,21 @@ def mega_reference(ps: sweep.PackedScene, mat: torch.Tensor,
     return out
 
 
-# Shared memory a block may take for the staged gate tables (the static
-# launch limit: no opt-in attribute is set).
-STAGE_MAX_BYTES = 48 * 1024
-
-
 def _mega_cuda(ps, mat, o, d, seed, *, tex, img_rows, pixpack, spp, limit,
                antialias, sky, emissive_terminates, fix_exit_ior,
                need_sphere_uv, has_refractive, rr_start, coherent,
-               _group=None, _stage=False) -> torch.Tensor:
+               _group=None) -> torch.Tensor:
     """Launch rt_megakernel on the current stream; (5, n_pad) outputs.
 
     G threads share each lane slot, G by ``sweep.group_size`` over the
-    frame's lane slots. For the tests and chip_smoke.py only: ``_group``
-    forces G (0: the baseline, one thread a slot on the index-order walk)
-    and ``_stage`` copies the gate tables into shared memory per block."""
+    frame's lane slots. ``_group`` forces G, for the tests and
+    chip_smoke.py only (0: the baseline, one thread a slot on the
+    index-order walk)."""
     from ..kernels import build
     n_pad = o.shape[1]
     n_tiles = n_pad // (MEGA_TILE * pixpack)
     group = sweep.pick_group(sweep.KIND_MEGAKERNEL, n_tiles * MEGA_TILE,
                              _group)
-    staged = 32 * (ps.n_sph_cl + ps.n_tri_cl + ps.n_sph_sup + ps.n_tri_sup)
-    if _stage and (group == 0 or staged > STAGE_MAX_BYTES):
-        raise ValueError(f"cannot stage {staged} bytes of gate tables at "
-                         f"group {group}")
     out = torch.empty((5, n_pad), dtype=torch.float32, device=o.device)
     w0, w1, tile_offset = seed
     args = build.MegaArgs(
@@ -502,8 +493,7 @@ def _mega_cuda(ps, mat, o, d, seed, *, tex, img_rows, pixpack, spp, limit,
         fix_exit_ior=int(fix_exit_ior), need_sphere_uv=int(need_sphere_uv),
         has_refractive=int(has_refractive), coherent=int(coherent),
         inv_spp=float(np.float32(1.0 / float(spp))),
-        sky=(ctypes.c_float * 3)(*sky), group=group,
-        stage_boxes=int(_stage))
+        sky=(ctypes.c_float * 3)(*sky), group=group)
     lib = build.load()
     rc = lib.rt_megakernel(ctypes.byref(args),
                            ctypes.c_void_p(build.stream(o.device)))

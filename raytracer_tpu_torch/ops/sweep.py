@@ -84,15 +84,15 @@ def check_group(group) -> None:
         raise ValueError(f"group must be one of {(0,) + GROUPS}, got {group}")
 
 
-def resident_threads(kind: int, group: int, smem: int = 0) -> int:
+def resident_threads(kind: int, group: int) -> int:
     """Threads of the kernel ``kind`` at ``group`` that the current CUDA
     device keeps resident at once (cudaOccupancy..., times its SMs)."""
-    key = (kind, group, smem, torch.cuda.current_device())
+    key = (kind, group, torch.cuda.current_device())
     if key not in _RESIDENT:
         from ..kernels import build
         lib = build.load()
         blocks, sms = ctypes.c_int(), ctypes.c_int()
-        rc = lib.rt_occupancy(kind, group, smem, ctypes.byref(blocks),
+        rc = lib.rt_occupancy(kind, group, ctypes.byref(blocks),
                               ctypes.byref(sms))
         build.check(lib, rc, "rt_occupancy")
         _RESIDENT[key] = blocks.value * 128 * sms.value

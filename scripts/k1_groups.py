@@ -1,5 +1,5 @@
-"""The megakernel's (K1's) group sweep, its shared-memory trial and its
-paths, timed on one CUDA card.
+"""The megakernel's (K1's) group sweep and its paths, timed on one CUDA
+card.
 
     python scripts/k1_groups.py sweep
     python scripts/k1_groups.py paths [--tree DIR] [--label NAME]
@@ -9,10 +9,10 @@ Run from the root of a checkout on a machine with one NVIDIA card.
 ``sweep`` times ``rt_megakernel`` with CUDA events on the 1000x800, 20 spp,
 5-bounce frames of scene 4, scene 2 and stress10k (pixpack 8, the
 Renderer's auto choice) and on one 3840x2160 1 spp frame of scene 4 (the
-fly-through's shape), at every group size G (1, 2, 4, 8), with and without
-the gate tables staged in shared memory, and the baseline walk (group 0,
-one thread a lane slot in index order), in turns (forward, then
-backward); every variant's output must be bitwise the baseline's. It also
+fly-through's shape), at every group size G (1, 2, 4, 8) and on the
+baseline walk (group 0, one thread a lane slot in index order), in turns
+(forward, then backward), each variant's output held bitwise against the
+baseline's. It also
 times ``rt_nearest_hit`` on chip_smoke.py's 1M rays over scene 4 at each
 G, and prints each kernel instance's resident warps per SM and the group
 the rule picks.
@@ -112,11 +112,10 @@ def sweep(dev) -> None:
                        (sw.KIND_NEAREST, "rt_nearest_hit")):
         resident[name] = {g: sw.resident_threads(kind, g)
                           for g in (0,) + sw.GROUPS}
-    emit({"what": "resident_warps_per_sm", "sms": torch.cuda.get_device_properties(
-        dev).multi_processor_count, **{
-        k: {g: v // 32 // torch.cuda.get_device_properties(
-            dev).multi_processor_count for g, v in r.items()}
-        for k, r in resident.items()}})
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    emit({"what": "resident_warps_per_sm", "sms": sms,
+          **{k: {g: v // 32 // sms for g, v in r.items()}
+             for k, r in resident.items()}})
 
     for name, (scene, sky), width, height, spp, pos, reps in \
             sweep_scenes(rtt):
@@ -127,28 +126,23 @@ def sweep(dev) -> None:
         o_p, d_p, seed, kw = mk.mega_inputs(
             ms, settings, o, d, rng.frame_key(rng.key(0), 0), pixpack=8)
         slots = o_p.shape[1] // 8
-        staged = 32 * (ms.packed.n_sph_cl + ms.packed.n_tri_cl
-                       + ms.packed.n_sph_sup + ms.packed.n_tri_sup)
-        variants = [("baseline", 0, False)] + [
-            (f"G{g}", g, False) for g in sw.GROUPS]
-        if 0 < staged <= mk.STAGE_MAX_BYTES:
-            variants += [(f"G{g}+smem", g, True) for g in sw.GROUPS]
+        variants = [("baseline", 0)] + [(f"G{g}", g) for g in sw.GROUPS]
         outs, times = {}, {v[0]: [] for v in variants}
 
-        def run(group, stage):
+        def run(group):
             return mk._mega_cuda(ms.packed, ms.mat, o_p, d_p, seed, **kw,
-                                 _group=group, _stage=stage)
-        for v, group, stage in variants:     # warm-up and the outputs
-            outs[v] = run(group, stage)
+                                 _group=group)
+        for v, group in variants:     # warm-up and the outputs
+            outs[v] = run(group)
         torch.cuda.synchronize()
         for order in (variants, variants[::-1]):
-            for v, group, stage in order:
-                times[v].append(cuda_ms(lambda: run(group, stage), reps))
+            for v, group in order:
+                times[v].append(cuda_ms(lambda: run(group), reps))
         base = outs["baseline"]
         segs = float(base[3].double().sum())
         emit({"what": "k1_sweep", "scene": name, "width": width,
               "height": height, "spp": spp, "pixpack": 8,
-              "lane_slots": slots, "staged_bytes": staged,
+              "lane_slots": slots,
               "rule_group": sw.pick_group(sw.KIND_MEGAKERNEL, slots),
               "segments": segs,
               "ms": {v: t for v, t in times.items()},

@@ -6,7 +6,7 @@ Run from the root of a checkout, on a machine with one NVIDIA card (the
 kernels are built for sm_90a, an H100). It builds the CUDA kernels from
 ``raytracer_tpu_torch/csrc``, holds each against its plain PyTorch version
 on the card (``rt_nearest_hit``, ``rt_fetch_image``, and ``rt_megakernel``
-on scenes 4, 2 and 0), drives two paths through ``Renderer`` at 1000x800,
+on scenes 4, 2 and 0, bitwise), drives two paths through ``Renderer`` at 1000x800,
 20 spp, 5 bounces and times them: the bench.py path (scene 4) and the
 image-texture path (scene 2, the 256x512 earth), then times one frame of
 each bench scene of benchmarks/suite.py through the kernel.
@@ -43,6 +43,15 @@ band); (d) the counting ``rt_hit_resolve`` against its plain version on
 that the bounds below use; (e) ``render_resilient`` over 3 frames with
 one injected out-of-memory error, against an uninterrupted run.
 
+K1 and K2 run with G threads a lane slot (or ray), G picked by the
+rule ``sweep.group_size``. Phase 2 prints every group arm's registers,
+spills and resident warps per SM and the rule's G on the main paths;
+phases 3, 5 and 14a hold every arm (the rule's G, G = 1, 2, 4, 8 and the
+baseline walk, group 0: one thread a lane slot in index order, the design
+before the groups) bitwise against the plain versions; phases 6, 7, 13
+and 14c time the rule's G against the baseline walk in turns (baseline,
+new, new, baseline) through the same entry points and print both.
+
 Every kernel in the closing ``{"kernels": ...}`` line carries its bound:
 the larger of the bytes it must move over 3.35 TB/s and the FP32
 operations this run's inputs need over 67 TFLOP/s, the H100 SXM's
@@ -63,6 +72,7 @@ their error against the plain version and their times.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -119,6 +129,23 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
+def kernel_name(mangled: str) -> str:
+    """A readable name for a mangled entry function: K1's and K2's group
+    instances as megakernel<G2> or nearest_hit_kernel<baseline>."""
+    m = re.search(r"(megakernel|nearest_hit_kernel)ILi(\d+)ELb([01])E",
+                  mangled)
+    if m:
+        arm = "baseline" if m.group(3) == "1" else f"G{m.group(2)}"
+        return f"{m.group(1)}<{arm}>"
+    if "hit_resolve_kernelILb1E" in mangled:
+        return "hit_resolve_kernel<with_stats>"
+    return next((k for k in (
+        "hit_resolve_blocked_kernel", "hit_resolve_kernel",
+        "fetch_image_kernel", "lane_randoms_kernel", "tile_randoms_kernel",
+        "gather_history_kernel", "warp_gather_kernel") if k in mangled),
+        mangled)
+
+
 def ptxas_summary(log: str) -> list:
     """'kernel: registers, spills' per entry function of nvcc's -v log."""
     out, name = [], "?"
@@ -126,18 +153,69 @@ def ptxas_summary(log: str) -> list:
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", ln)
         if m:
-            mangled = m.group(1)
-            if "hit_resolve_kernelILb1E" in mangled:
-                name = "hit_resolve_kernel<with_stats>"
-                continue
-            name = next((k for k in (
-                "hit_resolve_blocked_kernel", "hit_resolve_kernel",
-                "nearest_hit_kernel", "fetch_image_kernel",
-                "lane_randoms_kernel", "megakernel") if k in mangled),
-                mangled)
+            name = kernel_name(m.group(1))
         elif "spill" in ln or "registers" in ln:
             out.append(f"{name}: {ln.split(':', 1)[-1].strip()}")
     return out
+
+
+# rt_megakernel's and rt_nearest_hit's arms: the rule's G (None), the
+# baseline walk (0, the design before the groups) and each forced G.
+GROUP_ARMS = (None, 0, 1, 2, 4, 8)
+
+
+@contextlib.contextmanager
+def forced_group(group):
+    """Make every rt_megakernel launch in the block take ``group`` (None:
+    the rule's), through the paths a user calls."""
+    from raytracer_tpu_torch.ops import megakernel as mk
+    real = mk._mega_cuda
+    if group is not None:
+        mk._mega_cuda = functools.partial(real, _group=group)
+    try:
+        yield
+    finally:
+        mk._mega_cuda = real
+
+
+def in_turns(runs: dict, order=("baseline", "new", "new", "baseline")):
+    """Call runs[k]() in ``order``: the baseline arm (group 0) against the
+    redesigned kernel (the rule's G), in turns. Returns each key's results
+    in call order."""
+    out = {k: [] for k in runs}
+    for k in order:
+        out[k].append(runs[k]())
+    return out
+
+
+def group_table(dev) -> dict:
+    """Resident warps per SM of every K1 and K2 arm, and the G the rule
+    picks on the main paths."""
+    import torch
+
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.ops import megakernel as mk
+    from raytracer_tpu_torch.ops import sweep
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    warps = {name: {str(g): sweep.resident_threads(kind, g) // 32 // sms
+                    for g in (0,) + sweep.GROUPS}
+             for kind, name in ((sweep.KIND_MEGAKERNEL, "rt_megakernel"),
+                                (sweep.KIND_NEAREST, "rt_nearest_hit"))}
+    slots_1000x800 = -(-1000 * 800 // (mk.MEGA_TILE * 8)) * mk.MEGA_TILE
+    slots_4k = -(-FLY_W * FLY_H // (mk.MEGA_TILE * 8)) * mk.MEGA_TILE
+    packed = {"scene4": sweep.pack(rtt.build_scene(4, seed=0)[0]),
+              "scene2": sweep.pack(rtt.build_scene(2)[0]),
+              "stress10k": sweep.pack(stress_scene(10000)[0])}
+    rule = {f"{k}_1000x800_pixpack8": sweep.pick_group(
+        sweep.KIND_MEGAKERNEL, slots_1000x800, ps) for k, ps in packed.items()}
+    rule["scene4_3840x2160_pixpack8"] = sweep.pick_group(
+        sweep.KIND_MEGAKERNEL, slots_4k, packed["scene4"])
+    rule["rt_nearest_hit_1M_rays_scene4"] = sweep.pick_group(
+        sweep.KIND_NEAREST, 1 << 20, packed["scene4"])
+    return {"resident_warps_per_sm": warps, "sms": sms,
+            "gate_depth": {k: sweep.gate_depth(ps)
+                           for k, ps in packed.items()},
+            "rule_group": rule}
 
 
 def card_line() -> str:
@@ -245,7 +323,10 @@ def hit_rays(dev, n_rays: int):
 
 
 def phase_hits(dev, n_rays: int) -> dict:
-    """rt_nearest_hit against the plain nearest hit on numpy-seeded rays."""
+    """rt_nearest_hit against the plain nearest hit on numpy-seeded rays,
+    at the rule's G and at every forced G and the baseline walk (each
+    bitwise), timed at each, and the rule's G against the baseline in
+    turns."""
     import torch
 
     import raytracer_tpu_torch as rtt
@@ -253,22 +334,32 @@ def phase_hits(dev, n_rays: int) -> dict:
     scene, _ = rtt.build_scene(4, seed=0, device=dev)
     ps = sweep.pack(scene)
     o, d = hit_rays(dev, n_rays)
-    got = sweep.nearest_hit(ps, o, d)
     want = sweep.nearest_hit_reference(ps, o, d)
+    by_group = {}
+    for g in GROUP_ARMS:
+        out = sweep.nearest_hit(ps, o, d, _group=g)
+        by_group[str(g)] = {
+            "bitwise": all(bool(torch.equal(a, b)) for a, b in zip(out, want)),
+            "ms": cuda_ms(lambda: sweep.nearest_hit(ps, o, d, _group=g), 5)}
+    turns = in_turns({
+        "baseline": lambda: cuda_ms(lambda: sweep.nearest_hit(
+            ps, o, d, _group=0), 5),
+        "new": lambda: cuda_ms(lambda: sweep.nearest_hit(ps, o, d), 5)})
+    got = sweep.nearest_hit(ps, o, d)
     same = got[1] == want[1]
     mismatch = float((~same).float().mean())
     t_g, t_w = got[0][same], want[0][same]
     t_rel = float(((t_g - t_w).abs() / t_w.abs().clamp(min=1.0)).max())
     fields_equal = all(bool(torch.equal(got[i][same], want[i][same]))
                        for i in range(4, 9))
-    ms = cuda_ms(lambda: sweep.nearest_hit(ps, o, d), 5) if \
-        dev.type == "cuda" else float("nan")
-    plain_ms = cuda_ms(lambda: sweep.nearest_hit_reference(ps, o, d)) if \
-        dev.type == "cuda" else float("nan")
+    plain_ms = cuda_ms(lambda: sweep.nearest_hit_reference(ps, o, d))
     rec = {"rays": n_rays, "code_mismatch": mismatch, "t_rel_max": t_rel,
            "winner_params_equal": fields_equal,
            "hit_share": float((want[0] < sweep.INF).float().mean()),
-           "ms": ms, "plain_ms": plain_ms}
+           "group": sweep.pick_group(sweep.KIND_NEAREST, n_rays, ps),
+           "ms": float(np.mean(turns["new"])),
+           "baseline_ms": float(np.mean(turns["baseline"])),
+           "turns_ms": turns, "by_group": by_group, "plain_ms": plain_ms}
     rec.update(gated_bound(n_rays * (24 + 36) + tensor_bytes(ps), 0,
                            n_rays * sweep_ops(scene)))
     print("phase 3 rt_nearest_hit vs plain:", json.dumps(rec), flush=True)
@@ -276,6 +367,9 @@ def phase_hits(dev, n_rays: int) -> dict:
           f"winner code mismatch {mismatch} > {HIT_CODE_MISMATCH_MAX}")
     check(t_rel <= HIT_T_REL_MAX, f"hit t rel err {t_rel} > {HIT_T_REL_MAX}")
     check(fields_equal, "winner parameters differ where the winner agrees")
+    for g, r in by_group.items():
+        check(r["bitwise"], f"rt_nearest_hit at group {g} differs from "
+              "the plain nearest hit")
     return rec
 
 
@@ -337,29 +431,45 @@ def camera_rays(width: int, height: int, dev, **cam):
 
 
 def mega_vs_plain(ms, settings, o, d, frame_key, pixpack=None) -> dict:
-    """One kernel frame against one plain frame on the same inputs."""
+    """Kernel frames at every arm of GROUP_ARMS against one plain frame on
+    the same inputs: per arm the pixel statistics, whether radiance,
+    depth and segments are bitwise the plain version's, and the launches
+    of the coherent arm."""
+    import torch
+
     from raytracer_tpu_torch.ops import megakernel as mk
-    mean, segs, depth = mk.render_sample_mean_mega(
-        ms, settings, o, d, frame_key, want_depth=True, pixpack=pixpack)
     o_p, d_p, seed, kw = mk.mega_inputs(ms, settings, o, d, frame_key,
                                         pixpack=pixpack)
     ref = mk.mega_reference(ms.packed, ms.mat, o_p, d_p, seed, **kw)
     n = o.shape[1]
-    stats = pixel_diff(mean, ref[:3, :n])
     segs_ref = float(ref[3, :n].double().sum())
-    stats["segs_rel"] = abs(float(segs) - segs_ref) / segs_ref
-    hit_k, hit_r = depth < mk.INF, ref[4, :n] < mk.INF
-    stats["depth_hit_mismatch"] = float((hit_k != hit_r).float().mean())
-    stats["frame_mean_rel"] = abs(float(mean.mean()) - float(
-        ref[:3, :n].mean())) / float(ref[:3, :n].mean())
-    return stats
+    out = {}
+    for g in GROUP_ARMS:
+        before = mk.COHERENT_LAUNCHES
+        with forced_group(g):
+            mean, segs, depth = mk.render_sample_mean_mega(
+                ms, settings, o, d, frame_key, want_depth=True,
+                pixpack=pixpack)
+        stats = pixel_diff(mean, ref[:3, :n])
+        stats["segs_rel"] = abs(float(segs) - segs_ref) / segs_ref
+        hit_k, hit_r = depth < mk.INF, ref[4, :n] < mk.INF
+        stats["depth_hit_mismatch"] = float((hit_k != hit_r).float().mean())
+        stats["frame_mean_rel"] = abs(float(mean.mean()) - float(
+            ref[:3, :n].mean())) / float(ref[:3, :n].mean())
+        stats["bitwise"] = bool(torch.equal(mean, ref[:3, :n])
+                                and torch.equal(depth, ref[4, :n])
+                                and float(segs) == segs_ref)
+        stats["coherent_launches"] = mk.COHERENT_LAUNCHES - before
+        out[str(g)] = stats
+    return out
 
 
 def phase_mega_small(dev, num: int, width: int, height: int,
                      coherent: bool = False) -> None:
     """rt_megakernel against mega_reference on scene ``num`` at a small
-    size, pixpack 1 and 8; with ``coherent``, the coherent arms (phase
-    14a), each launch checked to take it."""
+    size, pixpack 1 and 8, at every arm of GROUP_ARMS, bitwise; with
+    ``coherent``, the coherent arms (phase 14a), each launch checked to
+    take it."""
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.ops import megakernel as mk
     from raytracer_tpu_torch.ops import rng
@@ -371,20 +481,20 @@ def phase_mega_small(dev, num: int, width: int, height: int,
     o, d = camera_rays(width, height, dev)
     phase = "14a coherent" if coherent else "5"
     for k in (1, 8):
-        before = mk.COHERENT_LAUNCHES
-        stats = mega_vs_plain(ms, settings, o, d,
-                              rng.fold_in(rng.key(0), 3), pixpack=k)
-        stats["coherent_launches"] = mk.COHERENT_LAUNCHES - before
+        arms = mega_vs_plain(ms, settings, o, d, rng.fold_in(rng.key(0), 3),
+                             pixpack=k)
         print(f"phase {phase} rt_megakernel vs mega_reference scene {num} "
-              f"{width}x{height} spp 4 pixpack {k}:", json.dumps(stats),
-              flush=True)
-        check(stats["coherent_launches"] == int(coherent),
-              f"scene {num} pixpack {k}: {stats['coherent_launches']} "
-              "launches of the coherent arm")
-        check_pixels(stats, f"scene {num} pixpack {k}")
-        check(stats["segs_rel"] <= SEGS_REL_MAX,
-              f"scene {num} pixpack {k}: segments differ by "
-              f"{stats['segs_rel']:.3g}")
+              f"{width}x{height} spp 4 pixpack {k}, by group (None: the "
+              "rule's, 0: the baseline walk):", json.dumps(arms), flush=True)
+        for g, stats in arms.items():
+            what = f"scene {num} pixpack {k} group {g}"
+            check(stats["coherent_launches"] == int(coherent),
+                  f"{what}: {stats['coherent_launches']} launches of the "
+                  "coherent arm")
+            check_pixels(stats, what)
+            check(stats["segs_rel"] <= SEGS_REL_MAX,
+                  f"{what}: segments differ by {stats['segs_rel']:.3g}")
+            check(stats["bitwise"], f"{what}: not bitwise mega_reference")
 
 
 def renderer_vs_mega_reference(dev, r, first, tiles=None) -> dict:
@@ -393,6 +503,8 @@ def renderer_vs_mega_reference(dev, r, first, tiles=None) -> dict:
     only the pixels of megakernel tiles t0 <= t < t1 (4096 * pixpack
     pixels each): the plain version runs on them alone, its tile offset
     moved to t0, so it draws what those tiles drew in the whole frame."""
+    import torch
+
     from raytracer_tpu_torch.ops import megakernel as mk
     from raytracer_tpu_torch.ops import rng
     o_p, d_p, seed, kw = mk.mega_inputs(r._mega, r.settings, r._o.T,
@@ -413,10 +525,20 @@ def renderer_vs_mega_reference(dev, r, first, tiles=None) -> dict:
     m = min(b, n) - a
     got, want = first[a:a + m], ref[:3, :m]
     stats = pixel_diff(got, want.T)
+    stats["bitwise"] = bool(torch.equal(got, want.T))
     stats["frame_mean_rel"] = abs(float(got.mean()) - float(
         want.mean())) / float(want.mean())
     stats.update(pixels=m, first_pixel=a, plain_ms=plain_ms)
     return stats
+
+
+def sweep_group(r) -> int:
+    """The G that the rule picks for a megakernel Renderer's frame."""
+    from raytracer_tpu_torch.ops import megakernel as mk
+    from raytracer_tpu_torch.ops import sweep
+    k = r.settings.pixpack
+    slots = -(-r._o.shape[0] // (mk.MEGA_TILE * k)) * mk.MEGA_TILE
+    return sweep.pick_group(sweep.KIND_MEGAKERNEL, slots, r._mega.packed)
 
 
 def check_frame(stats: dict, what: str) -> None:
@@ -428,7 +550,9 @@ def check_frame(stats: dict, what: str) -> None:
 
 def phase_path(dev, num: int, width: int, height: int, spp: int) -> dict:
     """One path: Renderer on scene ``num``, one warm-up frame + 5 frames,
-    with the launch counts set to 0 just before and read just after."""
+    with the launch counts set to 0 just before and read just after; its
+    first frame bitwise against mega_reference; one full-size kernel
+    frame timed at the rule's G against the baseline walk, in turns."""
     import torch
 
     import raytracer_tpu_torch as rtt
@@ -467,13 +591,22 @@ def phase_path(dev, num: int, width: int, height: int, spp: int) -> dict:
     fkey = rng.frame_key(r.base_key, 0)
     o_p = mk.mega_inputs(r._mega, r.settings, r._o.T, r._d.T, fkey)[0]
 
-    # one full-size frame through the kernel, timed with CUDA events
+    # one full-size frame through the kernel, timed with CUDA events: the
+    # rule's G against the baseline walk, in turns
     timed = {}
 
     def one_kernel_frame():
         timed["segs"] = mk.render_sample_mean_mega(
             r._mega, r.settings, r._o.T, r._d.T, fkey)[1]
-    out["ms"] = cuda_ms(one_kernel_frame, 3)
+
+    def baseline_frame():
+        with forced_group(0):
+            return cuda_ms(one_kernel_frame, 3)
+    turns = in_turns({"baseline": baseline_frame,
+                      "new": lambda: cuda_ms(one_kernel_frame, 3)})
+    out.update(ms=float(np.mean(turns["new"])),
+               baseline_ms=float(np.mean(turns["baseline"])),
+               turns_ms=turns, group=sweep_group(r))
     out["timed_segments"] = float(timed["segs"])
     out.update(gated_bound(
         o_p.shape[1] * (24 + 20) + tensor_bytes(r._mega.packed, r._mega.mat,
@@ -493,9 +626,12 @@ def phase_path(dev, num: int, width: int, height: int, spp: int) -> dict:
     print(f"phase 6 scene {num} path {width}x{height} spp {spp}:",
           json.dumps(out), flush=True)
     print(f"phase 6 scene {num}, one {width}x{height} frame: kernel "
-          f"{out['ms']:.3f} ms, mega_reference {plain_ms:.3f} ms",
+          f"{out['ms']:.3f} ms at G {out['group']}, baseline walk "
+          f"{out['baseline_ms']:.3f} ms, mega_reference {plain_ms:.3f} ms",
           flush=True)
     check_frame(stats, f"scene {num} path frame vs mega_reference")
+    check(stats["bitwise"], f"scene {num} path frame not bitwise "
+          "mega_reference")
     check(out["checkpoint_bitwise"], "checkpoint round trip not bitwise")
     check(np.isfinite(out["mrays_per_sec"]) and out["mrays_per_sec"] > 0,
           "no ray rate")
@@ -520,15 +656,16 @@ BENCH = (
 
 
 def phase_bench(dev) -> list:
-    """One timed frame of each bench scene through the kernel, at the
-    Renderer's auto pixpack (8 at spp <= 32, else 1)."""
+    """One frame of each bench scene through the kernel, at the Renderer's
+    auto pixpack (8 at spp <= 32, else 1), timed at the rule's G against
+    the baseline walk, in turns."""
     import torch
 
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.models import bench_scenes
     from raytracer_tpu_torch.models.scenes import procedural_earth_texture
     from raytracer_tpu_torch.ops import megakernel as mk
-    from raytracer_tpu_torch.ops import rng
+    from raytracer_tpu_torch.ops import rng, sweep
     recs = []
     for name, fn, kw, width, height, spp, pos in BENCH:
         t0 = time.perf_counter()
@@ -548,12 +685,23 @@ def phase_bench(dev) -> list:
         def frame():
             res["out"] = mk.render_sample_mean_mega(
                 ms, settings, o, d, rng.frame_key(rng.key(0), 0), pixpack=k)
-        kernel_ms = cuda_ms(frame)
+
+        def baseline_frame():
+            with forced_group(0):
+                return cuda_ms(frame)
+        frame()                               # warm-up
+        turns = in_turns({"baseline": baseline_frame,
+                          "new": lambda: cuda_ms(frame)})
+        kernel_ms = float(np.mean(turns["new"]))
         mean, segs = res["out"]
+        slots = -(-o.shape[1] // (mk.MEGA_TILE * k)) * mk.MEGA_TILE
         rec = {"scene": name, "spheres": scene.num_spheres,
                "triangles": scene.num_triangles, "img_rows": ms.img_rows,
                "pixpack": k, "build_s": build_s, "frame_ms": kernel_ms,
-               "segments": float(segs),
+               "group": sweep.pick_group(sweep.KIND_MEGAKERNEL, slots,
+                                         ms.packed),
+               "baseline_frame_ms": float(np.mean(turns["baseline"])),
+               "turns_ms": turns, "segments": float(segs),
                "mrays_per_sec": float(segs) / kernel_ms / 1e3,
                "finite": bool(torch.isfinite(mean).all()),
                "mean_radiance": float(mean.mean())}
@@ -1091,7 +1239,10 @@ def phase_flythrough(dev) -> dict:
     bounces, a temporal Renderer; a warm frame and a warm move, then
     FLY_MOVES moves each followed by a frame, one final sync, counts set
     to 0 just before and read just after. The kernel checks of K7 run on
-    this run's first real move, before the timed loop."""
+    this run's first real move, before the timed loop. The loop runs four
+    times, at the rule's G and on the baseline walk in turns, each from
+    the first pose after one untimed frame there; the first run at the
+    rule's G is the one checked."""
     import torch
 
     import raytracer_tpu_torch as rtt
@@ -1107,28 +1258,45 @@ def phase_flythrough(dev) -> dict:
         dev, history_inputs(dev, r, fly_camera(1, FLY_W, FLY_H)), FLY_W,
         FLY_H)
 
-    _zero_counts()
-    t0 = time.perf_counter()
-    segs = []
-    for i in range(FLY_MOVES):
-        r.move_camera(fly_camera(i, FLY_W, FLY_H))
-        r.render_frame(block=(i == FLY_MOVES - 1))
-        segs.append(r._last_segs)
-    dt = time.perf_counter() - t0
-    launches = {"rt_megakernel": mk.LAUNCHES,
-                "rt_gather_history": warp.HISTORY_LAUNCHES,
-                "rt_warp_gather": warp.GATHER_LAUNCHES}
-    hits = r._depth < mk.INF
-    kept = float((r._wpix[hits] > 1).float().mean())
+    runs = []
+
+    def fly(group):
+        if runs:                      # back to the first pose, untimed
+            r.move_camera(fly_camera(0, FLY_W, FLY_H))
+            r.render_frame(block=True)
+        with forced_group(group):
+            _zero_counts()
+            t0 = time.perf_counter()
+            segs = []
+            for i in range(FLY_MOVES):
+                r.move_camera(fly_camera(i, FLY_W, FLY_H))
+                r.render_frame(block=(i == FLY_MOVES - 1))
+                segs.append(r._last_segs)
+            dt = time.perf_counter() - t0
+        launches = {"rt_megakernel": mk.LAUNCHES,
+                    "rt_gather_history": warp.HISTORY_LAUNCHES,
+                    "rt_warp_gather": warp.GATHER_LAUNCHES}
+        hits = r._depth < mk.INF
+        segments = float(sum(float(x) for x in segs))
+        runs.append({"group": group, "fps": FLY_MOVES / dt,
+                     "mrays_per_sec": segments / dt / 1e6,
+                     "frame_ms": dt / FLY_MOVES * 1e3, "segments": segments,
+                     "launches": launches,
+                     "hit_share": float(hits.float().mean()),
+                     "w_gt_1_share_of_hits": float(
+                         (r._wpix[hits] > 1).float().mean()),
+                     "w_gt_1_share_of_all": float(
+                         (r._wpix > 1).float().mean()),
+                     "finite": bool(torch.isfinite(r.accum).all())})
+        return runs[-1]
+    turns = in_turns({"baseline": lambda: fly(0), "new": lambda: fly(None)})
     r.check_health()
-    segments = float(sum(float(x) for x in segs))
-    rec = {"frames": FLY_MOVES, "width": FLY_W, "height": FLY_H,
-           "fps": FLY_MOVES / dt, "mrays_per_sec": segments / dt / 1e6,
-           "frame_ms": dt / FLY_MOVES * 1e3, "segments": segments,
-           "launches": launches, "hit_share": float(hits.float().mean()),
-           "w_gt_1_share_of_hits": kept,
-           "w_gt_1_share_of_all": float((r._wpix > 1).float().mean()),
-           "finite": bool(torch.isfinite(r.accum).all())}
+    rec = dict(turns["new"][0], frames=FLY_MOVES, width=FLY_W,
+               height=FLY_H, group=sweep_group(r),
+               fps_turns={k: [x["fps"] for x in v] for k, v in turns.items()},
+               baseline_fps=float(np.mean([x["fps"]
+                                           for x in turns["baseline"]])))
+    launches, kept = rec["launches"], rec["w_gt_1_share_of_hits"]
     # one static frame (no move) and one warp frame (a move), alternating
     static, moving = [], []
     for k in range(3):
@@ -1139,10 +1307,12 @@ def phase_flythrough(dev) -> dict:
     rec.update(static_frame_ms=static, warp_frame_ms=moving)
     print(f"phase 13 fly-through scene 4 {FLY_W}x{FLY_H} 1 spp:",
           json.dumps(rec), flush=True)
-    check(launches == {"rt_megakernel": FLY_MOVES,
-                       "rt_gather_history": FLY_MOVES,
-                       "rt_warp_gather": 0},
-          f"fly-through launched {launches}")
+    for run in runs:
+        check(run["launches"] == {"rt_megakernel": FLY_MOVES,
+                                  "rt_gather_history": FLY_MOVES,
+                                  "rt_warp_gather": 0},
+              f"fly-through at group {run['group']} launched "
+              f"{run['launches']}")
     check(kept > W_KEPT_MIN, f"(w > 1) on {kept} of the hit pixels after "
           f"the last move (need > {W_KEPT_MIN})")
     check(rec["finite"], "fly-through accumulation not finite")
@@ -1276,8 +1446,10 @@ def regen_band_vs_plain(dev, r, rows) -> dict:
 def phase_coherent_paths(dev, width: int = 1000, height: int = 800) -> list:
     """(c) Coherent against per-lane sampling through Renderer at
     1000x800, 5 bounces: a warm-up frame each, then timed runs of
-    render_frames in turns (per-lane, coherent, coherent, per-lane), the
-    counts set to 0 just before each run and read just after. Then the
+    render_frames in turns (per-lane, coherent, coherent, per-lane; on the
+    megakernel paths each at the rule's G and on the baseline walk, the
+    baseline's runs in the middle of the same sequence), the counts set to
+    0 just before each run and read just after. Then the
     coherent Renderer's warm-up frame against the plain version: scene 4's
     whole frame against mega_reference; two megakernel tiles from the
     middle of stress10k's frame (at the path's pixpack, with their tile
@@ -1305,23 +1477,35 @@ def phase_coherent_paths(dev, width: int = 1000, height: int = 800) -> list:
             rs[coherent] = rtt.Renderer(scene, cam, s, seed=0, device=dev)
             rs[coherent].render_frame(block=True)
         first = rs[True].accum.clone()
-        runs = {False: [], True: []}
-        for coherent in (False, True, True, False):
-            _zero_counts()
-            stat = rs[coherent].render_frames(frames)
-            runs[coherent].append({"frame_ms": stat["frame_ms"]
-                                   / stat["frames"],
-                                   "mrays_per_sec": stat["mrays_per_sec"],
-                                   "launches": _path_counts()})
+        mega = sampler != "regen"
+        runs = {(c, g): [] for c in (False, True) for g in (None, 0)}
+        order = [(False, None), (True, None), (True, None), (False, None)]
+        if mega:
+            order[2:2] = [(True, 0), (False, 0), (False, 0), (True, 0)]
+        for coherent, group in order:
+            with forced_group(group):
+                _zero_counts()
+                stat = rs[coherent].render_frames(frames)
+            runs[coherent, group].append({
+                "frame_ms": stat["frame_ms"] / stat["frames"],
+                "mrays_per_sec": stat["mrays_per_sec"],
+                "launches": _path_counts()})
         rec = {"path": name, "spp": spp, "frames_per_run": frames,
                "pixpack": rs[True].settings.pixpack}
+        if mega:
+            rec["group"] = sweep_group(rs[True])
         for coherent, key in ((False, "per_lane"), (True, "coherent")):
             rs[coherent].check_health()
+            new, base = runs[coherent, None], runs[coherent, 0]
             rec[key] = {
-                "frame_ms": [x["frame_ms"] for x in runs[coherent]],
-                "mrays_per_sec": [x["mrays_per_sec"] for x in runs[coherent]],
-                "launches": runs[coherent][0]["launches"],
+                "frame_ms": [x["frame_ms"] for x in new],
+                "mrays_per_sec": [x["mrays_per_sec"] for x in new],
+                "launches": new[0]["launches"],
                 "finite": bool(torch.isfinite(rs[coherent].accum).all())}
+            if base:
+                rec[key].update(
+                    baseline_frame_ms=[x["frame_ms"] for x in base],
+                    baseline_launches=base[0]["launches"])
         if sampler == "regen":
             mid = height // 2
             vs = regen_band_vs_plain(dev, rs[True], (mid - 8, mid + 8))
@@ -1337,6 +1521,9 @@ def phase_coherent_paths(dev, width: int = 1000, height: int = 800) -> list:
               f"spp {spp}:",
               json.dumps(rec), flush=True)
         check_frame(vs, f"{name}: coherent frame vs the plain version")
+        if mega:
+            check(vs["bitwise"], f"{name}: coherent frame not bitwise "
+                  "mega_reference")
         if "segs_rel" in vs:
             check(vs["segs_rel"] <= SEGS_REL_MAX,
                   f"{name}: segments differ by {vs['segs_rel']:.3g}")
@@ -1347,11 +1534,14 @@ def phase_coherent_paths(dev, width: int = 1000, height: int = 800) -> list:
                   and coh["rt_lane_randoms"] == 0,
                   f"{name}: the coherent runs launched {coh}")
         else:
-            check(coh["rt_megakernel"] == frames
-                  and coh["coherent_arm"] == frames,
-                  f"{name}: the coherent runs launched {coh}")
-            check(rec["per_lane"]["launches"]["coherent_arm"] == 0,
-                  f"{name}: the per-lane runs took the coherent arm")
+            for c in (coh, rec["coherent"]["baseline_launches"]):
+                check(c["rt_megakernel"] == frames
+                      and c["coherent_arm"] == frames,
+                      f"{name}: the coherent runs launched {c}")
+            for c in (rec["per_lane"]["launches"],
+                      rec["per_lane"]["baseline_launches"]):
+                check(c["coherent_arm"] == 0,
+                      f"{name}: the per-lane runs took the coherent arm")
         check(rec["coherent"]["finite"] and rec["per_lane"]["finite"],
               f"{name}: non-finite accumulation")
         recs.append(rec)
@@ -1568,6 +1758,10 @@ def main() -> int:
     print(f"phase 2 build {time.perf_counter() - t0:.1f} s -> {lib}; "
           + " | ".join(ptxas_summary(build.BUILD_INFO.get("log", "")))
           + f"; native host BVH: {loader.native_available()}", flush=True)
+    groups = group_table(dev)
+    print("phase 2 rt_megakernel and rt_nearest_hit arms: resident warps per "
+          "SM, gate depths and the rule's G:", json.dumps(groups),
+          flush=True)
 
     hits_rec = phase_hits(dev, 1 << 20)
     fetch_rec = phase_fetch(dev, 1 << 20)
@@ -1651,7 +1845,12 @@ def main() -> int:
                            slice_rec["vs_plain"]["max_abs"]),
         **timing(k1), "tests_per_segment": k1["tests_per_segment"],
         "tests_counted_on": counts[2]["segments_estimate"]["counted_on"],
-        "scene4_ms": main_rec["ms"], "scene4_plain_ms": main_rec["plain_ms"],
+        "group": slice_rec["group"], "baseline_ms": slice_rec["baseline_ms"],
+        "baseline": "group 0: one thread a lane slot, index-order walk, "
+                    "the design before the groups",
+        "scene4_ms": main_rec["ms"], "scene4_group": main_rec["group"],
+        "scene4_baseline_ms": main_rec["baseline_ms"],
+        "scene4_plain_ms": main_rec["plain_ms"],
         "scene4_bound_ms": k1_s4["bound_ms"],
         "scene4_tests_per_segment": k1_s4["tests_per_segment"],
         "coherent_launches": {
@@ -1659,7 +1858,15 @@ def main() -> int:
             for p in ("scene4_mega", "stress10k_mega")},
         "coherent_vs_per_lane": {p: coherent_summary(p) for p in (
             "scene4_mega", "stress10k_mega")},
+        "resident_warps_per_sm": groups["resident_warps_per_sm"][
+            "rt_megakernel"],
         "k2": {"alone_as": "rt_nearest_hit", "ms": hits_rec["ms"],
+               "group": hits_rec["group"],
+               "baseline_ms": hits_rec["baseline_ms"],
+               "ms_by_group": {g: r["ms"]
+                               for g, r in hits_rec["by_group"].items()},
+               "resident_warps_per_sm": groups["resident_warps_per_sm"][
+                   "rt_nearest_hit"],
                "plain_ms": hits_rec["plain_ms"], "bound_ms": k2["bound_ms"],
                "bound_by": k2["bound_by"],
                "tests_per_ray": k2["tests_per_ray"],

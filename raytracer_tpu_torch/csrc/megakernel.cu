@@ -347,25 +347,30 @@ __device__ __forceinline__ void merge_hits(Hit& h, unsigned mask) {
   }
 }
 
-// hit_before for a candidate of the pool being walked: the key is read
-// only when t does not lose outright (t <= h.t is rare), and a sphere's
-// rank is its code while the best is a sphere (spheres are walked first).
-__device__ __forceinline__ void sphere_candidate(const RtScene& s, int i,
-                                                 const Ray& r, float ddo,
-                                                 float osq, Hit& h) {
-  const float t = sphere_t(s.sph_f + i, s.n_sph, r, ddo, osq);
-  if (t > kEps && t <= h.t && (t < h.t || 2 * i < h.code)) {
-    h.t = t;
-    h.code = 2 * i;
-  }
-}
-
-__device__ __forceinline__ void triangle_candidate(const RtScene& s, int k,
-                                                   const Ray& r, Hit& h) {
-  float t, u, v;
-  if (triangle_t<true>(s.tri_f + k, s.n_tri, r, s.has_one_way, t, u, v) &&
-      t <= h.t && (t < h.t || ((h.code & 1) && 2 * k + 1 < h.code))) {
-    h = Hit{t, 2 * k + 1, u, v};
+// Primitive i of the pool being walked against the thread's best. A
+// thread that meets its pool's primitives in index order (kKeyed false)
+// keeps the first of a tie with a strict '<', which is the key's order;
+// one that meets them out of order (kKeyed, near-first leaves) reads the
+// key when t does not lose outright, a sphere's rank being its code while
+// the best is a sphere (spheres are walked first).
+template <bool kTri, bool kKeyed>
+__device__ __forceinline__ void candidate(const RtScene& s, int i,
+                                          const Ray& r, float ddo, float osq,
+                                          Hit& h) {
+  if constexpr (kTri) {
+    float t, u, v;
+    if (triangle_t<true>(s.tri_f + i, s.n_tri, r, s.has_one_way, t, u, v) &&
+        (kKeyed ? t <= h.t && (t < h.t || ((h.code & 1) && 2 * i + 1 < h.code))
+                : t < h.t)) {
+      h = Hit{t, 2 * i + 1, u, v};
+    }
+  } else {
+    const float t = sphere_t(s.sph_f + i, s.n_sph, r, ddo, osq);
+    if (t > kEps &&
+        (kKeyed ? t <= h.t && (t < h.t || 2 * i < h.code) : t < h.t)) {
+      h.t = t;
+      h.code = 2 * i;
+    }
   }
 }
 
@@ -484,7 +489,7 @@ __device__ __forceinline__ void in_order(const float* __restrict__ boxes,
 // order (the groups of a warp then test the same boxes and sweep the same
 // leaves together), clusters -> leaves near-first in a pool without
 // supers, else every slot strided over the group.
-template <bool kTri, int G>
+template <bool kTri, int G, bool kNearFirst>
 __device__ __forceinline__ void group_pool(const RtScene& s, const Ray& r,
                                            float ddo, float osq, float ix,
                                            float iy, float iz, Hit& h,
@@ -496,27 +501,34 @@ __device__ __forceinline__ void group_pool(const RtScene& s, const Ray& r,
   const int n_sup = kTri ? s.n_tri_sup : s.n_sph_sup;
   const int leaf = kTri ? s.tri_leaf : s.sph_leaf;
   const int n_prim = kTri ? s.n_tri : s.n_sph;
-  auto test = [&](int i) {
-    if (kTri) {
-      triangle_candidate(s, i, r, h);
-    } else {
-      sphere_candidate(s, i, r, ddo, osq, h);
+  // a thread meets a leaf's primitives in index order; leaves come in
+  // index order but for the near-first walk
+  auto leaf_in_order = [&](int c) {
+    for (int i = c * leaf + grp.rank; i < (c + 1) * leaf; i += G) {
+      candidate<kTri, false>(s, i, r, ddo, osq, h);
     }
+    merge_hits<G>(h, grp.mask);
   };
-  auto leaf_sweep = [&](int c) {
-    for (int i = c * leaf + grp.rank; i < (c + 1) * leaf; i += G) test(i);
+  auto leaf_keyed = [&](int c) {
+    for (int i = c * leaf + grp.rank; i < (c + 1) * leaf; i += G) {
+      candidate<kTri, true>(s, i, r, ddo, osq, h);
+    }
     merge_hits<G>(h, grp.mask);
   };
   if (n_sup > 0) {
     in_order<G>(sup, 0, n_sup, r, ix, iy, iz, h, grp, [&](int g) {
       const float* box = sup + 8 * g;
       in_order<G>(cl, static_cast<int>(box[6]), static_cast<int>(box[7]), r,
-                  ix, iy, iz, h, grp, leaf_sweep);
+                  ix, iy, iz, h, grp, leaf_in_order);
     });
+  } else if (n_cl > 0 && !kNearFirst) {
+    in_order<G>(cl, 0, n_cl, r, ix, iy, iz, h, grp, leaf_in_order);
   } else if (n_cl > 0) {
-    near_first<G>(cl, 0, n_cl, r, ix, iy, iz, h, grp, lists, leaf_sweep);
+    near_first<G>(cl, 0, n_cl, r, ix, iy, iz, h, grp, lists, leaf_keyed);
   } else {
-    for (int i = grp.rank; i < n_prim; i += G) test(i);
+    for (int i = grp.rank; i < n_prim; i += G) {
+      candidate<kTri, false>(s, i, r, ddo, osq, h);
+    }
     merge_hits<G>(h, grp.mask);
   }
 }
@@ -524,7 +536,7 @@ __device__ __forceinline__ void group_pool(const RtScene& s, const Ray& r,
 // K2 for a group: every thread of the group returns the same hit, the
 // plain version's winner (FAST_DIV triangles). The block has kBlock
 // threads.
-template <int G>
+template <int G, bool kNearFirst = true>
 __device__ Hit nearest_group(const RtScene& s, const Ray& r,
                              const Group<G>& grp) {
   __shared__ float2 box_lists[kListSlots * kBlock];
@@ -533,8 +545,9 @@ __device__ Hit nearest_group(const RtScene& s, const Ray& r,
   const float osq = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
   const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
   Hit h{kInf, 0, 0.0f, 0.0f};
-  group_pool<false, G>(s, r, ddo, osq, ix, iy, iz, h, grp, lists);
-  group_pool<true, G>(s, r, ddo, osq, ix, iy, iz, h, grp, lists);
+  group_pool<false, G, kNearFirst>(s, r, ddo, osq, ix, iy, iz, h, grp,
+                                   lists);
+  group_pool<true, G, kNearFirst>(s, r, ddo, osq, ix, iy, iz, h, grp, lists);
   return h;
 }
 
@@ -716,7 +729,7 @@ constexpr int kMegaMinBlocks = 7;
 // K1 (megakernel.py:370-1150), G threads per lane slot; the baseline arm
 // (kBaseline, G = 1) keeps the index-order walk and the per-pixel sums in
 // global memory.
-template <int G, bool kBaseline>
+template <int G, bool kBaseline, bool kNearFirst = true>
 __global__ void __launch_bounds__(kBlock, kBaseline ? 1 : kMegaMinBlocks)
     megakernel(const RtMegaArgs a) {
   const RtScene& s = a.scene;
@@ -804,7 +817,7 @@ __global__ void __launch_bounds__(kBlock, kBaseline ? 1 : kMegaMinBlocks)
     if constexpr (kBaseline) {
       h = nearest<true>(s, ray);
     } else {
-      h = nearest_group<G>(s, ray, grp);
+      h = nearest_group<G, kNearFirst>(s, ray, grp);
     }
     const bool hit = h.t < kInf;
     if (leader && bounce == 0 && sample == cur_k * spp) {
@@ -1115,6 +1128,11 @@ int rt_megakernel(const RtMegaArgs* args, void* stream) {
     case 2: return launch_mega<2, false>(*args, st);
     case 4: return launch_mega<4, false>(*args, st);
     case 8: return launch_mega<8, false>(*args, st);
+    case 17: {
+      const int blocks = args->n_tiles * kTileLanes / kBlock;
+      megakernel<1, false, false><<<blocks, kBlock, 0, st>>>(*args);
+      return static_cast<int>(cudaGetLastError());
+    }
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -59,29 +59,43 @@ T_I32_ROWS = 2
 LAUNCHES = 0
 
 # Threads that share one ray in rt_nearest_hit and one lane slot in
-# rt_megakernel (the kernels' template instances), and the waves of
-# resident threads the group rule fills (set from the G sweep, PERF.md).
-# Group 0, which only the private ``_group`` keywords take, is the
-# baseline: one thread a ray on the index-order walk of the design before
-# the groups.
+# rt_megakernel (the kernels' template instances). Group 0, which only the
+# private ``_group`` keywords take, is the baseline: one thread a ray on
+# the index-order walk of the design before the groups.
 GROUPS = (1, 2, 4, 8)
-GROUP_WAVES = 1
+# Waves of resident threads the group rule fills, by the scene's gate
+# depth (0: every pool flat, 1: clusters, 2: supers), from the measured G
+# sweep (scripts/k1_groups.py, PERF.md): a deeper walk pays more for being
+# split than the G-fold shading costs.
+GROUP_WAVES = {0: 1, 1: 2, 2: 8}
 KIND_MEGAKERNEL, KIND_NEAREST = 0, 1
 
 
-def group_size(slots: int, resident) -> int:
-    """G for ``slots`` lane slots or rays: the largest G of GROUPS whose
-    ``slots * G`` threads fit in GROUP_WAVES waves of the threads the card
-    keeps resident, ``resident[G]``; 1 when none does."""
+def gate_depth(ps) -> int:
+    """Gate levels of the scene's deepest pool: 2 with supers, 1 with
+    clusters, 0 when every pool is swept whole."""
+    if ps.n_sph_sup > 0 or ps.n_tri_sup > 0:
+        return 2
+    return 1 if ps.n_sph_cl > 0 or ps.n_tri_cl > 0 else 0
+
+
+def group_size(slots: int, resident, depth: int) -> int:
+    """G for ``slots`` lane slots or rays over a scene of gate depth
+    ``depth``: the largest G of GROUPS whose ``slots * G`` threads fit in
+    GROUP_WAVES[depth] waves of the threads the card keeps resident,
+    ``resident[G]``; 1 when none does."""
     for g in sorted(GROUPS, reverse=True):
-        if slots * g <= GROUP_WAVES * resident[g]:
+        if slots * g <= GROUP_WAVES[depth] * resident[g]:
             return g
     return 1
 
 
 def check_group(group) -> None:
-    if group is not None and group not in (0,) + GROUPS:
+    if group is not None and group not in (0, 17) + GROUPS:
         raise ValueError(f"group must be one of {(0,) + GROUPS}, got {group}")
+
+
+_RESIDENT: dict = {}
 
 
 def resident_threads(kind: int, group: int) -> int:
@@ -99,15 +113,13 @@ def resident_threads(kind: int, group: int) -> int:
     return _RESIDENT[key]
 
 
-_RESIDENT: dict = {}
-
-
-def pick_group(kind: int, slots: int, group=None) -> int:
-    """``group`` when given, else the rule's G for ``slots``."""
+def pick_group(kind: int, slots: int, ps, group=None) -> int:
+    """``group`` when given, else the rule's G for ``slots`` over ``ps``."""
     check_group(group)
     if group is not None:
         return group
-    return group_size(slots, {g: resident_threads(kind, g) for g in GROUPS})
+    return group_size(slots, {g: resident_threads(kind, g) for g in GROUPS},
+                      gate_depth(ps))
 
 
 def leaf_size(n: int) -> int:
@@ -473,7 +485,7 @@ def nearest_hit(ps: PackedScene, o: torch.Tensor, d: torch.Tensor, *,
         scene=build.scene_args(ps),
         o=build.ptrs3(o), d=build.ptrs3(d),
         out=(ctypes.c_void_p * 9)(*[x.data_ptr() for x in outs]), n=n,
-        group=pick_group(KIND_NEAREST, n, _group))
+        group=pick_group(KIND_NEAREST, n, ps, _group))
     rc = lib.rt_nearest_hit(ctypes.byref(args),
                             ctypes.c_void_p(build.stream(o.device)))
     build.check(lib, rc, "rt_nearest_hit")

@@ -89,7 +89,11 @@ def sweep_scenes(rtt):
              3),
             ("stress10k", bench_scenes.stress_10k_scene(num=10000, seed=1),
              1000, 800, 20, (0.0, 1.0, -4.0), 1),
-            ("scene4_4k", scene4, 3840, 2160, 1, (0.0, 0.5, -6.0), 3))
+            ("scene4_4k", scene4, 3840, 2160, 1, (0.0, 0.5, -6.0), 3),
+            ("cube", bench_scenes.cube_scene(), 1280, 720, 200,
+             (0.0, 0.0, 0.0), 1, 1),
+            ("monkey", bench_scenes.monkey_light_scene(), 1920, 1080, 100,
+             (0.0, 0.0, 0.0), 1, 1))
 
 
 def sweep(dev) -> None:
@@ -117,16 +121,18 @@ def sweep(dev) -> None:
           **{k: {g: v // 32 // sms for g, v in r.items()}
              for k, r in resident.items()}})
 
-    for name, (scene, sky), width, height, spp, pos, reps in \
+    for name, (scene, sky), width, height, spp, pos, reps, *pixpack in \
             sweep_scenes(rtt):
+        pixpack = pixpack[0] if pixpack else 8
         ms = mk.MegaScene(scene.to(dev))
         settings = rtt.RenderSettings(rays_per_pixel=spp, reflect_limit=5,
                                       antialias=True).with_sky(sky)
         o, d = camera_rays(rtt, width, height, dev, position=pos)
         o_p, d_p, seed, kw = mk.mega_inputs(
-            ms, settings, o, d, rng.frame_key(rng.key(0), 0), pixpack=8)
-        slots = o_p.shape[1] // 8
-        variants = [("baseline", 0)] + [(f"G{g}", g) for g in sw.GROUPS]
+            ms, settings, o, d, rng.frame_key(rng.key(0), 0), pixpack=pixpack)
+        slots = o_p.shape[1] // pixpack
+        variants = [("baseline", 0)] + [(f"G{g}", g) for g in sw.GROUPS] + [
+            ("G1io", 17)]
         outs, times = {}, {v[0]: [] for v in variants}
 
         def run(group):
@@ -141,9 +147,11 @@ def sweep(dev) -> None:
         base = outs["baseline"]
         segs = float(base[3].double().sum())
         emit({"what": "k1_sweep", "scene": name, "width": width,
-              "height": height, "spp": spp, "pixpack": 8,
+              "height": height, "spp": spp, "pixpack": pixpack,
               "lane_slots": slots,
-              "rule_group": sw.pick_group(sw.KIND_MEGAKERNEL, slots),
+              "gate_depth": sw.gate_depth(ms.packed),
+              "rule_group": sw.pick_group(sw.KIND_MEGAKERNEL, slots,
+                                          ms.packed),
               "segments": segs,
               "ms": {v: t for v, t in times.items()},
               "ms_mean": {v: float(np.mean(t)) for v, t in times.items()},
@@ -173,7 +181,7 @@ def sweep(dev) -> None:
             times[gr].append(cuda_ms(lambda: sw.nearest_hit(
                 ps, o, d, _group=gr), 10))
     emit({"what": "k2_sweep", "rays": n,
-          "rule_group": sw.pick_group(sw.KIND_NEAREST, n),
+          "rule_group": sw.pick_group(sw.KIND_NEAREST, n, ps),
           "ms": times, "bitwise_vs_plain": equal, "card": card()})
 
 

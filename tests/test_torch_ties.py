@@ -30,8 +30,9 @@ from raytracer_tpu_torch.ops import sweep as tsweep
 
 torch.set_num_threads(2)
 
-# H100 SXM: 132 SMs x 2048 threads, the most any kernel keeps resident
-H100_RESIDENT = 132 * 2048
+# Threads an H100 keeps resident for each group arm of rt_megakernel (72
+# registers: 7 blocks of 128 threads on each of 132 SMs)
+MEGA_RESIDENT = {g: 132 * 7 * 128 for g in tsweep.GROUPS}
 SLOTS_1000x800_PP8 = 25 * 4096      # ceil(800,000 / 32,768) tiles
 SLOTS_4K_1SPP_PP8 = 254 * 4096      # ceil(8,294,400 / 32,768) tiles
 
@@ -121,29 +122,43 @@ def test_nearest_hit_rejects_unknown_group():
         assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
-@pytest.mark.parametrize("slots, resident, want", [
-    (SLOTS_1000x800_PP8, {g: H100_RESIDENT for g in tsweep.GROUPS}, None),
-    (SLOTS_4K_1SPP_PP8, {g: H100_RESIDENT for g in tsweep.GROUPS}, 1),
-    (1, {g: 128 for g in tsweep.GROUPS}, 8),
-    (0, {g: 128 for g in tsweep.GROUPS}, 8),
-    (10 ** 9, {g: H100_RESIDENT for g in tsweep.GROUPS}, 1),
-    (1000, {1: 4000, 2: 4000, 4: 4000, 8: 100}, 4),
+@pytest.mark.parametrize("slots, depth, want", [
+    (SLOTS_1000x800_PP8, 1, 2),     # scene 4: clusters
+    (SLOTS_1000x800_PP8, 0, 1),     # scene 2: flat pools
+    (SLOTS_1000x800_PP8, 2, 8),     # stress10k: supers
+    (SLOTS_4K_1SPP_PP8, 1, 1),      # the 4K fly-through
+    (SLOTS_4K_1SPP_PP8, 2, 1),
+    (8 * SLOTS_1000x800_PP8, 2, 1),  # stress10k at pixpack 1
+    (0, 0, 8),
+    (1, 0, 8),
+    (10 ** 9, 2, 1),
 ])
-def test_group_rule(slots, resident, want):
-    """G is the largest group whose threads fit the resident waves: the
-    1000x800 pixpack-8 frame (102,400 slots) takes G > 1, the 4K 1 spp
-    frame (1,040,384 slots) G = 1, a kernel instance that keeps fewer
-    threads resident is passed over, and nothing fits is G = 1."""
-    g = tsweep.group_size(slots, resident)
-    assert g in tsweep.GROUPS
-    if want is None:
-        assert g > 1
-        assert slots * g <= tsweep.GROUP_WAVES * resident[g]
-        bigger = [x for x in tsweep.GROUPS if x > g]
-        assert all(slots * x > tsweep.GROUP_WAVES * resident[x]
-                   for x in bigger)
-    else:
-        assert g == want
+def test_group_rule(slots, depth, want):
+    """The rule on the H100's resident threads: the 1000x800 pixpack-8
+    frame (102,400 lane slots) takes G = 2 over clusters, 1 over flat
+    pools and 8 over supers; the 4K 1 spp frame (1,040,384) takes 1."""
+    g = tsweep.group_size(slots, MEGA_RESIDENT, depth)
+    assert g == want
+    waves = tsweep.GROUP_WAVES[depth]
+    assert g == 1 or slots * g <= waves * MEGA_RESIDENT[g]
+
+
+def test_group_rule_reads_each_arms_residency():
+    """An arm that keeps fewer threads resident is passed over."""
+    resident = {1: 4000, 2: 4000, 4: 4000, 8: 100}
+    assert tsweep.group_size(1000, resident, 0) == 4
+    assert tsweep.group_size(1000, {g: 10 for g in tsweep.GROUPS}, 2) == 1
+
+
+def test_gate_depth():
+    """Scene 2 sweeps its pools whole, scene 4 has clusters, a field of
+    1000 spheres has supers."""
+    from raytracer_tpu_torch.models import bench_scenes
+    import raytracer_tpu_torch as rtt
+    assert tsweep.gate_depth(tsweep.pack(rtt.build_scene(2)[0])) == 0
+    assert tsweep.gate_depth(tsweep.pack(rtt.build_scene(4, seed=0)[0])) == 1
+    field, _ = bench_scenes.stress_10k_scene(num=1000, seed=1)
+    assert tsweep.gate_depth(tsweep.pack(field)) == 2
 
 
 def test_check_group():

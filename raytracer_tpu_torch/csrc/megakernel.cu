@@ -43,40 +43,42 @@
 // of an 8-row draw) and so scatters alike after a bounce.
 //
 // Sweep (K2, nearest_group). The group walks the cluster arrays of
-// pack_scene near-first: it slab-tests the boxes of a level (supers, then
-// the clusters under the super being visited, or the clusters alone)
-// strided over its G threads, each thread listing its nearest
-// entered boxes in shared memory, and visits the nearest remaining box of
-// the group (shuffles) until that box is entered beyond the group's best t.
-// The primitives of a leaf are strided over the G threads and each leaf's
-// candidates are merged with __shfl_xor_sync on the key (t, is_triangle,
-// primitive index): the plain version's argmin, where an exact tie goes to
-// the sphere, then to the lower index (ops/sweep.py:301-325). So the
-// visit order does not show in the result, and gating a box entered
-// beyond the best t leaves the ungated argmin. A box entered exactly at
-// the best t is still visited: it may hold a tied primitive of lower key.
-// The gate is per group (the TPU tile sweeps a leaf when any lane enters
-// its box, so a ray that misses a padded box can still win a primitive
-// there through float error on the TPU, and cannot here). K5 keeps the
-// one-thread index-order walk (sweep_pool), whose primitive-test counts
-// depend on the visit order. group = 0 runs K1 and rt_nearest_hit on that
-// walk too, one thread per lane slot with the sums kept in global memory,
-// as the design before the groups did: the baseline that chip_smoke.py
-// times the groups against.
+// pack_scene in index order: supers (if any), then the clusters they
+// cover, then the leaf primitives; spheres first, triangles second. The
+// boxes of a level are slab-tested G at a time, one a thread, and a
+// ballot names the ones entered no later than the group's best t; the
+// group visits those in order, and a leaf's primitives are strided over
+// its G threads (a thread keeps the first of a tie with a strict '<').
+// Each leaf's candidates are merged with __shfl_xor_sync on the key (t,
+// is_triangle, primitive index): the plain version's argmin, where an
+// exact tie goes to the sphere, then to the lower index (ops/sweep.py:
+// 301-325). Gating prunes only boxes entered beyond the best t, so the
+// winner is the ungated argmin. The gate is per group (the TPU tile sweeps
+// a leaf when any lane enters its box, so a ray that misses a padded box
+// can still win a primitive there through float error on the TPU, and
+// cannot here). K5 keeps the one-thread walk (sweep_pool), whose
+// primitive-test counts it reports. group = 0 runs K1 and rt_nearest_hit
+// on that walk too, one thread per lane slot with the sums kept in global
+// memory, as the design before the groups did: the baseline that
+// chip_smoke.py times the groups against.
 //
 // What bounds it on an H100: each lane slot runs a long, divergent loop of
 // dependent scalar float math and data-dependent branches (hit or miss,
 // material, path end). It is bound by latency, occupancy and registers,
-// not by bytes: the scene is ~4 KB for the RTiOW scene and stays in L1/L2,
-// and a frame gets faster with more threads in flight. What the design
-// does about that: at the Renderer's pixpack of 8 a 1000x800 frame has
-// only 102,400 lane slots, under half of what the card keeps resident, so
-// G threads share each slot: G times the threads without changing any
-// random stream, the slot's serial chain of box and primitive tests cut
-// by about G, and 32/G paths a warp instead of 32, so a warp diverges
-// less. The near-first gate prunes the boxes behind the first hits (the
-// stress scenes' hundreds of supers). Per-pixel sums stay in registers
-// and are written once per pixel.
+// not by bytes: the scene is ~4 KB for the RTiOW scene and stays in L1/L2.
+// What the design does about that: at the Renderer's pixpack of 8 a
+// 1000x800 frame has only 102,400 lane slots, fewer than the card keeps
+// resident, so G threads share each slot: G times the threads without
+// changing any random stream, and the slot's serial chain of box and
+// primitive tests cut by about G, at the price of G copies of the shading.
+// The deeper the scene's gates, the more the split pays, so the wrapper's
+// rule takes G from the lane slots, the resident threads and the gate
+// depth (ops/sweep.py group_size). The walk stays in index order because
+// the groups of a warp then load the same boxes and primitives at once:
+// a near-first walk (boxes sorted by entry distance per group) was slower
+// on every path measured (PERF.md). Registers are capped at 72 so that 7
+// blocks of an SM stay resident. Per-pixel sums stay in registers and are
+// written once per pixel.
 //
 // Numerics. Built with IEEE division and sqrt (no --use_fast_math: the
 // NaN-on-miss sphere test and the 0/0 padding triangles need IEEE NaN
@@ -297,14 +299,8 @@ __device__ Hit nearest(const RtScene& s, const Ray& r) {
 
 // ---- K2 for a group of G threads that share one ray ----------------------
 
-// The near-first walk's box list in shared memory: kListSlots entered
-// clusters a thread (a pool without supers has at most 16 by the scene
-// build), the block's threads interleaved (entry k of a thread at
-// k * kBlock). Both kernels that walk in groups launch kBlock threads a
-// block.
+// Threads a block of the kernels that walk in groups.
 constexpr int kBlock = 128;
-constexpr int kListSlots = 16;
-constexpr int kNoBox = 0x7FFFFFFF;
 
 // The G threads of a warp that share one lane slot: their lanes and the
 // thread's rank among them. Groups are aligned to G within the warp.
@@ -348,107 +344,24 @@ __device__ __forceinline__ void merge_hits(Hit& h, unsigned mask) {
 }
 
 // Primitive i of the pool being walked against the thread's best. A
-// thread that meets its pool's primitives in index order (kKeyed false)
-// keeps the first of a tie with a strict '<', which is the key's order;
-// one that meets them out of order (kKeyed, near-first leaves) reads the
-// key when t does not lose outright, a sphere's rank being its code while
-// the best is a sphere (spheres are walked first).
-template <bool kTri, bool kKeyed>
+// thread meets its pools' primitives in index order, spheres first (see
+// in_order), so a strict '<' keeps the first of a tie: the key's order.
+template <bool kTri>
 __device__ __forceinline__ void candidate(const RtScene& s, int i,
                                           const Ray& r, float ddo, float osq,
                                           Hit& h) {
   if constexpr (kTri) {
     float t, u, v;
     if (triangle_t<true>(s.tri_f + i, s.n_tri, r, s.has_one_way, t, u, v) &&
-        (kKeyed ? t <= h.t && (t < h.t || ((h.code & 1) && 2 * i + 1 < h.code))
-                : t < h.t)) {
+        t < h.t) {
       h = Hit{t, 2 * i + 1, u, v};
     }
   } else {
     const float t = sphere_t(s.sph_f + i, s.n_sph, r, ddo, osq);
-    if (t > kEps &&
-        (kKeyed ? t <= h.t && (t < h.t || 2 * i < h.code) : t < h.t)) {
+    if (t > kEps && t < h.t) {
       h.t = t;
       h.code = 2 * i;
     }
-  }
-}
-
-// (entry, index) order of two boxes.
-__device__ __forceinline__ bool box_before(float e, int i, float f, int j) {
-  return e < f || (e == f && i < j);
-}
-
-// Visit boxes first .. first + count - 1 of a gate table (rows of 8
-// floats) that the ray enters no later than the group's best t, nearest
-// first, calling visit(box) with the whole group. Thread rank tests boxes
-// first + rank, + G, ... and lists its kListSlots nearest not yet visited,
-// sorted, in ``list`` (its shared-memory column); the group visits the
-// nearest head of its threads' lists. A thread that dropped boxes from a
-// full list lists them again, past the last box it gave up, when its list
-// runs out. visit() must leave h equal across the group, as merge_hits
-// does.
-template <int G, typename Visit>
-__device__ __forceinline__ void near_first(const float* __restrict__ boxes,
-                                           int first, int count,
-                                           const Ray& r, float ix, float iy,
-                                           float iz, Hit& h,
-                                           const Group<G>& grp,
-                                           float2* __restrict__ list,
-                                           Visit&& visit) {
-  int head = 0, len = 0;
-  bool more = true;      // entered boxes may remain unlisted
-  float last_e = -1.0f;  // the last box this thread gave up
-  int last_i = -1;
-  while (true) {
-    if (head == len && more) {
-      head = len = 0;
-      more = false;
-      for (int b = first + grp.rank; b < first + count; b += G) {
-        const float e = box_entry(boxes + 8 * b, r, ix, iy, iz);
-        if (!(e < kInf && e <= h.t) || !box_before(last_e, last_i, e, b)) {
-          continue;
-        }
-        if (len == kListSlots) {  // full: the farthest of the list drops
-          more = true;
-          const float2 tail = list[(kListSlots - 1) * kBlock];
-          if (!box_before(e, b, tail.x, __float_as_int(tail.y))) continue;
-          --len;
-        }
-        int k = len;
-        for (; k > 0; --k) {
-          const float2 prev = list[(k - 1) * kBlock];
-          if (!box_before(e, b, prev.x, __float_as_int(prev.y))) break;
-          list[k * kBlock] = prev;
-        }
-        list[k * kBlock] = make_float2(e, __int_as_float(b));
-        ++len;
-      }
-    }
-    float e = kInf;
-    int own = kNoBox;
-    if (head < len) {
-      const float2 top = list[head * kBlock];
-      e = top.x;
-      own = __float_as_int(top.y);
-    }
-    int i = own;
-#pragma unroll
-    for (int off = G / 2; off > 0; off >>= 1) {
-      const float oe = __shfl_xor_sync(grp.mask, e, off);
-      const int oi = __shfl_xor_sync(grp.mask, i, off);
-      if (box_before(oe, oi, e, i)) {
-        e = oe;
-        i = oi;
-      }
-    }
-    if (!(e < kInf && e <= h.t)) break;
-    if (own == i) {
-      last_e = e;
-      last_i = i;
-      ++head;
-    }
-    visit(i);
   }
 }
 
@@ -456,7 +369,11 @@ __device__ __forceinline__ void near_first(const float* __restrict__ boxes,
 // than the group's best t in index order, G at a time: thread rank tests
 // box c + rank of each chunk c, and the group visits the chunk's entered
 // boxes in order, each gated again against the best t it meets. A group
-// of one tests and visits box by box, with no warp intrinsic.
+// of one tests and visits box by box, with no warp intrinsic. A box
+// entered exactly at the best t is visited: it may hold a tied primitive
+// of lower index. The supers of pack_scene cover the clusters in
+// ascending runs (first, count), so clusters, and so primitives, are met
+// in index order.
 template <int G, typename Visit>
 __device__ __forceinline__ void in_order(const float* __restrict__ boxes,
                                          int first, int count, const Ray& r,
@@ -485,33 +402,24 @@ __device__ __forceinline__ void in_order(const float* __restrict__ boxes,
   }
 }
 
-// One pool, walked by the group: supers -> clusters -> leaves in index
-// order (the groups of a warp then test the same boxes and sweep the same
-// leaves together), clusters -> leaves near-first in a pool without
-// supers, else every slot strided over the group.
-template <bool kTri, int G, bool kNearFirst>
+// One pool, walked by the group in index order: supers -> clusters ->
+// leaves when the scene has them, else every slot, each leaf's slots
+// strided over the group and merged. The groups of a warp then test the
+// same boxes and sweep the same leaves together.
+template <bool kTri, int G>
 __device__ __forceinline__ void group_pool(const RtScene& s, const Ray& r,
                                            float ddo, float osq, float ix,
                                            float iy, float iz, Hit& h,
-                                           const Group<G>& grp,
-                                           float2* __restrict__ lists) {
+                                           const Group<G>& grp) {
   const float* __restrict__ cl = kTri ? s.tri_cl : s.sph_cl;
   const float* __restrict__ sup = kTri ? s.tri_sup : s.sph_sup;
   const int n_cl = kTri ? s.n_tri_cl : s.n_sph_cl;
   const int n_sup = kTri ? s.n_tri_sup : s.n_sph_sup;
   const int leaf = kTri ? s.tri_leaf : s.sph_leaf;
   const int n_prim = kTri ? s.n_tri : s.n_sph;
-  // a thread meets a leaf's primitives in index order; leaves come in
-  // index order but for the near-first walk
-  auto leaf_in_order = [&](int c) {
+  auto leaf_sweep = [&](int c) {
     for (int i = c * leaf + grp.rank; i < (c + 1) * leaf; i += G) {
-      candidate<kTri, false>(s, i, r, ddo, osq, h);
-    }
-    merge_hits<G>(h, grp.mask);
-  };
-  auto leaf_keyed = [&](int c) {
-    for (int i = c * leaf + grp.rank; i < (c + 1) * leaf; i += G) {
-      candidate<kTri, true>(s, i, r, ddo, osq, h);
+      candidate<kTri>(s, i, r, ddo, osq, h);
     }
     merge_hits<G>(h, grp.mask);
   };
@@ -519,35 +427,29 @@ __device__ __forceinline__ void group_pool(const RtScene& s, const Ray& r,
     in_order<G>(sup, 0, n_sup, r, ix, iy, iz, h, grp, [&](int g) {
       const float* box = sup + 8 * g;
       in_order<G>(cl, static_cast<int>(box[6]), static_cast<int>(box[7]), r,
-                  ix, iy, iz, h, grp, leaf_in_order);
+                  ix, iy, iz, h, grp, leaf_sweep);
     });
-  } else if (n_cl > 0 && !kNearFirst) {
-    in_order<G>(cl, 0, n_cl, r, ix, iy, iz, h, grp, leaf_in_order);
   } else if (n_cl > 0) {
-    near_first<G>(cl, 0, n_cl, r, ix, iy, iz, h, grp, lists, leaf_keyed);
+    in_order<G>(cl, 0, n_cl, r, ix, iy, iz, h, grp, leaf_sweep);
   } else {
     for (int i = grp.rank; i < n_prim; i += G) {
-      candidate<kTri, false>(s, i, r, ddo, osq, h);
+      candidate<kTri>(s, i, r, ddo, osq, h);
     }
     merge_hits<G>(h, grp.mask);
   }
 }
 
 // K2 for a group: every thread of the group returns the same hit, the
-// plain version's winner (FAST_DIV triangles). The block has kBlock
-// threads.
-template <int G, bool kNearFirst = true>
+// plain version's winner (FAST_DIV triangles).
+template <int G>
 __device__ Hit nearest_group(const RtScene& s, const Ray& r,
                              const Group<G>& grp) {
-  __shared__ float2 box_lists[kListSlots * kBlock];
-  float2* lists = box_lists + threadIdx.x;
   const float ddo = r.dx * r.ox + r.dy * r.oy + r.dz * r.oz;
   const float osq = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
   const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
   Hit h{kInf, 0, 0.0f, 0.0f};
-  group_pool<false, G, kNearFirst>(s, r, ddo, osq, ix, iy, iz, h, grp,
-                                   lists);
-  group_pool<true, G, kNearFirst>(s, r, ddo, osq, ix, iy, iz, h, grp, lists);
+  group_pool<false, G>(s, r, ddo, osq, ix, iy, iz, h, grp);
+  group_pool<true, G>(s, r, ddo, osq, ix, iy, iz, h, grp);
   return h;
 }
 
@@ -720,16 +622,14 @@ __global__ void __launch_bounds__(128) fetch_image_kernel(const RtFetchArgs a) {
 }
 
 // Blocks of kBlock threads an SM must keep resident for K1's group arms:
-// it caps their registers at 72, so 7 blocks of an SM hold 896 threads
-// and a 1000x800 pixpack-8 frame's 800 blocks fit in one wave on 132 SMs
-// (the baseline arm's 80 registers leave 8 blocks for a second wave;
-// ptxas -v and the sweep in PERF.md).
+// it caps their registers at 72 (28 warps an SM; the baseline arm's 80
+// registers keep 24), with no spill at G = 1 (ptxas -v; PERF.md).
 constexpr int kMegaMinBlocks = 7;
 
 // K1 (megakernel.py:370-1150), G threads per lane slot; the baseline arm
 // (kBaseline, G = 1) keeps the index-order walk and the per-pixel sums in
 // global memory.
-template <int G, bool kBaseline, bool kNearFirst = true>
+template <int G, bool kBaseline>
 __global__ void __launch_bounds__(kBlock, kBaseline ? 1 : kMegaMinBlocks)
     megakernel(const RtMegaArgs a) {
   const RtScene& s = a.scene;
@@ -817,7 +717,7 @@ __global__ void __launch_bounds__(kBlock, kBaseline ? 1 : kMegaMinBlocks)
     if constexpr (kBaseline) {
       h = nearest<true>(s, ray);
     } else {
-      h = nearest_group<G, kNearFirst>(s, ray, grp);
+      h = nearest_group<G>(s, ray, grp);
     }
     const bool hit = h.t < kInf;
     if (leader && bounce == 0 && sample == cur_k * spp) {
@@ -1128,11 +1028,6 @@ int rt_megakernel(const RtMegaArgs* args, void* stream) {
     case 2: return launch_mega<2, false>(*args, st);
     case 4: return launch_mega<4, false>(*args, st);
     case 8: return launch_mega<8, false>(*args, st);
-    case 17: {
-      const int blocks = args->n_tiles * kTileLanes / kBlock;
-      megakernel<1, false, false><<<blocks, kBlock, 0, st>>>(*args);
-      return static_cast<int>(cudaGetLastError());
-    }
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

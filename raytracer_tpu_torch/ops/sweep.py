@@ -91,7 +91,7 @@ def group_size(slots: int, resident, depth: int) -> int:
 
 
 def check_group(group) -> None:
-    if group is not None and group not in (0, 17) + GROUPS:
+    if group is not None and group not in (0,) + GROUPS:
         raise ValueError(f"group must be one of {(0,) + GROUPS}, got {group}")
 
 

@@ -131,8 +131,7 @@ def sweep(dev) -> None:
         o_p, d_p, seed, kw = mk.mega_inputs(
             ms, settings, o, d, rng.frame_key(rng.key(0), 0), pixpack=pixpack)
         slots = o_p.shape[1] // pixpack
-        variants = [("baseline", 0)] + [(f"G{g}", g) for g in sw.GROUPS] + [
-            ("G1io", 17)]
+        variants = [("baseline", 0)] + [(f"G{g}", g) for g in sw.GROUPS]
         outs, times = {}, {v[0]: [] for v in variants}
 
         def run(group):

@@ -6,8 +6,8 @@ Run from the root of a checkout, on a machine with one NVIDIA card (the
 kernels are built for sm_90a, an H100). It builds the CUDA kernels from
 ``raytracer_tpu_torch/csrc``, holds each against its plain PyTorch version
 on the card (``rt_nearest_hit``, ``rt_fetch_image``, and ``rt_megakernel``
-on scenes 4, 2 and 0, bitwise), drives two paths through ``Renderer`` at 1000x800,
-20 spp, 5 bounces and times them: the bench.py path (scene 4) and the
+on scenes 4, 2 and 0, bitwise), drives two paths through ``Renderer`` at
+1000x800, 20 spp, 5 bounces and times them: the bench.py path (scene 4) and the
 image-texture path (scene 2, the 256x512 earth), then times one frame of
 each bench scene of benchmarks/suite.py through the kernel.
 
@@ -339,7 +339,8 @@ def phase_hits(dev, n_rays: int) -> dict:
     for g in GROUP_ARMS:
         out = sweep.nearest_hit(ps, o, d, _group=g)
         by_group[str(g)] = {
-            "bitwise": all(bool(torch.equal(a, b)) for a, b in zip(out, want)),
+            "bitwise": all(bool(torch.equal(a, b))
+                           for a, b in zip(out, want)),
             "ms": cuda_ms(lambda: sweep.nearest_hit(ps, o, d, _group=g), 5)}
     turns = in_turns({
         "baseline": lambda: cuda_ms(lambda: sweep.nearest_hit(

@@ -343,28 +343,6 @@ __device__ __forceinline__ void merge_hits(Hit& h, unsigned mask) {
   }
 }
 
-// Primitive i of the pool being walked against the thread's best. A
-// thread meets its pools' primitives in index order, spheres first (see
-// in_order), so a strict '<' keeps the first of a tie: the key's order.
-template <bool kTri>
-__device__ __forceinline__ void candidate(const RtScene& s, int i,
-                                          const Ray& r, float ddo, float osq,
-                                          Hit& h) {
-  if constexpr (kTri) {
-    float t, u, v;
-    if (triangle_t<true>(s.tri_f + i, s.n_tri, r, s.has_one_way, t, u, v) &&
-        t < h.t) {
-      h = Hit{t, 2 * i + 1, u, v};
-    }
-  } else {
-    const float t = sphere_t(s.sph_f + i, s.n_sph, r, ddo, osq);
-    if (t > kEps && t < h.t) {
-      h.t = t;
-      h.code = 2 * i;
-    }
-  }
-}
-
 // Visit the boxes first .. first + count - 1 that the ray enters no later
 // than the group's best t in index order, G at a time: thread rank tests
 // box c + rank of each chunk c, and the group visits the chunk's entered
@@ -417,10 +395,18 @@ __device__ __forceinline__ void group_pool(const RtScene& s, const Ray& r,
   const int n_sup = kTri ? s.n_tri_sup : s.n_sph_sup;
   const int leaf = kTri ? s.tri_leaf : s.sph_leaf;
   const int n_prim = kTri ? s.n_tri : s.n_sph;
-  auto leaf_sweep = [&](int c) {
-    for (int i = c * leaf + grp.rank; i < (c + 1) * leaf; i += G) {
-      candidate<kTri>(s, i, r, ddo, osq, h);
+  // a thread meets its pools' primitives in index order, spheres first
+  // (see in_order), so the strict '<' of the tests keeps the first of a
+  // tie: the key's order
+  auto test = [&](int i) {
+    if (kTri) {
+      triangle_test<true>(s, i, r, h);
+    } else {
+      sphere_test(s, i, r, ddo, osq, h);
     }
+  };
+  auto leaf_sweep = [&](int c) {
+    for (int i = c * leaf + grp.rank; i < (c + 1) * leaf; i += G) test(i);
     merge_hits<G>(h, grp.mask);
   };
   if (n_sup > 0) {
@@ -432,9 +418,7 @@ __device__ __forceinline__ void group_pool(const RtScene& s, const Ray& r,
   } else if (n_cl > 0) {
     in_order<G>(cl, 0, n_cl, r, ix, iy, iz, h, grp, leaf_sweep);
   } else {
-    for (int i = grp.rank; i < n_prim; i += G) {
-      candidate<kTri>(s, i, r, ddo, osq, h);
-    }
+    for (int i = grp.rank; i < n_prim; i += G) test(i);
     merge_hits<G>(h, grp.mask);
   }
 }

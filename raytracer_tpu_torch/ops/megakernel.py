@@ -472,9 +472,9 @@ def _mega_cuda(ps, mat, o, d, seed, *, tex, img_rows, pixpack, spp, limit,
     """Launch rt_megakernel on the current stream; (5, n_pad) outputs.
 
     G threads share each lane slot, G by ``sweep.group_size`` over the
-    frame's lane slots and the scene's gate depth. ``_group`` forces G, for the tests and
-    chip_smoke.py only (0: the baseline, one thread a slot on the
-    index-order walk)."""
+    frame's lane slots and the scene's gate depth. ``_group`` forces G,
+    for the tests and chip_smoke.py only (0: the baseline, one thread a
+    slot on the index-order walk)."""
     from ..kernels import build
     n_pad = o.shape[1]
     n_tiles = n_pad // (MEGA_TILE * pixpack)

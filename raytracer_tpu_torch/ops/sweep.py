@@ -5,9 +5,9 @@ codecs, ``pack_scene`` and ``pack_param_planes`` (bitwise the same arrays),
 and the sweep's hit math. On the TPU the sweep walks a tile of rays through
 cluster gates (K2, sweep.py:491) and fetches the winner's parameters with
 lane gathers (K3, sweep.py:1170). Here both are ``__device__`` functions of
-``csrc/megakernel.cu``: a group of G threads walks the cluster arrays
-near-first for one ray, the boxes and a leaf's primitives strided over the
-group. ``nearest_hit`` runs them alone over a batch of rays
+``csrc/megakernel.cu``: a group of G threads walks the cluster arrays in
+index order for one ray, the boxes and a leaf's primitives strided over
+the group. ``nearest_hit`` runs them alone over a batch of rays
 (``rt_nearest_hit``); ``nearest_hit_reference`` is its plain version.
 ``group_size`` is the rule that picks G from the rays (or the megakernel's
 lane slots) and the threads the card keeps resident.

@@ -8,8 +8,10 @@ Run from the root of a checkout on a machine with one NVIDIA card.
 
 ``sweep`` times ``rt_megakernel`` with CUDA events on the 1000x800, 20 spp,
 5-bounce frames of scene 4, scene 2 and stress10k (pixpack 8, the
-Renderer's auto choice) and on one 3840x2160 1 spp frame of scene 4 (the
-fly-through's shape), at every group size G (1, 2, 4, 8) and on the
+Renderer's auto choice), on one 3840x2160 1 spp frame of scene 4 (the
+fly-through's shape) and on the cube (1280x720, 200 spp) and monkey
+(1920x1080, 100 spp) bench frames at pixpack 1, at every group size G
+(1, 2, 4, 8) and on the
 baseline walk (group 0, one thread a lane slot in index order), in turns
 (forward, then backward), each variant's output held bitwise against the
 baseline's. It also

@@ -1,8 +1,9 @@
 """The nearest-hit tie order and the group rule of raytracer_tpu_torch.
 
-The CUDA walk (K2) visits boxes near-first with G threads a ray and merges
-candidates on the key (t, is_triangle, primitive index), so its winner is
-the plain version's whatever the visit order. These tests hold that key
+The CUDA walk (K2) runs G threads a ray, strides each leaf's primitives
+over them and merges the candidates on the key (t, is_triangle, primitive
+index), so its winner is the plain version's at every G. These tests hold
+that key
 on the plain versions against raytracer_tpu's wavefront oracle,
 ``ops/intersect.nearest_hit`` (argmin within a pool, the first index on a
 tie; ``is_tri = tri_t < sph_t``, intersect.py:298), on a scene of exact
@@ -159,6 +160,19 @@ def test_gate_depth():
     assert tsweep.gate_depth(tsweep.pack(rtt.build_scene(4, seed=0)[0])) == 1
     field, _ = bench_scenes.stress_10k_scene(num=1000, seed=1)
     assert tsweep.gate_depth(tsweep.pack(field)) == 2
+
+
+def test_supers_cover_clusters_in_order():
+    """The index-order walk meets a pool's primitives in index order, so a
+    thread keeps the first of a tie with a strict '<': every super covers
+    the next run of clusters, and holds at most 8 of them."""
+    from raytracer_tpu_torch.models import bench_scenes
+    field, _ = bench_scenes.stress_10k_scene(num=3000, seed=2)
+    for sup in (field.sph_supers.numpy(),):
+        first, count = sup[:, 6], sup[:, 7]
+        assert first[0] == 0 and (count >= 1).all() and (count <= 8).all()
+        np.testing.assert_array_equal(first[1:], first[:-1] + count[:-1])
+        assert first[-1] + count[-1] == field.sph_clusters.shape[0]
 
 
 def test_check_group():

@@ -55,7 +55,8 @@ def duplicate_a(centre: np.ndarray, radius: np.ndarray,
     b = b + 1 if b == p else b
     centre[b], radius[b] = centre[a], radius[a]
     pad = np.float32(1e-3)
-    clusters[cb, :3] = np.minimum(clusters[cb, :3], centre[a] - radius[a] - pad)
+    clusters[cb, :3] = np.minimum(clusters[cb, :3],
+                                  centre[a] - radius[a] - pad)
     clusters[cb, 3:6] = np.maximum(clusters[cb, 3:6],
                                    centre[a] + radius[a] + pad)
     return centre, radius, clusters, (a, b)

@@ -1,8 +1,8 @@
 """The megakernel's (K1's) group sweep and its paths, timed on one CUDA
 card.
 
-    python scripts/k1_groups.py sweep
-    python scripts/k1_groups.py paths [--tree DIR] [--label NAME]
+    python scripts/k1_groups.py sweep [--out FILE]
+    python scripts/k1_groups.py paths [--tree DIR] [--label NAME] [--out FILE]
 
 Run from the root of a checkout on a machine with one NVIDIA card.
 
@@ -27,8 +27,8 @@ followed by a frame, one final sync). Run it once per tree in separate
 processes, in turns (parent, change, change, parent), to compare two
 trees on one card.
 
-Each measurement is one JSON line on stdout, also appended to
-chiprun_out/k1_groups.jsonl.
+Each measurement is one JSON line on stdout, also appended to FILE when
+``--out`` names one.
 """
 
 from __future__ import annotations
@@ -42,15 +42,16 @@ import time
 
 import numpy as np
 
-OUT = pathlib.Path("chiprun_out") / "k1_groups.jsonl"
+OUT: pathlib.Path | None = None   # --out
 
 
 def emit(rec: dict) -> None:
     line = json.dumps(rec)
     print(line, flush=True)
-    OUT.parent.mkdir(exist_ok=True)
-    with OUT.open("a") as f:
-        f.write(line + "\n")
+    if OUT is not None:
+        OUT.parent.mkdir(parents=True, exist_ok=True)
+        with OUT.open("a") as f:
+            f.write(line + "\n")
 
 
 def card() -> str:
@@ -238,7 +239,11 @@ def main() -> int:
     p.add_argument("--tree", default=".",
                    help="checkout to import raytracer_tpu_torch from")
     p.add_argument("--label", default="change")
+    p.add_argument("--out", type=pathlib.Path,
+                   help="also append the JSON lines to this file")
     a = p.parse_args()
+    global OUT
+    OUT = a.out
     sys.path.insert(0, str(pathlib.Path(a.tree).resolve()))
     import torch
     if not torch.cuda.is_available():

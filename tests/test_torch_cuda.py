@@ -13,7 +13,7 @@ cluster gate could cause for a ray that hits a primitive without entering
 its padded box. The megakernel and rt_nearest_hit are held bitwise at
 every group size G (``GROUP_CASES``: the rule's G, each forced G and the
 baseline walk, group 0), on scenes 4 and 2, stress10k tiles and the
-exact-tie scene of tie_scene.py.
+exact-tie scene of test_torch_tie_scene.py.
 """
 
 import dataclasses
@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-import tie_scene
+import test_torch_tie_scene as tie_scene
 
 import raytracer_tpu_torch as rtt
 from raytracer_tpu_torch.models import camera as tcam
@@ -90,7 +90,8 @@ def test_nearest_hit_kernel_matches_plain(dev, group):
 
 
 def _tie_scene(dev):
-    """tie_scene.py's scene with A duplicated into another cluster."""
+    """test_torch_tie_scene.py's scene with A duplicated into another
+    cluster."""
     from raytracer_tpu_torch.models.materials import Material as TMaterial
     scene = tie_scene.build(SceneBuilder(), TMaterial.default())
     c, r, cl, ab = tie_scene.duplicate_a(

@@ -1,6 +1,7 @@
 """An exact-tie scene for the nearest-hit order, in plain numpy so that the
 JAX and the torch tests (and the card tests, which import no jax) build
-the same scene with their own SceneBuilder.
+the same scene with their own SceneBuilder; and the check that its ties
+are exact in the plain version's math.
 
 The scene: 100 small random spheres above the plane y = 5, a sphere P of
 radius 1 at (0, 0, 5) that touches the triangle T in the plane z = 4 at
@@ -15,7 +16,10 @@ has one winner in the order (t, is_triangle, primitive index): the sphere
 over the triangle, the lower index of A and B.
 """
 
+import dataclasses
+
 import numpy as np
+import torch
 
 P_CENTRE = (0.0, 0.0, 5.0)
 A_CENTRE = (3.0, 0.0, 5.0)
@@ -81,3 +85,32 @@ def rays():
     d = np.concatenate([axis_d, d_aim], axis=1).astype(np.float32)
     d /= np.linalg.norm(d, axis=0, keepdims=True)
     return o, d
+
+
+def test_tie_scene_has_exact_ties():
+    """The axis rays tie exactly: P's t equals the triangle's (both
+    reciprocals), and A's equals B's, in the plain version's math."""
+    from raytracer_tpu_torch.models.materials import Material
+    from raytracer_tpu_torch.models.scene import SceneBuilder
+    from raytracer_tpu_torch.ops import sweep as tsweep
+    ts = build(SceneBuilder(), Material.default())
+    c, r, cl, (a, b) = duplicate_a(ts.sph_center.numpy(),
+                                   ts.sph_radius.numpy(),
+                                   ts.sph_clusters.numpy(), int(ts.sph_leaf))
+    ts = dataclasses.replace(ts, sph_center=torch.as_tensor(c),
+                             sph_radius=torch.as_tensor(r),
+                             sph_clusters=torch.as_tensor(cl))
+    ps = tsweep.pack(ts)
+    o, d = (torch.from_numpy(x) for x in rays())
+    cols = [x[:, None] for x in (*o, *d)]
+    st = tsweep.sphere_t(ps.sph_f, *cols)
+    n = N_AXIS
+    for fast_div in (True, False):
+        tt = tsweep.triangle_tuv(ps.tri_f, ps.has_one_way, *cols,
+                                 fast_div=fast_div)[0].min(dim=1).values
+        assert torch.equal(tt[:n], st[:n].min(dim=1).values)
+    assert torch.equal(st[:, a], st[:, b])
+    assert bool((st[n:2 * n, a] < tsweep.INF).all())
+    assert a // ps.sph_leaf != b // ps.sph_leaf
+    aimed = st[2 * n:, a] < tsweep.INF
+    assert 0.5 < float(aimed.float().mean()) < 1.0

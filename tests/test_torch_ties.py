@@ -7,8 +7,8 @@ that key
 on the plain versions against raytracer_tpu's wavefront oracle,
 ``ops/intersect.nearest_hit`` (argmin within a pool, the first index on a
 tie; ``is_tri = tri_t < sph_t``, intersect.py:298), on a scene of exact
-ties (tests/tie_scene.py): a sphere and a triangle at the same t, and two
-identical spheres in different clusters. The card tests
+ties (tests/test_torch_tie_scene.py): a sphere and a triangle at the same
+t, and two identical spheres in different clusters. The card tests
 (test_torch_cuda.py) hold the kernel to the same winners at every G.
 
 Then the rule that picks G (``sweep.group_size``) as a plain function.
@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-import tie_scene
+import test_torch_tie_scene as tie_scene
 from raytracer_tpu.models import scene as jscene
 from raytracer_tpu.models.materials import Material as JMaterial
 from raytracer_tpu.ops import intersect as jint
@@ -69,26 +69,6 @@ def _expected(ts, ab):
         tie_scene.P_CENTRE)).all(axis=1))[0])
     n = tie_scene.N_AXIS
     return np.concatenate([np.full(n, 2 * p), np.full(n, 2 * min(ab))])
-
-
-def test_tie_scene_has_exact_ties(scenes):
-    """The axis rays tie exactly: P's t equals the triangle's (both
-    reciprocals), and A's equals B's, in the plain version's math."""
-    _, ts, (a, b) = scenes
-    ps = tsweep.pack(ts)
-    o, d = (torch.from_numpy(x) for x in tie_scene.rays())
-    cols = [x[:, None] for x in (*o, *d)]
-    st = tsweep.sphere_t(ps.sph_f, *cols)
-    n = tie_scene.N_AXIS
-    for fast_div in (True, False):
-        tt = tsweep.triangle_tuv(ps.tri_f, ps.has_one_way, *cols,
-                                 fast_div=fast_div)[0].min(dim=1).values
-        assert torch.equal(tt[:n], st[:n].min(dim=1).values)
-    assert torch.equal(st[:, a], st[:, b])
-    assert bool((st[n:2 * n, a] < tsweep.INF).all())
-    assert a // ps.sph_leaf != b // ps.sph_leaf
-    aimed = st[2 * n:, a] < tsweep.INF
-    assert 0.5 < float(aimed.float().mean()) < 1.0
 
 
 @pytest.mark.parametrize("fast_div", [True, False])

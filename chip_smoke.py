@@ -1,6 +1,6 @@
 """Smoke run of raytracer_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Run from the root of a checkout, on a machine with one NVIDIA card (the
 kernels are built for sm_90a, an H100). It builds the CUDA kernels from
@@ -43,14 +43,16 @@ band); (d) the counting ``rt_hit_resolve`` against its plain version on
 that the bounds below use; (e) ``render_resilient`` over 3 frames with
 one injected out-of-memory error, against an uninterrupted run.
 
-K1 and K2 run with G threads a lane slot (or ray), G picked by the
-rule ``sweep.group_size``. Phase 2 prints every group arm's registers,
-spills and resident warps per SM and the rule's G on the main paths;
-phases 3, 5 and 14a hold every arm (the rule's G, G = 1, 2, 4, 8 and the
-baseline walk, group 0: one thread a lane slot in index order, the design
-before the groups) bitwise against the plain versions; phases 6, 7, 13
-and 14c time the rule's G against the baseline walk in turns (baseline,
-new, new, baseline) through the same entry points and print both.
+K1 and K2 run with G threads a lane slot (or ray), G picked by a rule
+(``megakernel.mega_group``, ``sweep.nearest_group``). Phase 2 prints
+every group arm's registers, spills and resident warps per SM and the
+rule's G on the main paths; phases 3, 5 and 14a hold every arm (the
+rule's G and G = 1, 2, 4, 8) bitwise against the plain versions. With
+``--parent DIR`` (an earlier tree of this repository, unpacked with ``git
+archive``), phase 15 times the K1 and K2 paths of phases 3, 6, 7, 13 and
+14c on that tree and on this checkout in turns (parent, change, change,
+parent), one ``scripts/k1_groups.py paths`` process per turn, and prints
+both; the kernels line then carries the parent's K1 and K2 times.
 
 Every kernel in the closing ``{"kernels": ...}`` line carries its bound:
 the larger of the bytes it must move over 3.35 TB/s and the FP32
@@ -72,6 +74,7 @@ their error against the plain version and their times.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import functools
@@ -131,12 +134,10 @@ def check(ok: bool, what: str) -> None:
 
 def kernel_name(mangled: str) -> str:
     """A readable name for a mangled entry function: K1's and K2's group
-    instances as megakernel<G2> or nearest_hit_kernel<baseline>."""
-    m = re.search(r"(megakernel|nearest_hit_kernel)ILi(\d+)ELb([01])E",
-                  mangled)
+    instances as megakernel<G2> or nearest_hit_kernel<G1>."""
+    m = re.search(r"(megakernel|nearest_hit_kernel)ILi(\d+)E", mangled)
     if m:
-        arm = "baseline" if m.group(3) == "1" else f"G{m.group(2)}"
-        return f"{m.group(1)}<{arm}>"
+        return f"{m.group(1)}<G{m.group(2)}>"
     if "hit_resolve_kernelILb1E" in mangled:
         return "hit_resolve_kernel<with_stats>"
     return next((k for k in (
@@ -159,9 +160,9 @@ def ptxas_summary(log: str) -> list:
     return out
 
 
-# rt_megakernel's and rt_nearest_hit's arms: the rule's G (None), the
-# baseline walk (0, the design before the groups) and each forced G.
-GROUP_ARMS = (None, 0, 1, 2, 4, 8)
+# rt_megakernel's and rt_nearest_hit's arms: the rule's G (None) and each
+# forced G.
+GROUP_ARMS = (None, 1, 2, 4, 8)
 
 
 @contextlib.contextmanager
@@ -178,44 +179,40 @@ def forced_group(group):
         mk._mega_cuda = real
 
 
-def in_turns(runs: dict, order=("baseline", "new", "new", "baseline")):
-    """Call runs[k]() in ``order``: the baseline arm (group 0) against the
-    redesigned kernel (the rule's G), in turns. Returns each key's results
-    in call order."""
-    out = {k: [] for k in runs}
-    for k in order:
-        out[k].append(runs[k]())
-    return out
-
-
 def group_table(dev) -> dict:
     """Resident warps per SM of every K1 and K2 arm, and the G the rule
     picks on the main paths."""
     import torch
 
     import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.kernels import build
     from raytracer_tpu_torch.ops import megakernel as mk
     from raytracer_tpu_torch.ops import sweep
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    warps = {name: {str(g): sweep.resident_threads(kind, g) // 32 // sms
-                    for g in (0,) + sweep.GROUPS}
-             for kind, name in ((sweep.KIND_MEGAKERNEL, "rt_megakernel"),
-                                (sweep.KIND_NEAREST, "rt_nearest_hit"))}
-    slots_1000x800 = -(-1000 * 800 // (mk.MEGA_TILE * 8)) * mk.MEGA_TILE
-    slots_4k = -(-FLY_W * FLY_H // (mk.MEGA_TILE * 8)) * mk.MEGA_TILE
+    warps = {name: {str(g): build.resident_threads(kind, g) // 32 // sms
+                    for g in sweep.GROUPS}
+             for kind, name in ((build.KIND_MEGAKERNEL, "rt_megakernel"),
+                                (build.KIND_NEAREST, "rt_nearest_hit"))}
     packed = {"scene4": sweep.pack(rtt.build_scene(4, seed=0)[0]),
               "scene2": sweep.pack(rtt.build_scene(2)[0]),
               "stress10k": sweep.pack(stress_scene(10000)[0])}
-    rule = {f"{k}_1000x800_pixpack8": sweep.pick_group(
-        sweep.KIND_MEGAKERNEL, slots_1000x800, ps) for k, ps in packed.items()}
-    rule["scene4_3840x2160_pixpack8"] = sweep.pick_group(
-        sweep.KIND_MEGAKERNEL, slots_4k, packed["scene4"])
-    rule["rt_nearest_hit_1M_rays_scene4"] = sweep.pick_group(
-        sweep.KIND_NEAREST, 1 << 20, packed["scene4"])
+    rule = {f"{k}_1000x800_pixpack8": mk.mega_group(
+        lane_slots(1000, 800, 8), ps) for k, ps in packed.items()}
+    rule["scene4_3840x2160_pixpack8"] = mk.mega_group(
+        lane_slots(FLY_W, FLY_H, 8), packed["scene4"])
+    rule["rt_nearest_hit_1M_rays_scene4"] = sweep.nearest_group(
+        1 << 20, packed["scene4"])
     return {"resident_warps_per_sm": warps, "sms": sms,
             "gate_depth": {k: sweep.gate_depth(ps)
                            for k, ps in packed.items()},
             "rule_group": rule}
+
+
+def lane_slots(width: int, height: int, pixpack: int) -> int:
+    """rt_megakernel's lane slots for a frame: whole tiles of 4096."""
+    from raytracer_tpu_torch.ops import megakernel as mk
+    tiles = -(-width * height // (mk.MEGA_TILE * pixpack))
+    return tiles * mk.MEGA_TILE
 
 
 def card_line() -> str:
@@ -324,9 +321,7 @@ def hit_rays(dev, n_rays: int):
 
 def phase_hits(dev, n_rays: int) -> dict:
     """rt_nearest_hit against the plain nearest hit on numpy-seeded rays,
-    at the rule's G and at every forced G and the baseline walk (each
-    bitwise), timed at each, and the rule's G against the baseline in
-    turns."""
+    at the rule's G and at every forced G (each bitwise), timed at each."""
     import torch
 
     import raytracer_tpu_torch as rtt
@@ -338,14 +333,11 @@ def phase_hits(dev, n_rays: int) -> dict:
     by_group = {}
     for g in GROUP_ARMS:
         out = sweep.nearest_hit(ps, o, d, _group=g)
-        by_group[str(g)] = {
-            "bitwise": all(bool(torch.equal(a, b))
-                           for a, b in zip(out, want)),
-            "ms": cuda_ms(lambda: sweep.nearest_hit(ps, o, d, _group=g), 5)}
-    turns = in_turns({
-        "baseline": lambda: cuda_ms(lambda: sweep.nearest_hit(
-            ps, o, d, _group=0), 5),
-        "new": lambda: cuda_ms(lambda: sweep.nearest_hit(ps, o, d), 5)})
+        by_group[str(g)] = {"bitwise": all(bool(torch.equal(a, b))
+                                           for a, b in zip(out, want))}
+    for g in GROUP_ARMS:           # timed once every arm has run
+        by_group[str(g)]["ms"] = cuda_ms(
+            lambda: sweep.nearest_hit(ps, o, d, _group=g), 5)
     got = sweep.nearest_hit(ps, o, d)
     same = got[1] == want[1]
     mismatch = float((~same).float().mean())
@@ -357,10 +349,9 @@ def phase_hits(dev, n_rays: int) -> dict:
     rec = {"rays": n_rays, "code_mismatch": mismatch, "t_rel_max": t_rel,
            "winner_params_equal": fields_equal,
            "hit_share": float((want[0] < sweep.INF).float().mean()),
-           "group": sweep.pick_group(sweep.KIND_NEAREST, n_rays, ps),
-           "ms": float(np.mean(turns["new"])),
-           "baseline_ms": float(np.mean(turns["baseline"])),
-           "turns_ms": turns, "by_group": by_group, "plain_ms": plain_ms}
+           "group": sweep.nearest_group(n_rays, ps),
+           "ms": by_group["None"]["ms"], "by_group": by_group,
+           "plain_ms": plain_ms}
     rec.update(gated_bound(n_rays * (24 + 36) + tensor_bytes(ps), 0,
                            n_rays * sweep_ops(scene)))
     print("phase 3 rt_nearest_hit vs plain:", json.dumps(rec), flush=True)
@@ -486,7 +477,7 @@ def phase_mega_small(dev, num: int, width: int, height: int,
                              pixpack=k)
         print(f"phase {phase} rt_megakernel vs mega_reference scene {num} "
               f"{width}x{height} spp 4 pixpack {k}, by group (None: the "
-              "rule's, 0: the baseline walk):", json.dumps(arms), flush=True)
+              "rule's):", json.dumps(arms), flush=True)
         for g, stats in arms.items():
             what = f"scene {num} pixpack {k} group {g}"
             check(stats["coherent_launches"] == int(coherent),
@@ -536,10 +527,8 @@ def renderer_vs_mega_reference(dev, r, first, tiles=None) -> dict:
 def sweep_group(r) -> int:
     """The G that the rule picks for a megakernel Renderer's frame."""
     from raytracer_tpu_torch.ops import megakernel as mk
-    from raytracer_tpu_torch.ops import sweep
-    k = r.settings.pixpack
-    slots = -(-r._o.shape[0] // (mk.MEGA_TILE * k)) * mk.MEGA_TILE
-    return sweep.pick_group(sweep.KIND_MEGAKERNEL, slots, r._mega.packed)
+    slots = lane_slots(r._o.shape[0], 1, r.settings.pixpack)
+    return mk.mega_group(slots, r._mega.packed)
 
 
 def check_frame(stats: dict, what: str) -> None:
@@ -553,7 +542,7 @@ def phase_path(dev, num: int, width: int, height: int, spp: int) -> dict:
     """One path: Renderer on scene ``num``, one warm-up frame + 5 frames,
     with the launch counts set to 0 just before and read just after; its
     first frame bitwise against mega_reference; one full-size kernel
-    frame timed at the rule's G against the baseline walk, in turns."""
+    frame timed at the rule's G."""
     import torch
 
     import raytracer_tpu_torch as rtt
@@ -592,22 +581,15 @@ def phase_path(dev, num: int, width: int, height: int, spp: int) -> dict:
     fkey = rng.frame_key(r.base_key, 0)
     o_p = mk.mega_inputs(r._mega, r.settings, r._o.T, r._d.T, fkey)[0]
 
-    # one full-size frame through the kernel, timed with CUDA events: the
-    # rule's G against the baseline walk, in turns
+    # one full-size frame through the kernel, timed with CUDA events
     timed = {}
 
     def one_kernel_frame():
         timed["segs"] = mk.render_sample_mean_mega(
             r._mega, r.settings, r._o.T, r._d.T, fkey)[1]
 
-    def baseline_frame():
-        with forced_group(0):
-            return cuda_ms(one_kernel_frame, 3)
-    turns = in_turns({"baseline": baseline_frame,
-                      "new": lambda: cuda_ms(one_kernel_frame, 3)})
-    out.update(ms=float(np.mean(turns["new"])),
-               baseline_ms=float(np.mean(turns["baseline"])),
-               turns_ms=turns, group=sweep_group(r))
+    one_kernel_frame()
+    out.update(ms=cuda_ms(one_kernel_frame, 3), group=sweep_group(r))
     out["timed_segments"] = float(timed["segs"])
     out.update(gated_bound(
         o_p.shape[1] * (24 + 20) + tensor_bytes(r._mega.packed, r._mega.mat,
@@ -627,8 +609,8 @@ def phase_path(dev, num: int, width: int, height: int, spp: int) -> dict:
     print(f"phase 6 scene {num} path {width}x{height} spp {spp}:",
           json.dumps(out), flush=True)
     print(f"phase 6 scene {num}, one {width}x{height} frame: kernel "
-          f"{out['ms']:.3f} ms at G {out['group']}, baseline walk "
-          f"{out['baseline_ms']:.3f} ms, mega_reference {plain_ms:.3f} ms",
+          f"{out['ms']:.3f} ms at G {out['group']}, mega_reference "
+          f"{plain_ms:.3f} ms",
           flush=True)
     check_frame(stats, f"scene {num} path frame vs mega_reference")
     check(stats["bitwise"], f"scene {num} path frame not bitwise "
@@ -656,59 +638,59 @@ BENCH = (
 )
 
 
-def phase_bench(dev) -> list:
-    """One frame of each bench scene through the kernel, at the Renderer's
-    auto pixpack (8 at spp <= 32, else 1), timed at the rule's G against
-    the baseline walk, in turns."""
-    import torch
-
+def bench_frame(dev, entry):
+    """One entry of BENCH, ready to render: (the scene, a function that
+    renders its frame through render_sample_mean_mega and returns (mean,
+    segments), the lane slots, the pixpack (8 at spp <= 32, else 1), the
+    scene's build seconds)."""
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.models import bench_scenes
     from raytracer_tpu_torch.models.scenes import procedural_earth_texture
     from raytracer_tpu_torch.ops import megakernel as mk
-    from raytracer_tpu_torch.ops import rng, sweep
+    from raytracer_tpu_torch.ops import rng
+    _, fn, kw, width, height, spp, pos = entry
+    t0 = time.perf_counter()
+    if fn is None:
+        scene, sky = rtt.build_scene(
+            2, earth_image=procedural_earth_texture(1024))
+    else:
+        scene, sky = getattr(bench_scenes, fn)(**kw)
+    ms = mk.MegaScene(scene.to(dev))
+    build_s = time.perf_counter() - t0
+    settings = rtt.RenderSettings(rays_per_pixel=spp, reflect_limit=5,
+                                  antialias=True).with_sky(sky)
+    o, d = camera_rays(width, height, dev, position=pos)
+    k = 8 if spp <= 32 else 1
+
+    def frame():
+        return mk.render_sample_mean_mega(
+            ms, settings, o, d, rng.frame_key(rng.key(0), 0), pixpack=k)
+    return scene, ms, frame, lane_slots(width, height, k), k, build_s
+
+
+def phase_bench(dev) -> list:
+    """One frame of each bench scene through the kernel, at the Renderer's
+    auto pixpack (8 at spp <= 32, else 1), timed at the rule's G."""
+    import torch
+
+    from raytracer_tpu_torch.ops import megakernel as mk
     recs = []
-    for name, fn, kw, width, height, spp, pos in BENCH:
-        t0 = time.perf_counter()
-        if fn is None:
-            scene, sky = rtt.build_scene(
-                2, earth_image=procedural_earth_texture(1024))
-        else:
-            scene, sky = getattr(bench_scenes, fn)(**kw)
-        ms = mk.MegaScene(scene.to(dev))
-        build_s = time.perf_counter() - t0
-        settings = rtt.RenderSettings(rays_per_pixel=spp, reflect_limit=5,
-                                      antialias=True).with_sky(sky)
-        o, d = camera_rays(width, height, dev, position=pos)
-        k = 8 if spp <= 32 else 1
-        res = {}
-
-        def frame():
-            res["out"] = mk.render_sample_mean_mega(
-                ms, settings, o, d, rng.frame_key(rng.key(0), 0), pixpack=k)
-
-        def baseline_frame():
-            with forced_group(0):
-                return cuda_ms(frame)
-        frame()                               # warm-up
-        turns = in_turns({"baseline": baseline_frame,
-                          "new": lambda: cuda_ms(frame)})
-        kernel_ms = float(np.mean(turns["new"]))
+    for entry in BENCH:
+        scene, ms, frame, slots, k, build_s = bench_frame(dev, entry)
+        res = {"out": frame()}                 # warm-up
+        kernel_ms = cuda_ms(lambda: res.update(out=frame()))
         mean, segs = res["out"]
-        slots = -(-o.shape[1] // (mk.MEGA_TILE * k)) * mk.MEGA_TILE
-        rec = {"scene": name, "spheres": scene.num_spheres,
+        rec = {"scene": entry[0], "spheres": scene.num_spheres,
                "triangles": scene.num_triangles, "img_rows": ms.img_rows,
                "pixpack": k, "build_s": build_s, "frame_ms": kernel_ms,
-               "group": sweep.pick_group(sweep.KIND_MEGAKERNEL, slots,
-                                         ms.packed),
-               "baseline_frame_ms": float(np.mean(turns["baseline"])),
-               "turns_ms": turns, "segments": float(segs),
+               "group": mk.mega_group(slots, ms.packed),
+               "segments": float(segs),
                "mrays_per_sec": float(segs) / kernel_ms / 1e3,
                "finite": bool(torch.isfinite(mean).all()),
                "mean_radiance": float(mean.mean())}
         print("phase 7 bench frame:", json.dumps(rec), flush=True)
-        check(rec["finite"], f"{name}: non-finite radiance")
-        check(rec["segments"] > 0, f"{name}: no segments traced")
+        check(rec["finite"], f"{entry[0]}: non-finite radiance")
+        check(rec["segments"] > 0, f"{entry[0]}: no segments traced")
         recs.append(rec)
     return recs
 
@@ -1240,10 +1222,7 @@ def phase_flythrough(dev) -> dict:
     bounces, a temporal Renderer; a warm frame and a warm move, then
     FLY_MOVES moves each followed by a frame, one final sync, counts set
     to 0 just before and read just after. The kernel checks of K7 run on
-    this run's first real move, before the timed loop. The loop runs four
-    times, at the rule's G and on the baseline walk in turns, each from
-    the first pose after one untimed frame there; the first run at the
-    rule's G is the one checked."""
+    this run's first real move, before the timed loop."""
     import torch
 
     import raytracer_tpu_torch as rtt
@@ -1259,45 +1238,29 @@ def phase_flythrough(dev) -> dict:
         dev, history_inputs(dev, r, fly_camera(1, FLY_W, FLY_H)), FLY_W,
         FLY_H)
 
-    runs = []
-
-    def fly(group):
-        if runs:                      # back to the first pose, untimed
-            r.move_camera(fly_camera(0, FLY_W, FLY_H))
-            r.render_frame(block=True)
-        with forced_group(group):
-            _zero_counts()
-            t0 = time.perf_counter()
-            segs = []
-            for i in range(FLY_MOVES):
-                r.move_camera(fly_camera(i, FLY_W, FLY_H))
-                r.render_frame(block=(i == FLY_MOVES - 1))
-                segs.append(r._last_segs)
-            dt = time.perf_counter() - t0
-        launches = {"rt_megakernel": mk.LAUNCHES,
-                    "rt_gather_history": warp.HISTORY_LAUNCHES,
-                    "rt_warp_gather": warp.GATHER_LAUNCHES}
-        hits = r._depth < mk.INF
-        segments = float(sum(float(x) for x in segs))
-        runs.append({"group": group, "fps": FLY_MOVES / dt,
-                     "mrays_per_sec": segments / dt / 1e6,
-                     "frame_ms": dt / FLY_MOVES * 1e3, "segments": segments,
-                     "launches": launches,
-                     "hit_share": float(hits.float().mean()),
-                     "w_gt_1_share_of_hits": float(
-                         (r._wpix[hits] > 1).float().mean()),
-                     "w_gt_1_share_of_all": float(
-                         (r._wpix > 1).float().mean()),
-                     "finite": bool(torch.isfinite(r.accum).all())})
-        return runs[-1]
-    turns = in_turns({"baseline": lambda: fly(0), "new": lambda: fly(None)})
+    _zero_counts()
+    t0 = time.perf_counter()
+    segs = []
+    for i in range(FLY_MOVES):
+        r.move_camera(fly_camera(i, FLY_W, FLY_H))
+        r.render_frame(block=(i == FLY_MOVES - 1))
+        segs.append(r._last_segs)
+    dt = time.perf_counter() - t0
+    launches = {"rt_megakernel": mk.LAUNCHES,
+                "rt_gather_history": warp.HISTORY_LAUNCHES,
+                "rt_warp_gather": warp.GATHER_LAUNCHES}
+    hits = r._depth < mk.INF
+    kept = float((r._wpix[hits] > 1).float().mean())
     r.check_health()
-    rec = dict(turns["new"][0], frames=FLY_MOVES, width=FLY_W,
-               height=FLY_H, group=sweep_group(r),
-               fps_turns={k: [x["fps"] for x in v] for k, v in turns.items()},
-               baseline_fps=float(np.mean([x["fps"]
-                                           for x in turns["baseline"]])))
-    launches, kept = rec["launches"], rec["w_gt_1_share_of_hits"]
+    segments = float(sum(float(x) for x in segs))
+    rec = {"frames": FLY_MOVES, "width": FLY_W, "height": FLY_H,
+           "group": sweep_group(r),
+           "fps": FLY_MOVES / dt, "mrays_per_sec": segments / dt / 1e6,
+           "frame_ms": dt / FLY_MOVES * 1e3, "segments": segments,
+           "launches": launches, "hit_share": float(hits.float().mean()),
+           "w_gt_1_share_of_hits": kept,
+           "w_gt_1_share_of_all": float((r._wpix > 1).float().mean()),
+           "finite": bool(torch.isfinite(r.accum).all())}
     # one static frame (no move) and one warp frame (a move), alternating
     static, moving = [], []
     for k in range(3):
@@ -1308,12 +1271,10 @@ def phase_flythrough(dev) -> dict:
     rec.update(static_frame_ms=static, warp_frame_ms=moving)
     print(f"phase 13 fly-through scene 4 {FLY_W}x{FLY_H} 1 spp:",
           json.dumps(rec), flush=True)
-    for run in runs:
-        check(run["launches"] == {"rt_megakernel": FLY_MOVES,
-                                  "rt_gather_history": FLY_MOVES,
-                                  "rt_warp_gather": 0},
-              f"fly-through at group {run['group']} launched "
-              f"{run['launches']}")
+    check(launches == {"rt_megakernel": FLY_MOVES,
+                       "rt_gather_history": FLY_MOVES,
+                       "rt_warp_gather": 0},
+          f"fly-through launched {launches}")
     check(kept > W_KEPT_MIN, f"(w > 1) on {kept} of the hit pixels after "
           f"the last move (need > {W_KEPT_MIN})")
     check(rec["finite"], "fly-through accumulation not finite")
@@ -1447,10 +1408,8 @@ def regen_band_vs_plain(dev, r, rows) -> dict:
 def phase_coherent_paths(dev, width: int = 1000, height: int = 800) -> list:
     """(c) Coherent against per-lane sampling through Renderer at
     1000x800, 5 bounces: a warm-up frame each, then timed runs of
-    render_frames in turns (per-lane, coherent, coherent, per-lane; on the
-    megakernel paths each at the rule's G and on the baseline walk, the
-    baseline's runs in the middle of the same sequence), the counts set to
-    0 just before each run and read just after. Then the
+    render_frames in turns (per-lane, coherent, coherent, per-lane), the
+    counts set to 0 just before each run and read just after. Then the
     coherent Renderer's warm-up frame against the plain version: scene 4's
     whole frame against mega_reference; two megakernel tiles from the
     middle of stress10k's frame (at the path's pixpack, with their tile
@@ -1479,34 +1438,25 @@ def phase_coherent_paths(dev, width: int = 1000, height: int = 800) -> list:
             rs[coherent].render_frame(block=True)
         first = rs[True].accum.clone()
         mega = sampler != "regen"
-        runs = {(c, g): [] for c in (False, True) for g in (None, 0)}
-        order = [(False, None), (True, None), (True, None), (False, None)]
-        if mega:
-            order[2:2] = [(True, 0), (False, 0), (False, 0), (True, 0)]
-        for coherent, group in order:
-            with forced_group(group):
-                _zero_counts()
-                stat = rs[coherent].render_frames(frames)
-            runs[coherent, group].append({
-                "frame_ms": stat["frame_ms"] / stat["frames"],
-                "mrays_per_sec": stat["mrays_per_sec"],
-                "launches": _path_counts()})
+        runs = {False: [], True: []}
+        for coherent in (False, True, True, False):
+            _zero_counts()
+            stat = rs[coherent].render_frames(frames)
+            runs[coherent].append({"frame_ms": stat["frame_ms"]
+                                   / stat["frames"],
+                                   "mrays_per_sec": stat["mrays_per_sec"],
+                                   "launches": _path_counts()})
         rec = {"path": name, "spp": spp, "frames_per_run": frames,
                "pixpack": rs[True].settings.pixpack}
         if mega:
             rec["group"] = sweep_group(rs[True])
         for coherent, key in ((False, "per_lane"), (True, "coherent")):
             rs[coherent].check_health()
-            new, base = runs[coherent, None], runs[coherent, 0]
             rec[key] = {
-                "frame_ms": [x["frame_ms"] for x in new],
-                "mrays_per_sec": [x["mrays_per_sec"] for x in new],
-                "launches": new[0]["launches"],
+                "frame_ms": [x["frame_ms"] for x in runs[coherent]],
+                "mrays_per_sec": [x["mrays_per_sec"] for x in runs[coherent]],
+                "launches": runs[coherent][0]["launches"],
                 "finite": bool(torch.isfinite(rs[coherent].accum).all())}
-            if base:
-                rec[key].update(
-                    baseline_frame_ms=[x["frame_ms"] for x in base],
-                    baseline_launches=base[0]["launches"])
         if sampler == "regen":
             mid = height // 2
             vs = regen_band_vs_plain(dev, rs[True], (mid - 8, mid + 8))
@@ -1535,14 +1485,11 @@ def phase_coherent_paths(dev, width: int = 1000, height: int = 800) -> list:
                   and coh["rt_lane_randoms"] == 0,
                   f"{name}: the coherent runs launched {coh}")
         else:
-            for c in (coh, rec["coherent"]["baseline_launches"]):
-                check(c["rt_megakernel"] == frames
-                      and c["coherent_arm"] == frames,
-                      f"{name}: the coherent runs launched {c}")
-            for c in (rec["per_lane"]["launches"],
-                      rec["per_lane"]["baseline_launches"]):
-                check(c["coherent_arm"] == 0,
-                      f"{name}: the per-lane runs took the coherent arm")
+            check(coh["rt_megakernel"] == frames
+                  and coh["coherent_arm"] == frames,
+                  f"{name}: the coherent runs launched {coh}")
+            check(rec["per_lane"]["launches"]["coherent_arm"] == 0,
+                  f"{name}: the per-lane runs took the coherent arm")
         check(rec["coherent"]["finite"] and rec["per_lane"]["finite"],
               f"{name}: non-finite accumulation")
         recs.append(rec)
@@ -1732,6 +1679,48 @@ def with_tests(rec: dict, scene, n_items: float, per_item: float,
     return out
 
 
+def phase_parent_turns(parent: str) -> dict:
+    """Phase 15: the K1 and K2 paths of phases 3, 6, 7, 13 and 14c timed on
+    the ``parent`` tree and on this checkout in turns (parent, change,
+    change, parent), one ``scripts/k1_groups.py paths`` process per turn,
+    so that each tree builds and loads its own kernels. Returns {path:
+    {"phase", "metric", "parent": [...], "change": [...]}}, each list in
+    call order."""
+    import pathlib
+    here = pathlib.Path(__file__).resolve().parent
+    script = here / "scripts" / "k1_groups.py"
+    check(pathlib.Path(parent, "raytracer_tpu_torch").is_dir(),
+          f"--parent {parent}: no raytracer_tpu_torch there")
+    out: dict = {}
+    for tree, label in ((parent, "parent"), (here, "change"),
+                        (here, "change"), (parent, "parent")):
+        run = subprocess.run(
+            [sys.executable, str(script), "paths", "--tree", str(tree),
+             "--label", label], capture_output=True, text=True, timeout=900)
+        check(run.returncode == 0, f"k1_groups.py paths on {label} "
+              f"failed ({run.returncode}): {run.stderr[-2000:]}")
+        for line in run.stdout.splitlines():
+            if not line.startswith("{"):
+                continue
+            rec = json.loads(line)
+            metric = "fps" if "fps" in rec else "ms" if "ms" in rec else \
+                "frame_ms"
+            row = out.setdefault(rec["path"], {
+                "phase": rec["phase"], "metric": metric, "parent": [],
+                "change": []})
+            row[label].append(rec[metric])
+            check(rec.get("finite", True), f"{label} {rec['path']}: "
+                  "non-finite accumulation")
+    for path, row in out.items():
+        row["parent_mean"] = float(np.mean(row["parent"]))
+        row["change_mean"] = float(np.mean(row["change"]))
+        print(f"phase 15 parent vs change in turns, phase {row['phase']} "
+              f"{path}:", json.dumps(row), flush=True)
+        check(len(row["parent"]) == 2 and len(row["change"]) == 2,
+              f"{path}: not timed in every turn")
+    return out
+
+
 def _sync(dev) -> None:
     import torch
     if dev.type == "cuda":
@@ -1739,6 +1728,11 @@ def _sync(dev) -> None:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="an earlier tree of this repository "
+                    "(git archive): time its K1 and K2 paths against this "
+                    "checkout's in turns (phase 15)")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1785,6 +1779,11 @@ def main() -> int:
     coh_paths = {p["path"]: p for p in phase_coherent_paths(dev)}
     counts = phase_counters(dev, 1 << 16, 1 << 20)
     phase_resilient(dev)
+    turns = phase_parent_turns(args.parent) if args.parent else {}
+
+    def parent_ms(path):
+        """The parent tree's mean on ``path`` (phase 15), or None."""
+        return turns[path]["parent_mean"] if path in turns else None
     by_path = {f"scene4_256x128_{s}": r["launches"]
                for s, r in samplers.items()}
     by_path.update({p["path"]: p["launches"] for p in paths})
@@ -1846,11 +1845,10 @@ def main() -> int:
                            slice_rec["vs_plain"]["max_abs"]),
         **timing(k1), "tests_per_segment": k1["tests_per_segment"],
         "tests_counted_on": counts[2]["segments_estimate"]["counted_on"],
-        "group": slice_rec["group"], "baseline_ms": slice_rec["baseline_ms"],
-        "baseline": "group 0: one thread a lane slot, index-order walk, "
-                    "the design before the groups",
+        "group": slice_rec["group"], "parent_ms": parent_ms("scene2_mega"),
+        "parent": args.parent,
         "scene4_ms": main_rec["ms"], "scene4_group": main_rec["group"],
-        "scene4_baseline_ms": main_rec["baseline_ms"],
+        "scene4_parent_ms": parent_ms("scene4_mega"),
         "scene4_plain_ms": main_rec["plain_ms"],
         "scene4_bound_ms": k1_s4["bound_ms"],
         "scene4_tests_per_segment": k1_s4["tests_per_segment"],
@@ -1863,7 +1861,7 @@ def main() -> int:
             "rt_megakernel"],
         "k2": {"alone_as": "rt_nearest_hit", "ms": hits_rec["ms"],
                "group": hits_rec["group"],
-               "baseline_ms": hits_rec["baseline_ms"],
+               "parent_ms": parent_ms("rt_nearest_hit_1M_scene4"),
                "ms_by_group": {g: r["ms"]
                                for g, r in hits_rec["by_group"].items()},
                "resident_warps_per_sm": groups["resident_warps_per_sm"][

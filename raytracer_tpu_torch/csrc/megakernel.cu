@@ -46,21 +46,19 @@
 // pack_scene in index order: supers (if any), then the clusters they
 // cover, then the leaf primitives; spheres first, triangles second. The
 // boxes of a level are slab-tested G at a time, one a thread, and a
-// ballot names the ones entered no later than the group's best t; the
-// group visits those in order, and a leaf's primitives are strided over
-// its G threads (a thread keeps the first of a tie with a strict '<').
-// Each leaf's candidates are merged with __shfl_xor_sync on the key (t,
+// ballot names the ones entered before the group's best t; the group
+// visits those in order, and a leaf's primitives are strided over its G
+// threads (a thread keeps the first of a tie with a strict '<'). Each
+// leaf's candidates are merged with __shfl_xor_sync on the key (t,
 // is_triangle, primitive index): the plain version's argmin, where an
 // exact tie goes to the sphere, then to the lower index (ops/sweep.py:
-// 301-325). Gating prunes only boxes entered beyond the best t, so the
-// winner is the ungated argmin. The gate is per group (the TPU tile sweeps
-// a leaf when any lane enters its box, so a ray that misses a padded box
-// can still win a primitive there through float error on the TPU, and
-// cannot here). K5 keeps the one-thread walk (sweep_pool), whose
-// primitive-test counts it reports. group = 0 runs K1 and rt_nearest_hit
-// on that walk too, one thread per lane slot with the sums kept in global
-// memory, as the design before the groups did: the baseline that
-// chip_smoke.py times the groups against.
+// 301-325). In index order a box entered at or beyond the best t holds
+// only later primitives, which lose a tie, so gating it out leaves the
+// ungated argmin. The gate is per group (the TPU tile sweeps a leaf when
+// any lane enters its box, so a ray that misses a padded box can still
+// win a primitive there through float error on the TPU, and cannot here).
+// A group of one thread runs the one-thread walk (sweep_pool), which K5
+// keeps too, for the primitive-test counts it reports.
 //
 // What bounds it on an H100: each lane slot runs a long, divergent loop of
 // dependent scalar float math and data-dependent branches (hit or miss,
@@ -73,10 +71,10 @@
 // primitive tests cut by about G, at the price of G copies of the shading.
 // The deeper the scene's gates, the more the split pays, so the wrapper's
 // rule takes G from the lane slots, the resident threads and the gate
-// depth (ops/sweep.py group_size). The walk stays in index order because
-// the groups of a warp then load the same boxes and primitives at once:
-// a near-first walk (boxes sorted by entry distance per group) was slower
-// on every path measured (PERF.md). Registers are capped at 72 so that 7
+// depth (ops/megakernel.py mega_group). The walk stays in index order
+// because the groups of a warp then load the same boxes and primitives at
+// once: a near-first walk (boxes sorted by entry distance per group) was
+// slower on the K1 paths measured (PERF.md). Registers are capped at 72 so that 7
 // blocks of an SM stay resident. Per-pixel sums stay in registers and are
 // written once per pixel.
 //
@@ -126,7 +124,7 @@ struct RtHitArgs {
   const float* d[3];  // unit directions
   void* out[9];       // t, code, u, v, n0, n1, n2, pa, pb
   int n;
-  int group;          // threads per ray: 1, 2, 4, 8; 0 = the baseline walk
+  int group;          // threads per ray: 1, 2, 4 or 8
 };
 
 struct RtResolveArgs {
@@ -154,7 +152,7 @@ struct RtMegaArgs {
   int need_sphere_uv, has_refractive, coherent;
   float inv_spp;
   float sky[3];
-  int group;  // threads per lane slot: 1, 2, 4, 8; 0 = the baseline
+  int group;  // threads per lane slot: 1, 2, 4 or 8
 };
 
 struct RtFetchArgs {
@@ -343,39 +341,29 @@ __device__ __forceinline__ void merge_hits(Hit& h, unsigned mask) {
   }
 }
 
-// Visit the boxes first .. first + count - 1 that the ray enters no later
-// than the group's best t in index order, G at a time: thread rank tests
-// box c + rank of each chunk c, and the group visits the chunk's entered
-// boxes in order, each gated again against the best t it meets. A group
-// of one tests and visits box by box, with no warp intrinsic. A box
-// entered exactly at the best t is visited: it may hold a tied primitive
-// of lower index. The supers of pack_scene cover the clusters in
-// ascending runs (first, count), so clusters, and so primitives, are met
-// in index order.
+// Visit the boxes first .. first + count - 1 that the ray enters before
+// the group's best t in index order, G at a time: thread rank tests box
+// c + rank of each chunk c, and the group visits the chunk's entered boxes
+// in order, each gated again against the best t it meets, with slab()'s
+// strict '<'. The supers of pack_scene cover the clusters in ascending
+// runs (first, count), so clusters, and so primitives, are met in index
+// order.
 template <int G, typename Visit>
 __device__ __forceinline__ void in_order(const float* __restrict__ boxes,
                                          int first, int count, const Ray& r,
                                          float ix, float iy, float iz, Hit& h,
                                          const Group<G>& grp, Visit&& visit) {
-  if constexpr (G == 1) {
-    for (int b = first; b < first + count; ++b) {
-      const float e = box_entry(boxes + 8 * b, r, ix, iy, iz);
-      if (e < kInf && e <= h.t) visit(b);
-    }
-  } else {
-    for (int c = first; c < first + count; c += G) {
-      const int b = c + grp.rank;
-      const float e =
-          b < first + count ? box_entry(boxes + 8 * b, r, ix, iy, iz) : kInf;
-      unsigned entered =
-          (__ballot_sync(grp.mask, e < kInf && e <= h.t) >> grp.base) &
-          ((1u << G) - 1u);
-      while (entered) {
-        const int k = __ffs(entered) - 1;
-        entered &= entered - 1;
-        const float ek = __shfl_sync(grp.mask, e, grp.base + k);
-        if (ek <= h.t) visit(c + k);
-      }
+  for (int c = first; c < first + count; c += G) {
+    const int b = c + grp.rank;
+    const float e =
+        b < first + count ? box_entry(boxes + 8 * b, r, ix, iy, iz) : kInf;
+    unsigned entered =
+        (__ballot_sync(grp.mask, e < h.t) >> grp.base) & ((1u << G) - 1u);
+    while (entered) {
+      const int k = __ffs(entered) - 1;
+      entered &= entered - 1;
+      const float ek = __shfl_sync(grp.mask, e, grp.base + k);
+      if (ek < h.t) visit(c + k);
     }
   }
 }
@@ -424,17 +412,22 @@ __device__ __forceinline__ void group_pool(const RtScene& s, const Ray& r,
 }
 
 // K2 for a group: every thread of the group returns the same hit, the
-// plain version's winner (FAST_DIV triangles).
+// plain version's winner (FAST_DIV triangles). A group of one walks alone.
 template <int G>
 __device__ Hit nearest_group(const RtScene& s, const Ray& r,
                              const Group<G>& grp) {
-  const float ddo = r.dx * r.ox + r.dy * r.oy + r.dz * r.oz;
-  const float osq = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
-  const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
-  Hit h{kInf, 0, 0.0f, 0.0f};
-  group_pool<false, G>(s, r, ddo, osq, ix, iy, iz, h, grp);
-  group_pool<true, G>(s, r, ddo, osq, ix, iy, iz, h, grp);
-  return h;
+  if constexpr (G == 1) {
+    return nearest<true>(s, r);
+  } else {
+    const float ddo = r.dx * r.ox + r.dy * r.oy + r.dz * r.oz;
+    const float osq = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+    const float ix = safe_inv(r.dx), iy = safe_inv(r.dy),
+                iz = safe_inv(r.dz);
+    Hit h{kInf, 0, 0.0f, 0.0f};
+    group_pool<false, G>(s, r, ddo, osq, ix, iy, iz, h, grp);
+    group_pool<true, G>(s, r, ddo, osq, ix, iy, iz, h, grp);
+    return h;
+  }
 }
 
 // K3: the winner's centre or normal, colour30, smooth|mat and texture UV
@@ -531,9 +524,8 @@ __device__ __forceinline__ int fetch_texel(const int* __restrict__ tex,
   return tex[ty * kLanes + (u_i & (kLanes - 1))];
 }
 
-// K2 + K3 over a batch of rays, G threads a ray (the baseline: one thread
-// a ray on the index-order walk).
-template <int G, bool kBaseline>
+// K2 + K3 over a batch of rays, G threads a ray.
+template <int G>
 __global__ void __launch_bounds__(kBlock)
     nearest_hit_kernel(const RtHitArgs a) {
   const int i = (blockIdx.x * blockDim.x + threadIdx.x) / G;
@@ -541,12 +533,7 @@ __global__ void __launch_bounds__(kBlock)
   const Ray r{a.o[0][i], a.o[1][i], a.o[2][i],
               a.d[0][i], a.d[1][i], a.d[2][i]};
   const Group<G> grp = this_group<G>();
-  Hit h;
-  if constexpr (kBaseline) {
-    h = nearest<true>(a.scene, r);
-  } else {
-    h = nearest_group<G>(a.scene, r, grp);
-  }
+  const Hit h = nearest_group<G>(a.scene, r, grp);
   if (grp.rank != 0) return;
   const Winner w = fetch_winner(a.scene, h);
   static_cast<float*>(a.out[0])[i] = h.t;
@@ -605,16 +592,14 @@ __global__ void __launch_bounds__(128) fetch_image_kernel(const RtFetchArgs a) {
   a.out[2][i] = c30(texel, 0);
 }
 
-// Blocks of kBlock threads an SM must keep resident for K1's group arms:
-// it caps their registers at 72 (28 warps an SM; the baseline arm's 80
-// registers keep 24), with no spill at G = 1 (ptxas -v; PERF.md).
+// Blocks of kBlock threads an SM must keep resident for K1: it caps the
+// registers at 72 (28 warps an SM, against 24 at the 80 registers an
+// uncapped G = 1 takes), with no spill at G = 1 (ptxas -v; PERF.md).
 constexpr int kMegaMinBlocks = 7;
 
-// K1 (megakernel.py:370-1150), G threads per lane slot; the baseline arm
-// (kBaseline, G = 1) keeps the index-order walk and the per-pixel sums in
-// global memory.
-template <int G, bool kBaseline>
-__global__ void __launch_bounds__(kBlock, kBaseline ? 1 : kMegaMinBlocks)
+// K1 (megakernel.py:370-1150), G threads per lane slot.
+template <int G>
+__global__ void __launch_bounds__(kBlock, kMegaMinBlocks)
     megakernel(const RtMegaArgs a) {
   const RtScene& s = a.scene;
   const int g = (blockIdx.x * blockDim.x + threadIdx.x) / G;
@@ -697,12 +682,7 @@ __global__ void __launch_bounds__(kBlock, kBaseline ? 1 : kMegaMinBlocks)
     const float gx = rs * cosf(phi), gy = rs * sinf(phi), gz = z;
     const float fres_u = uni(b2);
 
-    Hit h;
-    if constexpr (kBaseline) {
-      h = nearest<true>(s, ray);
-    } else {
-      h = nearest_group<G>(s, ray, grp);
-    }
+    const Hit h = nearest_group<G>(s, ray, grp);
     const bool hit = h.t < kInf;
     if (leader && bounce == 0 && sample == cur_k * spp) {
       out_depth[base + cur_k * kTileLanes] = h.t;
@@ -867,27 +847,19 @@ __global__ void __launch_bounds__(kBlock, kBaseline ? 1 : kMegaMinBlocks)
     if (!continues || bounce + 1 >= a.limit) {
       // bank the path into its pixel, regenerate onto the next sample
       const int p = base + cur_k * kTileLanes;
-      if constexpr (kBaseline) {
-        out_r[p] = out_r[p] + rr;
-        out_g[p] = out_g[p] + rg;
-        out_b[p] = out_b[p] + rb;
-      } else {
-        sr = sr + rr;
-        sg = sg + rg;
-        sb = sb + rb;
-      }
+      sr = sr + rr;
+      sg = sg + rg;
+      sb = sb + rb;
       ++sample;
       bounce = 0;
       if (sample == (cur_k + 1) * spp) {
-        if constexpr (!kBaseline) {
-          // the pixel's last sample: its mean, once
-          if (leader) {
-            out_r[p] = sr * a.inv_spp;
-            out_g[p] = sg * a.inv_spp;
-            out_b[p] = sb * a.inv_spp;
-          }
-          sr = sg = sb = 0.0f;
+        // the pixel's last sample: its mean, once
+        if (leader) {
+          out_r[p] = sr * a.inv_spp;
+          out_g[p] = sg * a.inv_spp;
+          out_b[p] = sb * a.inv_spp;
         }
+        sr = sg = sb = 0.0f;
         cur_k = min(cur_k + 1, K - 1);
       }
       const int q = base + cur_k * kTileLanes;
@@ -903,46 +875,39 @@ __global__ void __launch_bounds__(kBlock, kBaseline ? 1 : kMegaMinBlocks)
 
   if (!leader) return;
   for (int k = 0; k < K; ++k) {
-    const int p = base + k * kTileLanes;
-    if constexpr (kBaseline) {
-      out_r[p] = out_r[p] * a.inv_spp;
-      out_g[p] = out_g[p] * a.inv_spp;
-      out_b[p] = out_b[p] * a.inv_spp;
-    }
-    a.out[3][p] = k == 0 ? segs : 0.0f;
+    a.out[3][base + k * kTileLanes] = k == 0 ? segs : 0.0f;
   }
 }
 
-template <int G, bool kBaseline>
+template <int G>
 int launch_nearest(const RtHitArgs& a, cudaStream_t st) {
   const int blocks = static_cast<int>(
       (static_cast<long long>(a.n) * G + kBlock - 1) / kBlock);
-  nearest_hit_kernel<G, kBaseline><<<blocks, kBlock, 0, st>>>(a);
+  nearest_hit_kernel<G><<<blocks, kBlock, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int G, bool kBaseline>
+template <int G>
 int launch_mega(const RtMegaArgs& a, cudaStream_t st) {
   const int blocks = a.n_tiles * kTileLanes / kBlock * G;
-  megakernel<G, kBaseline><<<blocks, kBlock, 0, st>>>(a);
+  megakernel<G><<<blocks, kBlock, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel instance of (kind, group): kind 0 is K1, 1 rt_nearest_hit;
-// group 0 is the baseline arm. Null for another group.
-template <int G, bool kBaseline>
+// The kernel instance of (kind, group): kind 0 is K1, 1 rt_nearest_hit.
+// Null for another group.
+template <int G>
 const void* kernel_ptr(int kind) {
-  return kind ? (const void*)nearest_hit_kernel<G, kBaseline>
-              : (const void*)megakernel<G, kBaseline>;
+  return kind ? (const void*)nearest_hit_kernel<G>
+              : (const void*)megakernel<G>;
 }
 
 const void* kernel_of(int kind, int group) {
   switch (group) {
-    case 0: return kernel_ptr<1, true>(kind);
-    case 1: return kernel_ptr<1, false>(kind);
-    case 2: return kernel_ptr<2, false>(kind);
-    case 4: return kernel_ptr<4, false>(kind);
-    case 8: return kernel_ptr<8, false>(kind);
+    case 1: return kernel_ptr<1>(kind);
+    case 2: return kernel_ptr<2>(kind);
+    case 4: return kernel_ptr<4>(kind);
+    case 8: return kernel_ptr<8>(kind);
     default: return nullptr;
   }
 }
@@ -955,31 +920,31 @@ int rt_nearest_hit(const RtHitArgs* args, void* stream) {
   if (args->n <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (args->group) {
-    case 0: return launch_nearest<1, true>(*args, st);
-    case 1: return launch_nearest<1, false>(*args, st);
-    case 2: return launch_nearest<2, false>(*args, st);
-    case 4: return launch_nearest<4, false>(*args, st);
-    case 8: return launch_nearest<8, false>(*args, st);
+    case 1: return launch_nearest<1>(*args, st);
+    case 2: return launch_nearest<2>(*args, st);
+    case 4: return launch_nearest<4>(*args, st);
+    case 8: return launch_nearest<8>(*args, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Blocks of kBlock threads that one SM keeps resident for kernel `kind`
-// (0: K1, 1: rt_nearest_hit) at group size `group` (0: the baseline arm),
-// and the device's SM count.
-int rt_occupancy(int kind, int group, int* blocks_per_sm, int* sm_count) {
+// Threads of kernel `kind` (0: K1, 1: rt_nearest_hit) at group size
+// `group` that the current device keeps resident at once: the blocks one
+// SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times the
+// block's threads times the SMs.
+int rt_occupancy(int kind, int group, int* resident_threads) {
   const void* fn = kernel_of(kind, group);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0;
+  int dev = 0, sms = 0, blocks = 0;
   cudaError_t rc = cudaGetDevice(&dev);
   if (rc == cudaSuccess) {
-    rc = cudaDeviceGetAttribute(sm_count, cudaDevAttrMultiProcessorCount,
-                                dev);
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (rc == cudaSuccess) {
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
-                                                       kBlock, 0);
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kBlock,
+                                                       0);
   }
+  *resident_threads = blocks * kBlock * sms;
   return static_cast<int>(rc);
 }
 
@@ -1007,11 +972,10 @@ int rt_megakernel(const RtMegaArgs* args, void* stream) {
   if (args->n_tiles <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (args->group) {
-    case 0: return launch_mega<1, true>(*args, st);
-    case 1: return launch_mega<1, false>(*args, st);
-    case 2: return launch_mega<2, false>(*args, st);
-    case 4: return launch_mega<4, false>(*args, st);
-    case 8: return launch_mega<8, false>(*args, st);
+    case 1: return launch_mega<1>(*args, st);
+    case 2: return launch_mega<2>(*args, st);
+    case 4: return launch_mega<4>(*args, st);
+    case 8: return launch_mega<8>(*args, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -225,13 +225,31 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.rt_occupancy.argtypes = [ctypes.c_int] * 2 + [
-            ctypes.POINTER(ctypes.c_int)] * 2
+        lib.rt_occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)]
         lib.rt_occupancy.restype = ctypes.c_int
         lib.rt_error_string.argtypes = [ctypes.c_int]
         lib.rt_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+# rt_occupancy's kernels: K1 (rt_megakernel) and rt_nearest_hit
+KIND_MEGAKERNEL, KIND_NEAREST = 0, 1
+_RESIDENT: dict = {}
+
+
+def resident_threads(kind: int, group: int) -> int:
+    """Threads of kernel ``kind`` at group size ``group`` that the current
+    CUDA device keeps resident at once (rt_occupancy)."""
+    key = (kind, group, torch.cuda.current_device())
+    if key not in _RESIDENT:
+        lib = load()
+        threads = ctypes.c_int()
+        check(lib, lib.rt_occupancy(kind, group, ctypes.byref(threads)),
+              "rt_occupancy")
+        _RESIDENT[key] = threads.value
+    return _RESIDENT[key]
 
 
 def check(lib: ctypes.CDLL, rc: int, name: str) -> None:

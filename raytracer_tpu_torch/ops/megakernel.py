@@ -45,6 +45,13 @@ LANES = sweep.LANES
 SROWS = 32                 # rows per pixel block (one stream)
 MEGA_TILE = SROWS * LANES  # lane slots per tile
 INF = sweep.INF
+# Waves of resident threads rt_megakernel's group rule fills, by the
+# scene's gate depth (0: every pool flat, 1: clusters, 2: supers), from
+# the measured G sweep (scripts/k1_groups.py sweep, PERF.md): G threads
+# split a lane slot's walk but each shades the whole path, so G pays where
+# the walk is deep and the slots are few; over supers G = 8 won at 54
+# waves (stress10k, 1000x800, pixpack 1).
+MEGA_WAVES = {0: 1, 1: 2, 2: 64}
 
 # material table rows (megakernel.py:130-132)
 (_M_TYPE, _M_IOR, _M_EMR, _M_EMG, _M_EMB, _M_TEXTYPE,
@@ -465,21 +472,33 @@ def mega_reference(ps: sweep.PackedScene, mat: torch.Tensor,
     return out
 
 
+def mega_group(slots: int, ps: sweep.PackedScene, group=None) -> int:
+    """G for rt_megakernel over ``slots`` lane slots of ``ps``: ``group``
+    when given, else the rule's, ``sweep.group_size`` with MEGA_WAVES of
+    the scene's gate depth."""
+    sweep.check_group(group)
+    if group is not None:
+        return group
+    from ..kernels import build
+    resident = {g: build.resident_threads(build.KIND_MEGAKERNEL, g)
+                for g in sweep.GROUPS}
+    return sweep.group_size(slots, resident,
+                            MEGA_WAVES[sweep.gate_depth(ps)])
+
+
 def _mega_cuda(ps, mat, o, d, seed, *, tex, img_rows, pixpack, spp, limit,
                antialias, sky, emissive_terminates, fix_exit_ior,
                need_sphere_uv, has_refractive, rr_start, coherent,
                _group=None) -> torch.Tensor:
     """Launch rt_megakernel on the current stream; (5, n_pad) outputs.
 
-    G threads share each lane slot, G by ``sweep.group_size`` over the
-    frame's lane slots and the scene's gate depth. ``_group`` forces G,
-    for the tests and chip_smoke.py only (0: the baseline, one thread a
-    slot on the index-order walk)."""
+    G threads share each lane slot, G by ``mega_group`` over the frame's
+    lane slots and the scene's gate depth. ``_group`` forces G, for the
+    tests and chip_smoke.py only."""
     from ..kernels import build
     n_pad = o.shape[1]
     n_tiles = n_pad // (MEGA_TILE * pixpack)
-    group = sweep.pick_group(sweep.KIND_MEGAKERNEL, n_tiles * MEGA_TILE, ps,
-                             _group)
+    group = mega_group(n_tiles * MEGA_TILE, ps, _group)
     out = torch.empty((5, n_pad), dtype=torch.float32, device=o.device)
     w0, w1, tile_offset = seed
     args = build.MegaArgs(

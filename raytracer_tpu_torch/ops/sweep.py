@@ -9,8 +9,10 @@ lane gathers (K3, sweep.py:1170). Here both are ``__device__`` functions of
 index order for one ray, the boxes and a leaf's primitives strided over
 the group. ``nearest_hit`` runs them alone over a batch of rays
 (``rt_nearest_hit``); ``nearest_hit_reference`` is its plain version.
-``group_size`` is the rule that picks G from the rays (or the megakernel's
-lane slots) and the threads the card keeps resident.
+``group_size`` is the rule's form, which picks G from the rays (or the
+megakernel's lane slots) and the threads the card keeps resident;
+``nearest_group`` is rt_nearest_hit's rule, ``megakernel.mega_group``
+rt_megakernel's.
 
 The hit contract, kept by both versions:
 
@@ -59,16 +61,13 @@ T_I32_ROWS = 2
 LAUNCHES = 0
 
 # Threads that share one ray in rt_nearest_hit and one lane slot in
-# rt_megakernel (the kernels' template instances). Group 0, which only the
-# private ``_group`` keywords take, is the baseline: one thread a ray on
-# the index-order walk of the design before the groups.
+# rt_megakernel (the kernels' template instances).
 GROUPS = (1, 2, 4, 8)
-# Waves of resident threads the group rule fills, by the scene's gate
-# depth (0: every pool flat, 1: clusters, 2: supers), from the measured G
-# sweep (scripts/k1_groups.py, PERF.md): a deeper walk pays more for being
-# split than the G-fold shading costs.
-GROUP_WAVES = {0: 1, 1: 2, 2: 8}
-KIND_MEGAKERNEL, KIND_NEAREST = 0, 1
+# Waves of resident threads rt_nearest_hit's rule fills, by the scene's
+# gate depth (0: every pool flat, 1: clusters, 2: supers), from the
+# measured sweep (scripts/k1_groups.py sweep, PERF.md): over supers the
+# split walk wins even at 1M rays, 55 waves at G = 8.
+NEAREST_WAVES = {0: 1, 1: 4, 2: 64}
 
 
 def gate_depth(ps) -> int:
@@ -79,47 +78,31 @@ def gate_depth(ps) -> int:
     return 1 if ps.n_sph_cl > 0 or ps.n_tri_cl > 0 else 0
 
 
-def group_size(slots: int, resident, depth: int) -> int:
-    """G for ``slots`` lane slots or rays over a scene of gate depth
-    ``depth``: the largest G of GROUPS whose ``slots * G`` threads fit in
-    GROUP_WAVES[depth] waves of the threads the card keeps resident,
-    ``resident[G]``; 1 when none does."""
+def group_size(slots: int, resident, waves: float) -> int:
+    """G for ``slots`` lane slots or rays: the largest G of GROUPS whose
+    ``slots * G`` threads fit in ``waves`` waves of the threads the card
+    keeps resident for that arm, ``resident[G]``; 1 when none does."""
     for g in sorted(GROUPS, reverse=True):
-        if slots * g <= GROUP_WAVES[depth] * resident[g]:
+        if slots * g <= waves * resident[g]:
             return g
     return 1
 
 
 def check_group(group) -> None:
-    if group is not None and group not in (0,) + GROUPS:
-        raise ValueError(f"group must be one of {(0,) + GROUPS}, got {group}")
+    if group is not None and group not in GROUPS:
+        raise ValueError(f"group must be one of {GROUPS}, got {group}")
 
 
-_RESIDENT: dict = {}
-
-
-def resident_threads(kind: int, group: int) -> int:
-    """Threads of the kernel ``kind`` at ``group`` that the current CUDA
-    device keeps resident at once (cudaOccupancy..., times its SMs)."""
-    key = (kind, group, torch.cuda.current_device())
-    if key not in _RESIDENT:
-        from ..kernels import build
-        lib = build.load()
-        blocks, sms = ctypes.c_int(), ctypes.c_int()
-        rc = lib.rt_occupancy(kind, group, ctypes.byref(blocks),
-                              ctypes.byref(sms))
-        build.check(lib, rc, "rt_occupancy")
-        _RESIDENT[key] = blocks.value * 128 * sms.value
-    return _RESIDENT[key]
-
-
-def pick_group(kind: int, slots: int, ps, group=None) -> int:
-    """``group`` when given, else the rule's G for ``slots`` over ``ps``."""
+def nearest_group(n: int, ps, group=None) -> int:
+    """G for rt_nearest_hit over ``n`` rays of ``ps``: ``group`` when
+    given, else the rule's."""
     check_group(group)
     if group is not None:
         return group
-    return group_size(slots, {g: resident_threads(kind, g) for g in GROUPS},
-                      gate_depth(ps))
+    from ..kernels import build
+    resident = {g: build.resident_threads(build.KIND_NEAREST, g)
+                for g in GROUPS}
+    return group_size(n, resident, NEAREST_WAVES[gate_depth(ps)])
 
 
 def leaf_size(n: int) -> int:
@@ -456,7 +439,8 @@ def nearest_hit(ps: PackedScene, o: torch.Tensor, d: torch.Tensor, *,
 
     CPU tensors take ``nearest_hit_reference``; CUDA tensors launch
     ``rt_nearest_hit`` (or raise) with G threads a ray, G by
-    ``group_size`` (``_group`` forces it, for the tests and chip_smoke.py).
+    ``nearest_group`` (``_group`` forces it, for the tests and
+    chip_smoke.py).
     Returns (t, code, u, v, n0, n1, n2, pa, pb), each (N,): t f32
     (1e30 = miss), code i32 = prim * 2 + is_triangle, u/v f32 texture UV
     of a triangle winner, n f32 sphere centre or triangle normal, pa
@@ -485,7 +469,7 @@ def nearest_hit(ps: PackedScene, o: torch.Tensor, d: torch.Tensor, *,
         scene=build.scene_args(ps),
         o=build.ptrs3(o), d=build.ptrs3(d),
         out=(ctypes.c_void_p * 9)(*[x.data_ptr() for x in outs]), n=n,
-        group=pick_group(KIND_NEAREST, n, ps, _group))
+        group=nearest_group(n, ps, _group))
     rc = lib.rt_nearest_hit(ctypes.byref(args),
                             ctypes.c_void_p(build.stream(o.device)))
     build.check(lib, rc, "rt_nearest_hit")

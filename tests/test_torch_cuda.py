@@ -11,9 +11,9 @@ contraction) and draw the same hash bits, so they are held tightly: a
 pixel may differ only where a path runs another way, which the per-thread
 cluster gate could cause for a ray that hits a primitive without entering
 its padded box. The megakernel and rt_nearest_hit are held bitwise at
-every group size G (``GROUP_CASES``: the rule's G, each forced G and the
-baseline walk, group 0), on scenes 4 and 2, stress10k tiles and the
-exact-tie scene of test_torch_tie_scene.py.
+every group size G (``GROUP_CASES``: the rule's G and each forced G), on
+scenes 4 and 2, stress10k tiles and the exact-tie scene of
+test_torch_tie_scene.py.
 """
 
 import dataclasses
@@ -37,8 +37,8 @@ from raytracer_tpu_torch.ops import sweep as tsweep
 PIXEL_ABS = 1e-4
 PIXEL_SHARE_MIN = 0.99
 SEGS_REL = 5e-3
-# None: the group rule's G; 0: the baseline walk; then each G
-GROUP_CASES = [None, 0, 1, 2, 4, 8]
+# None: the group rule's G; then each G
+GROUP_CASES = [None, 1, 2, 4, 8]
 
 pytestmark = pytest.mark.cuda
 

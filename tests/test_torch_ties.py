@@ -11,7 +11,8 @@ ties (tests/test_torch_tie_scene.py): a sphere and a triangle at the same
 t, and two identical spheres in different clusters. The card tests
 (test_torch_cuda.py) hold the kernel to the same winners at every G.
 
-Then the rule that picks G (``sweep.group_size``) as a plain function.
+Then the rules that pick G (``sweep.group_size`` with the megakernel's
+``MEGA_WAVES`` and rt_nearest_hit's ``NEAREST_WAVES``) as plain functions.
 """
 
 import dataclasses
@@ -27,15 +28,22 @@ from raytracer_tpu.models.materials import Material as JMaterial
 from raytracer_tpu.ops import intersect as jint
 from raytracer_tpu_torch.models import scene as tscene
 from raytracer_tpu_torch.models.materials import Material as TMaterial
+from raytracer_tpu_torch.ops import megakernel as tmk
 from raytracer_tpu_torch.ops import sweep as tsweep
 
 torch.set_num_threads(2)
 
 # Threads an H100 keeps resident for each group arm of rt_megakernel (72
-# registers: 7 blocks of 128 threads on each of 132 SMs)
+# registers: 7 blocks of 128 threads on each of 132 SMs) and of
+# rt_nearest_hit (48 warps an SM at G = 1, 36 above)
 MEGA_RESIDENT = {g: 132 * 7 * 128 for g in tsweep.GROUPS}
+NEAREST_RESIDENT = {g: 132 * (48 if g == 1 else 36) * 32
+                    for g in tsweep.GROUPS}
 SLOTS_1000x800_PP8 = 25 * 4096      # ceil(800,000 / 32,768) tiles
+SLOTS_1000x800_PP1 = 196 * 4096     # ceil(800,000 / 4,096) tiles
 SLOTS_4K_1SPP_PP8 = 254 * 4096      # ceil(8,294,400 / 32,768) tiles
+SLOTS_256x128_PP8 = 4096            # one tile
+SLOTS_256x128_PP1 = 8 * 4096
 
 
 @pytest.fixture(scope="module")
@@ -94,11 +102,11 @@ def test_nearest_hit_rejects_unknown_group():
     ts = tie_scene.build(tscene.SceneBuilder(), TMaterial.default())
     o, d = (torch.from_numpy(x) for x in tie_scene.rays())
     ps = tsweep.pack(ts)
-    for g in (3, 16, -1):
+    for g in (0, 3, 16, -1):
         with pytest.raises(ValueError):
             tsweep.nearest_hit(ps, o, d, _group=g)
     want = tsweep.nearest_hit_reference(ps, o, d)
-    for g in (None, 0) + tsweep.GROUPS:   # the CPU takes the plain version
+    for g in (None,) + tsweep.GROUPS:   # the CPU takes the plain version
         got = tsweep.nearest_hit(ps, o, d, _group=g)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
 
@@ -108,27 +116,49 @@ def test_nearest_hit_rejects_unknown_group():
     (SLOTS_1000x800_PP8, 0, 1),     # scene 2: flat pools
     (SLOTS_1000x800_PP8, 2, 8),     # stress10k: supers
     (SLOTS_4K_1SPP_PP8, 1, 1),      # the 4K fly-through
-    (SLOTS_4K_1SPP_PP8, 2, 1),
-    (8 * SLOTS_1000x800_PP8, 2, 1),  # stress10k at pixpack 1
+    (SLOTS_4K_1SPP_PP8, 2, 4),
+    (SLOTS_1000x800_PP1, 2, 8),     # stress10k and stress100k, pixpack 1
+    (SLOTS_1000x800_PP1, 1, 1),
+    (SLOTS_256x128_PP8, 0, 8),      # small frames: scene 2, scene 4
+    (SLOTS_256x128_PP8, 1, 8),
+    (SLOTS_256x128_PP1, 0, 2),
+    (SLOTS_256x128_PP1, 1, 4),
     (0, 0, 8),
     (1, 0, 8),
     (10 ** 9, 2, 1),
 ])
 def test_group_rule(slots, depth, want):
-    """The rule on the H100's resident threads: the 1000x800 pixpack-8
-    frame (102,400 lane slots) takes G = 2 over clusters, 1 over flat
-    pools and 8 over supers; the 4K 1 spp frame (1,040,384) takes 1."""
-    g = tsweep.group_size(slots, MEGA_RESIDENT, depth)
+    """rt_megakernel's rule on the H100's resident threads picks the G
+    that was fastest in the measured sweep: the 1000x800 pixpack-8 frame
+    (102,400 lane slots) takes G = 2 over clusters, 1 over flat pools and
+    8 over supers; the 4K 1 spp frame (1,040,384) takes 1 over clusters;
+    one 256x128 tile takes 8 even over flat pools."""
+    waves = tmk.MEGA_WAVES[depth]
+    g = tsweep.group_size(slots, MEGA_RESIDENT, waves)
     assert g == want
-    waves = tsweep.GROUP_WAVES[depth]
     assert g == 1 or slots * g <= waves * MEGA_RESIDENT[g]
+
+
+@pytest.mark.parametrize("rays, depth, want", [
+    (1 << 20, 0, 1),                # scene 2
+    (1 << 20, 1, 1),                # scene 4
+    (1 << 20, 2, 8),                # stress10k
+    (1 << 16, 0, 2),
+    (1 << 16, 1, 8),
+    (1 << 16, 2, 8),
+])
+def test_nearest_rule(rays, depth, want):
+    """rt_nearest_hit's rule: one thread a ray at 1M rays over clusters or
+    flat pools, G = 8 over supers (2.7x G = 1 on stress10k)."""
+    waves = tsweep.NEAREST_WAVES[depth]
+    assert tsweep.group_size(rays, NEAREST_RESIDENT, waves) == want
 
 
 def test_group_rule_reads_each_arms_residency():
     """An arm that keeps fewer threads resident is passed over."""
     resident = {1: 4000, 2: 4000, 4: 4000, 8: 100}
-    assert tsweep.group_size(1000, resident, 0) == 4
-    assert tsweep.group_size(1000, {g: 10 for g in tsweep.GROUPS}, 2) == 1
+    assert tsweep.group_size(1000, resident, 1) == 4
+    assert tsweep.group_size(1000, {g: 10 for g in tsweep.GROUPS}, 8) == 1
 
 
 def test_gate_depth():
@@ -156,8 +186,8 @@ def test_supers_cover_clusters_in_order():
 
 
 def test_check_group():
-    for g in (None, 0, 1, 2, 4, 8):
+    for g in (None, 1, 2, 4, 8):
         tsweep.check_group(g)
-    for g in (3, 5, 16, -2):
+    for g in (0, 3, 5, 16, -2):
         with pytest.raises(ValueError):
             tsweep.check_group(g)

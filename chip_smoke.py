@@ -12,14 +12,15 @@ image-texture path (scene 2, the 256x512 earth), then times one frame of
 each bench scene of benchmarks/suite.py through the kernel.
 
 Then the wavefront samplers: ``rt_lane_randoms`` (1M lanes), K5
-``rt_hit_resolve`` (1M rays over scenes 4 and 2) and K6
-``rt_hit_resolve_blocked`` (stress100k) against their plain versions, one
-``Renderer`` frame of each sampler (regen, scan, rebin, lanesort) against
-the plain route with rebin and lanesort bitwise equal to regen, and three
-regen paths through ``Renderer`` at 1000x800, 5 bounces: scene 4 at 20 spp
-(K5), stress100k at 4 spp (K6) and the 1024x2048 earth at 20 spp (K5 + the
-atlas gather), each with its first frame against the plain route at
-256x128.
+``rt_hit_resolve`` (65,536 and 1M rays over scenes 4 and 2) and K6
+``rt_hit_resolve_blocked`` with K5 beside it (65,536 and 1M rays over
+stress100k) against their plain versions, one ``Renderer`` frame of each
+sampler (regen, scan, rebin, lanesort) against the plain route with rebin
+and lanesort bitwise equal to regen, and three regen paths through
+``Renderer`` at 1000x800, 5 bounces: scene 4 at 20 spp (K5), stress100k
+at 4 spp (K6) and the 1024x2048 earth at 20 spp (K5 + the atlas gather),
+each with one frame under torch.profiler (K5's and K6's share of the
+device time) and its first frame against the plain route at 256x128.
 
 Then the temporal fly-through (phase 13): ``rt_warp_gather`` (K7) and
 ``rt_gather_history`` against their plain versions, bitwise, on the 4K
@@ -39,27 +40,31 @@ scene-4 and stress10k megakernel paths (20 spp, pixpack 8) and the
 stress100k regen path (4 spp, K6), each coherent first frame against the
 plain version (scene 4 whole, two stress10k tiles, a 16-row stress100k
 band); (d) the counting ``rt_hit_resolve`` against its plain version on
-65,536 rays over scenes 4 and 2, and the mean primitive tests per ray
-that the bounds below use; (e) ``render_resilient`` over 3 frames with
+65,536 rays over scenes 4 and 2 at every G, and the mean primitive tests
+per ray that the bounds below use (K6's counted by a plain-torch walk over
+its blocked tables); (e) ``render_resilient`` over 3 frames with
 one injected out-of-memory error, against an uninterrupted run.
 
-K1 and K2 run with G threads a lane slot (or ray), G picked by a rule
-(``megakernel.mega_group``, ``sweep.nearest_group``). Phase 2 prints
+K1, K2, K5 and K6 run with G threads a lane slot (or ray), G picked by a
+rule (``megakernel.mega_group``, ``sweep.nearest_group``,
+``intersect_cuda.resolve_group`` and ``blocked_group``). Phase 2 prints
 every group arm's registers, spills and resident warps per SM and the
-rule's G on the main paths; phases 3, 5 and 14a hold every arm (the
-rule's G and G = 1, 2, 4, 8) bitwise against the plain versions. With
-``--parent DIR`` (an earlier tree of this repository, unpacked with ``git
-archive``), phase 15 times the K1 and K2 paths of phases 3, 6, 7, 13 and
-14c on that tree and on this checkout in turns (parent, change, change,
-parent), one ``scripts/k1_groups.py paths`` process per turn, and prints
-both; the kernels line then carries the parent's K1 and K2 times.
+rules' G on the main paths; phases 3, 5, 9, 10, 14a and 14d hold every
+arm (the rule's G and G = 1, 2, 4, 8) bitwise against the plain versions.
+With ``--parent DIR`` (an earlier tree of this repository, unpacked with
+``git archive``), phase 15 times the K1 and K2 paths of phases 3, 6, 7, 13
+and 14c and the K5 and K6 paths of phases 9, 10 and 12 on that tree and
+on this checkout in turns (parent, change, change, parent), one
+``scripts/k1_groups.py paths`` process per turn, and prints both; the
+kernels line then carries the parent's times.
 
 Every kernel in the closing ``{"kernels": ...}`` line carries its bound:
 the larger of the bytes it must move over 3.35 TB/s and the FP32
 operations this run's inputs need over 67 TFLOP/s, the H100 SXM's
 published peaks. The BVH kernels' operations are the primitive tests that
 their gates let through, counted on this run's rays by K5's counters
-(``tests_per_ray``), times the operations of one test, plus the work done
+(``tests_per_ray``; K6's by a plain-torch walk over its blocked tables,
+``blocked_walk_tests``), times the operations of one test, plus the work done
 whatever the gates; the plain versions' brute-force count rides beside it
 as ``plain_ops``. The megakernel has no counters: its
 ``tests_per_segment`` is an estimate, counted on the segments of a
@@ -133,15 +138,18 @@ def check(ok: bool, what: str) -> None:
 
 
 def kernel_name(mangled: str) -> str:
-    """A readable name for a mangled entry function: K1's and K2's group
-    instances as megakernel<G2> or nearest_hit_kernel<G1>."""
-    m = re.search(r"(megakernel|nearest_hit_kernel)ILi(\d+)E", mangled)
+    """A readable name for a mangled entry function: the group instances
+    as megakernel<G2>, nearest_hit_kernel<G1>, hit_resolve_blocked_kernel<G8>
+    or hit_resolve_kernel<G4, with_stats>."""
+    m = re.search(r"(megakernel|nearest_hit_kernel|hit_resolve_blocked_kernel)"
+                  r"ILi(\d+)E", mangled)
     if m:
         return f"{m.group(1)}<G{m.group(2)}>"
-    if "hit_resolve_kernelILb1E" in mangled:
-        return "hit_resolve_kernel<with_stats>"
+    m = re.search(r"hit_resolve_kernelILi(\d+)ELb([01])E", mangled)
+    if m:
+        stats = ", with_stats" if m.group(2) == "1" else ""
+        return f"hit_resolve_kernel<G{m.group(1)}{stats}>"
     return next((k for k in (
-        "hit_resolve_blocked_kernel", "hit_resolve_kernel",
         "fetch_image_kernel", "lane_randoms_kernel", "tile_randoms_kernel",
         "gather_history_kernel", "warp_gather_kernel") if k in mangled),
         mangled)
@@ -179,20 +187,25 @@ def forced_group(group):
         mk._mega_cuda = real
 
 
+# rt_occupancy's kernels by name
+ARM_KINDS = (("rt_megakernel", 0), ("rt_nearest_hit", 1),
+             ("rt_hit_resolve", 2), ("rt_hit_resolve_blocked", 3))
+
+
 def group_table(dev) -> dict:
-    """Resident warps per SM of every K1 and K2 arm, and the G the rule
-    picks on the main paths."""
+    """Resident warps per SM of every K1, K2, K5 and K6 arm, and the G the
+    rules pick on the main paths."""
     import torch
 
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.kernels import build
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
     from raytracer_tpu_torch.ops import megakernel as mk
     from raytracer_tpu_torch.ops import sweep
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     warps = {name: {str(g): build.resident_threads(kind, g) // 32 // sms
                     for g in sweep.GROUPS}
-             for kind, name in ((build.KIND_MEGAKERNEL, "rt_megakernel"),
-                                (build.KIND_NEAREST, "rt_nearest_hit"))}
+             for name, kind in ARM_KINDS}
     packed = {"scene4": sweep.pack(rtt.build_scene(4, seed=0)[0]),
               "scene2": sweep.pack(rtt.build_scene(2)[0]),
               "stress10k": sweep.pack(stress_scene(10000)[0])}
@@ -202,6 +215,13 @@ def group_table(dev) -> dict:
         lane_slots(FLY_W, FLY_H, 8), packed["scene4"])
     rule["rt_nearest_hit_1M_rays_scene4"] = sweep.nearest_group(
         1 << 20, packed["scene4"])
+    packed["stress100k"] = sweep.pack(stress_scene(100000)[0])
+    for k in ("scene4", "scene2", "stress100k"):
+        for n in (1 << 16, 1 << 20):
+            rule[f"rt_hit_resolve_{n}_rays_{k}"] = ic.resolve_group(
+                n, packed[k])
+    for n in (1 << 16, 800_000, 1 << 20):
+        rule[f"rt_hit_resolve_blocked_{n}_rays"] = ic.blocked_group(n)
     return {"resident_warps_per_sm": warps, "sms": sms,
             "gate_depth": {k: sweep.gate_depth(ps)
                            for k, ps in packed.items()},
@@ -769,9 +789,31 @@ def phase_lane_randoms(dev, n: int) -> dict:
     return rec
 
 
-def phase_k5(dev, n: int) -> dict:
-    """K5 (rt_hit_resolve) against the plain K5 on n rays over scenes 4
-    and 2; timed on scene 4."""
+def by_group(run, want, plain_ms=None, repeats: int = 3) -> dict:
+    """``run(g)`` (a kernel wrapper at G = g, None the rule's) at every arm
+    of GROUP_ARMS: whether its outputs are bitwise ``want``, then, once
+    every arm has run, its CUDA-event ms."""
+    import torch
+    out = {}
+    for g in GROUP_ARMS:
+        got = run(g)
+        out[str(g)] = {"bitwise": all(bool(torch.equal(a, b))
+                                      for a, b in zip(got, want))}
+    for g in GROUP_ARMS:
+        out[str(g)]["ms"] = cuda_ms(lambda: run(g), repeats)
+    return out
+
+
+def check_by_group(arms: dict, what: str) -> None:
+    for g, r in arms.items():
+        check(r["bitwise"], f"{what} at group {g} differs from its plain "
+              "version")
+
+
+def phase_k5(dev, sizes=(1 << 16, 1 << 20)) -> dict:
+    """K5 (rt_hit_resolve) against the plain K5 on field rays over scenes 4
+    and 2, at the rule's G and every forced G, each bitwise, timed at each;
+    the record of scene 4's last size feeds the kernels line."""
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.ops import intersect_cuda as ic
     recs = {}
@@ -780,18 +822,25 @@ def phase_k5(dev, n: int) -> dict:
             else rtt.build_scene(num, device=dev)
         ws = ic.WaveScene(scene)
         check(not ws.blocked, f"scene {num} routed to K6")
-        o, d = field_rays(dev, n, 7 + num, scene)
-        got = ic.hit_resolve_unit(ws, o, d)
-        rec = _hit_agreement(got, ic.hit_resolve_unit(ws, o, d, plain=True))
-        rec["ms"] = cuda_ms(lambda: ic.hit_resolve_unit(ws, o, d), 5)
-        rec["plain_ms"] = cuda_ms(
-            lambda: ic.hit_resolve_unit(ws, o, d, plain=True))
-        rec.update(gated_bound(n * (24 + 48) + tensor_bytes(ws.packed), 0,
-                               n * (sweep_ops(scene) + OPS_RESOLVE)))
-        print(f"phase 9 rt_hit_resolve (K5) vs plain, scene {num}, {n} "
-              "rays:", json.dumps(rec), flush=True)
-        check_hits(rec, f"K5 scene {num}")
-        recs[num] = rec
+        for n in sizes:
+            o, d = field_rays(dev, n, 7 + num, scene)
+            want = ic.hit_resolve_unit(ws, o, d, plain=True)
+            rec = _hit_agreement(ic.hit_resolve_unit(ws, o, d), want)
+            rec["by_group"] = by_group(
+                lambda g: ic.hit_resolve_unit(ws, o, d, _group=g), want,
+                repeats=5)
+            rec.update(rays=n, group=ic.resolve_group(n, ws.packed),
+                       ms=rec["by_group"]["None"]["ms"],
+                       plain_ms=cuda_ms(lambda: ic.hit_resolve_unit(
+                           ws, o, d, plain=True)))
+            rec.update(gated_bound(n * (24 + 48) + tensor_bytes(ws.packed),
+                                   0, n * (sweep_ops(scene) + OPS_RESOLVE)))
+            print(f"phase 9 rt_hit_resolve (K5) vs plain, scene {num}, {n} "
+                  "rays, by group (None: the rule's):", json.dumps(rec),
+                  flush=True)
+            check_hits(rec, f"K5 scene {num}")
+            check_by_group(rec["by_group"], f"K5 scene {num}, {n} rays")
+            recs[num] = rec
     return recs
 
 
@@ -803,10 +852,12 @@ def stress_scene(num: int):
 
 
 def phase_k6(dev, n_check: int, n_time: int) -> dict:
-    """K6 (rt_hit_resolve_blocked) on stress100k against the plain K6 and
-    against K5, first on n_check rays inside the field, then on the n_time
-    rays it is timed on (about the ~800k rays a K6 launch gets on the
-    stress100k path): the timed runs' outputs are the ones checked."""
+    """K6 (rt_hit_resolve_blocked) and K5 (rt_hit_resolve over the
+    resident pools) on stress100k field rays, n_check of them and the
+    n_time that K6 is timed on (about the ~800k rays a K6 launch gets on
+    the stress100k path): each at the rule's G and every forced G, bitwise
+    with its plain version and timed at each; K6 against K5, which may
+    differ only on exact ties (their tie orders differ)."""
     import torch
 
     from raytracer_tpu_torch.ops import intersect_cuda as ic
@@ -815,40 +866,43 @@ def phase_k6(dev, n_check: int, n_time: int) -> dict:
     wb = ic.WaveScene(scene)
     check(wb.blocked, "stress100k not routed to K6 by fits_smem")
     wr = ic.WaveScene(scene, blocked=False)
-
-    def against_plain_and_k5(got, plain, k5, n):
-        rec = _hit_agreement(got, plain)
-        differ = got[1] != k5[1]
-        rec.update(rays=n, vs_k5_code_mismatch=int(differ.sum()),
-                   vs_k5_mismatch_ties_only=torch.equal(got[0][differ],
+    out = {"blocks": wb.tables.nblocks}
+    for n, seed in ((n_check, 11), (n_time, 12)):
+        o, d = field_rays(dev, n, seed, scene)
+        plain6 = ic.hit_resolve_unit(wb, o, d, plain=True)
+        plain5 = ic.hit_resolve_unit(wr, o, d, plain=True)
+        k6 = ic.hit_resolve_unit(wb, o, d)
+        rec = _hit_agreement(k6, plain6)
+        rec["by_group"] = by_group(
+            lambda g: ic.hit_resolve_unit(wb, o, d, _group=g), plain6)
+        k5 = ic.hit_resolve_unit(wr, o, d)
+        rec["k5_by_group"] = by_group(
+            lambda g: ic.hit_resolve_unit(wr, o, d, _group=g), plain5)
+        differ = k6[1] != k5[1]
+        rec.update(rays=n, group=ic.blocked_group(n),
+                   k5_group=ic.resolve_group(n, wr.packed),
+                   ms=rec["by_group"]["None"]["ms"],
+                   k5_ms=rec["k5_by_group"]["None"]["ms"],
+                   vs_k5_code_mismatch=int(differ.sum()),
+                   vs_k5_mismatch_ties_only=torch.equal(k6[0][differ],
                                                         k5[0][differ]))
-        return rec
-
-    o, d = field_rays(dev, n_check, 11, scene)
-    rec = against_plain_and_k5(ic.hit_resolve_unit(wb, o, d),
-                               ic.hit_resolve_unit(wb, o, d, plain=True),
-                               ic.hit_resolve_unit(wr, o, d), n_check)
-    rec["blocks"] = wb.tables.nblocks
-    o, d = field_rays(dev, n_time, 12, scene)
-    out = {}
-
-    def run(name, ws, plain=False):
-        def fn():
-            out[name] = ic.hit_resolve_unit(ws, o, d, plain=plain)
-        return fn
-    rec["ms"] = cuda_ms(run("k6", wb), 3)
-    rec["k5_ms"] = cuda_ms(run("k5", wr), 3)
-    rec["plain_ms"] = cuda_ms(run("plain", wb, plain=True))
-    rec["timed"] = against_plain_and_k5(out["k6"], out["plain"], out["k5"],
-                                        n_time)
-    rec.update(gated_bound(n_time * (24 + 36) + tensor_bytes(wb.tables), 0,
-                           n_time * (sweep_ops(scene) + OPS_RESOLVE)))
-    print("phase 10 rt_hit_resolve_blocked (K6) vs plain K6 and K5, "
-          "stress100k:", json.dumps(rec), flush=True)
-    for r, n in ((rec, n_check), (rec["timed"], n_time)):
-        check_hits(r, f"K6 vs plain K6 on {n} rays")
-        check(r["vs_k5_mismatch_ties_only"],
+        if n == n_time:
+            rec["plain_ms"] = cuda_ms(lambda: ic.hit_resolve_unit(
+                wb, o, d, plain=True))
+            rec.update(gated_bound(
+                n * (24 + 36) + tensor_bytes(wb.tables), 0,
+                n * (sweep_ops(scene) + OPS_RESOLVE)))
+        print(f"phase 10 rt_hit_resolve_blocked (K6) and rt_hit_resolve "
+              f"(K5) vs plain, stress100k, {n} rays, by group (None: the "
+              "rule's):", json.dumps(rec), flush=True)
+        check_hits(rec, f"K6 vs plain K6 on {n} rays")
+        check_by_group(rec["by_group"], f"K6 on {n} rays")
+        check_by_group(rec["k5_by_group"], f"K5 on {n} stress100k rays")
+        check(rec["vs_k5_mismatch_ties_only"],
               f"K6 and K5 pick other winners at other distances on {n} rays")
+        out[n] = rec
+    rec = dict(out[n_time])
+    rec.update(blocks=out["blocks"], check_rays=out[n_check])
     return rec
 
 
@@ -933,11 +987,45 @@ def _zero_counts() -> None:
     warp.GATHER_LAUNCHES = warp.HISTORY_LAUNCHES = 0
 
 
+def device_shares(fn, names) -> dict:
+    """One call of ``fn()`` under torch.profiler, ending in a synchronise:
+    the window's host ms, the device time (the profiler's self CUDA time,
+    summed), the device's busy share of the window, and for each kernel
+    named in ``names`` its device ms and its share of the device time and
+    of the window. Shares are null where the profiler saw no device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    total = sum(dev_us(e) for e in events) / 1e3
+    rec = {"window_ms": window_ms, "device_ms": total,
+           "busy_share": total / window_ms if total else None}
+    for name in names:
+        ms = sum(dev_us(e) for e in events if name in e.key) / 1e3
+        rec[name] = {"device_ms": ms,
+                     "share_of_device": ms / total if total else None,
+                     "share_of_window": ms / window_ms if total else None}
+    return rec
+
+
 def phase_wave_path(dev, name: str, scene, sky, spp: int, pos,
                     width=1000, height=800, check_size=(256, 128)) -> dict:
     """One regen path through Renderer: a warm-up frame and 5 frames,
-    counts set to 0 just before and read just after; then its first frame
-    at check_size through the kernel route against the plain route."""
+    counts set to 0 just before and read just after; one more frame under
+    torch.profiler (K5's and K6's share of the device time, the device's
+    busy share); then its first frame at check_size through the kernel
+    route against the plain route."""
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.ops import integrator as integ
     from raytracer_tpu_torch.ops import rng
@@ -960,6 +1048,10 @@ def phase_wave_path(dev, name: str, scene, sky, spp: int, pos,
         "rt_hit_resolve"
     check(launches[hit_kernel] > 0 and launches["rt_lane_randoms"] > 0,
           f"{name}: the path launched {launches}")
+    out["profiled_frame"] = device_shares(
+        lambda: r.render_frame(block=True),
+        ("hit_resolve_blocked_kernel", "hit_resolve_kernel",
+         "lane_randoms_kernel"))
 
     w, h = check_size
     o, d = camera_rays(w, h, dev, position=pos)
@@ -1548,7 +1640,8 @@ def segment_tests(dev, scene, width: int, height: int, settings) -> dict:
                           "counters)"}
 
 
-def phase_counters(dev, n_check: int, n_mean: int) -> dict:
+def phase_counters(dev, n_check: int, n_mean: int,
+                   n_k6_walk: int = 1 << 16) -> dict:
     """(d) The counting rt_hit_resolve (K5's with_stats arm) against its
     plain version on n_check field rays over scenes 4 and 2 (every output
     equal where the winner agrees, every count equal), timed beside the
@@ -1557,7 +1650,8 @@ def phase_counters(dev, n_check: int, n_mean: int) -> dict:
     K5's walk) and K6's timed rays over stress100k (the counting launch
     called directly: intersection_stats raises there, as JAX's does); and
     an estimate of the mean tests per segment of the scene-4 and scene-2
-    megakernel frames (K1, ``segment_tests``)."""
+    megakernel frames (K1, ``segment_tests``); and K6's tests per ray on
+    the first n_k6_walk of its timed rays (``blocked_walk_tests``)."""
     import torch
 
     import raytracer_tpu_torch as rtt
@@ -1577,6 +1671,11 @@ def phase_counters(dev, n_check: int, n_mean: int) -> dict:
         r["counts_equal"] = bool(torch.equal(got[12], want[12]))
         r["counts_max_abs_err"] = float((got[12] - want[12]).abs().max())
         r["launched"] = launched
+        r["group"] = ic.resolve_group(n_check, ps)
+        r["counts_equal_by_group"] = {
+            str(g): bool(torch.equal(
+                ic.hit_resolve_counted(ps, o, d, _group=g)[12], want[12]))
+            for g in GROUP_ARMS}
         o, d = field_rays(dev, n_mean, 7 + num, scene)
         tests = ic.hit_resolve_counted(ps, o, d)[12]
         r["tests_per_ray"] = float(tests.double().mean())
@@ -1598,6 +1697,8 @@ def phase_counters(dev, n_check: int, n_mean: int) -> dict:
               flush=True)
         check_hits(r, f"counting K5 scene {num}")
         check(r["counts_equal"], f"scene {num}: primitive-test counts differ")
+        for g, ok in r["counts_equal_by_group"].items():
+            check(ok, f"scene {num}: primitive-test counts differ at G {g}")
         check(launched == (1, 1), f"scene {num}: launched {launched}")
     scene, _ = rtt.build_scene(4, seed=0, device=dev)
     o, d = hit_rays(dev, n_mean)
@@ -1608,14 +1709,68 @@ def phase_counters(dev, n_check: int, n_mean: int) -> dict:
     check(not ic.fits_smem(big), "stress100k fits the SMEM budget")
     o, d = field_rays(dev, n_mean, 12, big)
     tests = ic.hit_resolve_counted(sweep.pack(big), o, d)[12]
+    n_walk = min(n_k6_walk, n_mean)
+    k6_tests = blocked_walk_tests(ic.WaveScene(big).tables, o[:, :n_walk],
+                                  d[:, :n_walk])
     rec["stress100k"] = {"tests_per_ray": float(tests.double().mean()),
                          "tests_per_ray_max": float(tests.max()),
+                         "k5_tests_per_ray_first": float(
+                             tests[:n_walk].double().mean()),
+                         "k6_tests_per_ray": float(k6_tests.double().mean()),
+                         "k6_tests_per_ray_max": float(k6_tests.max()),
+                         "k6_counted_on": f"the first {n_walk} of K6's "
+                                          "timed rays, a plain-torch walk "
+                                          "over the blocked tables",
                          "brute_force_tests": big.num_spheres
                          + big.num_triangles}
     print("phase 14d tests per ray: K2 on phase 3's rays "
-          f"{rec['k2_tests_per_ray']:.3f}; stress100k (K5's walk) on K6's "
-          "timed rays:", json.dumps(rec["stress100k"]), flush=True)
+          f"{rec['k2_tests_per_ray']:.3f}; stress100k, K5's walk over the "
+          "resident pools and K6's over the blocked tables, on K6's timed "
+          "rays:", json.dumps(rec["stress100k"]), flush=True)
     return rec
+
+
+def blocked_walk_tests(bt, o, d):
+    """The primitive tests of K6's walk per ray, in plain torch: blocks in
+    index order, each block's sphere union (if b < sph_blocks), its supers
+    and their clusters in index order, then its triangles the same way,
+    every gate against the ray's running best t; each entered cluster adds
+    its ``leaf`` slots, which the kernel tests. o, d (3, N), unit d ->
+    (N,) float32. Measurement only: no kernel arm counts this."""
+    import torch
+
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    from raytracer_tpu_torch.ops import sweep
+    best = torch.full((o.shape[1],), sweep.INF, device=o.device)
+    tests = torch.zeros_like(best)
+    inv = [torch.where(x == 0.0, sweep.INF, torch.reciprocal(x)) for x in d]
+    cols = [x[:, None] for x in (*o, *d)]
+    for b in range(bt.nblocks):
+        for tri in (False, True):
+            if b >= (bt.tri_blocks if tri else bt.sph_blocks):
+                continue
+            block = ic.TRI_BLOCK if tri else ic.SPH_BLOCK
+            pool = (bt.trif if tri else bt.sphf)[:, b * block:(b + 1) * block]
+            rc, rs = (bt.tc_rows, bt.ts_rows) if tri else (bt.sc_rows,
+                                                           bt.ss_rows)
+            leaf = bt.tri_leaf if tri else bt.sph_leaf
+            cl = (bt.tri_cl if tri else bt.sph_cl)[b * rc:(b + 1) * rc]
+            sup = (bt.tri_sup if tri else bt.sph_sup)[b * rs:(b + 1) * rs]
+            union = ic._entered(bt.bbox[2 * b + int(tri)], o, inv, best)
+            for g in range(rs):
+                gate = union & ic._entered(sup[g], o, inv, best)
+                if not bool(gate.any()):     # NaN filler rows end here
+                    continue
+                first, count = int(sup[g, 6]), int(sup[g, 7])
+                for c in range(first, first + count):
+                    hit = gate & ic._entered(cl[c], o, inv, best)
+                    rows = pool[:, c * leaf:(c + 1) * leaf]
+                    t = (sweep.triangle_tuv(rows, bt.has_one_way, *cols,
+                                            fast_div=False)[0] if tri else
+                         sweep.sphere_t(rows, *cols)).amin(dim=1)
+                    tests = tests + torch.where(hit, float(leaf), 0.0)
+                    best = torch.where(hit & (t < best), t, best)
+    return tests
 
 
 def phase_resilient(dev) -> dict:
@@ -1679,45 +1834,57 @@ def with_tests(rec: dict, scene, n_items: float, per_item: float,
     return out
 
 
-def phase_parent_turns(parent: str) -> dict:
-    """Phase 15: the K1 and K2 paths of phases 3, 6, 7, 13 and 14c timed on
-    the ``parent`` tree and on this checkout in turns (parent, change,
-    change, parent), one ``scripts/k1_groups.py paths`` process per turn,
-    so that each tree builds and loads its own kernels. Returns {path:
-    {"phase", "metric", "parent": [...], "change": [...]}}, each list in
-    call order."""
+def phase_parent_turns(parent: str, pairs: int = 2,
+                       which: str = "all") -> dict:
+    """Phase 15: the paths of ``scripts/k1_groups.py paths --set which``
+    (all: K1 and K2 in phases 3, 6, 7, 13 and 14c, K5 and K6 in phases 9,
+    10 and 12) timed on the ``parent`` tree and on this checkout in
+    ``pairs`` pairs of turns, alternating which tree runs first (parent,
+    change, change, parent, ...), one process per turn, so that each tree
+    builds and loads its own kernels. Returns {path: {"phase", "metric",
+    "parent": [...], "change": [...] (one value a pair), their means,
+    medians and interquartile ranges, and "change_better": the pairs in
+    which the change was faster}}."""
     import pathlib
     here = pathlib.Path(__file__).resolve().parent
     script = here / "scripts" / "k1_groups.py"
     check(pathlib.Path(parent, "raytracer_tpu_torch").is_dir(),
           f"--parent {parent}: no raytracer_tpu_torch there")
     out: dict = {}
-    for tree, label in ((parent, "parent"), (here, "change"),
-                        (here, "change"), (parent, "parent")):
-        run = subprocess.run(
-            [sys.executable, str(script), "paths", "--tree", str(tree),
-             "--label", label], capture_output=True, text=True, timeout=900)
-        check(run.returncode == 0, f"k1_groups.py paths on {label} "
-              f"failed ({run.returncode}): {run.stderr[-2000:]}")
-        for line in run.stdout.splitlines():
-            if not line.startswith("{"):
-                continue
-            rec = json.loads(line)
-            metric = "fps" if "fps" in rec else "ms" if "ms" in rec else \
-                "frame_ms"
-            row = out.setdefault(rec["path"], {
-                "phase": rec["phase"], "metric": metric, "parent": [],
-                "change": []})
-            row[label].append(rec[metric])
-            check(rec.get("finite", True), f"{label} {rec['path']}: "
-                  "non-finite accumulation")
+    turns = [(parent, "parent"), (here, "change")]
+    for i in range(pairs):
+        for tree, label in turns[::1 if i % 2 == 0 else -1]:
+            run = subprocess.run(
+                [sys.executable, str(script), "paths", "--tree", str(tree),
+                 "--label", label, "--set", which], capture_output=True,
+                text=True, timeout=900)
+            check(run.returncode == 0, f"k1_groups.py paths on {label} "
+                  f"failed ({run.returncode}): {run.stderr[-2000:]}")
+            for line in run.stdout.splitlines():
+                if not line.startswith("{"):
+                    continue
+                rec = json.loads(line)
+                metric = "fps" if "fps" in rec else "ms" if "ms" in rec \
+                    else "frame_ms"
+                row = out.setdefault(rec["path"], {
+                    "phase": rec["phase"], "metric": metric, "parent": [],
+                    "change": []})
+                row[label].append(rec[metric])
+                check(rec.get("finite", True), f"{label} {rec['path']}: "
+                      "non-finite accumulation")
     for path, row in out.items():
-        row["parent_mean"] = float(np.mean(row["parent"]))
-        row["change_mean"] = float(np.mean(row["change"]))
+        check(len(row["parent"]) == pairs and len(row["change"]) == pairs,
+              f"{path}: not timed in every turn")
+        for label in ("parent", "change"):
+            q1, med, q3 = np.percentile(row[label], [25, 50, 75])
+            row.update({f"{label}_mean": float(np.mean(row[label])),
+                        f"{label}_median": float(med),
+                        f"{label}_iqr": float(q3 - q1)})
+        sign = -1.0 if row["metric"] == "fps" else 1.0
+        row["change_better"] = int(sum(
+            sign * (c - p) < 0 for p, c in zip(row["parent"], row["change"])))
         print(f"phase 15 parent vs change in turns, phase {row['phase']} "
               f"{path}:", json.dumps(row), flush=True)
-        check(len(row["parent"]) == 2 and len(row["change"]) == 2,
-              f"{path}: not timed in every turn")
     return out
 
 
@@ -1754,9 +1921,9 @@ def main() -> int:
           + " | ".join(ptxas_summary(build.BUILD_INFO.get("log", "")))
           + f"; native host BVH: {loader.native_available()}", flush=True)
     groups = group_table(dev)
-    print("phase 2 rt_megakernel and rt_nearest_hit arms: resident warps per "
-          "SM, gate depths and the rule's G:", json.dumps(groups),
-          flush=True)
+    print("phase 2 rt_megakernel, rt_nearest_hit, rt_hit_resolve and "
+          "rt_hit_resolve_blocked arms: resident warps per SM, gate depths "
+          "and the rules' G:", json.dumps(groups), flush=True)
 
     hits_rec = phase_hits(dev, 1 << 20)
     fetch_rec = phase_fetch(dev, 1 << 20)
@@ -1766,7 +1933,7 @@ def main() -> int:
     slice_rec = phase_path(dev, 2, 1000, 800, 20)
     phase_bench(dev)
     lane_rec = phase_lane_randoms(dev, 1 << 20)
-    k5_rec = phase_k5(dev, 1 << 20)
+    k5_rec = phase_k5(dev)
     k6_rec = phase_k6(dev, 1 << 16, 1 << 20)
     samplers = phase_samplers(dev, 256, 128)
     paths = phase_wave_paths(dev)
@@ -1819,9 +1986,16 @@ def main() -> int:
     k5 = with_tests(k5_rec[4], scene4, 1 << 20, counts[4]["tests_per_ray"],
                     (1 << 20) * OPS_RESOLVE)
     big = stress_scene(100000)[0]
-    k6_walk = with_tests(k6_rec, big, 1 << 20,
-                         counts["stress100k"]["tests_per_ray"],
-                         (1 << 20) * OPS_RESOLVE)
+    k6 = with_tests(k6_rec, big, 1 << 20,
+                    counts["stress100k"]["k6_tests_per_ray"],
+                    (1 << 20) * OPS_RESOLVE)
+    k6_resident_walk = with_tests(k6_rec, big, 1 << 20,
+                                  counts["stress100k"]["tests_per_ray"],
+                                  (1 << 20) * OPS_RESOLVE)
+    wave_paths = {p["path"]: p for p in paths}
+
+    def device_share(path, kernel):
+        return wave_paths[path]["profiled_frame"][kernel]
 
     def coherent_summary(path):
         rec = coh_paths[path]
@@ -1883,6 +2057,22 @@ def main() -> int:
                               for k, v in by_path.items()},
          "max_abs_err": max(r["t_abs_max"] for r in k5_rec.values()),
          **timing(k5), "tests_per_ray": k5["tests_per_ray"],
+         "group": k5_rec[4]["group"],
+         "parent_ms": parent_ms("rt_hit_resolve_1M_scene4"),
+         "ms_by_group": {g: r["ms"]
+                         for g, r in k5_rec[4]["by_group"].items()},
+         "resident_warps_per_sm": groups["resident_warps_per_sm"][
+             "rt_hit_resolve"],
+         "stress100k_resident": {
+             "ms": k6_rec["k5_ms"], "group": k6_rec["k5_group"],
+             "parent_ms": parent_ms("rt_hit_resolve_1M_stress100k"),
+             "ms_by_group": {g: r["ms"]
+                             for g, r in k6_rec["k5_by_group"].items()},
+             "tests_per_ray": counts["stress100k"]["tests_per_ray"],
+             "bound_ms": k6_resident_walk["bound_ms"],
+             "timed": "1M field rays over stress100k's resident pools"},
+         "device_share_scene4_regen": device_share(
+             "scene4_regen", "hit_resolve_kernel"),
          "with_stats": {"ms": counts[4]["ms"], "k5_ms": counts[4]["k5_ms"],
                         "plain_ms": counts[4]["plain_ms"],
                         "counts_equal": counts[4]["counts_equal"]
@@ -1896,10 +2086,17 @@ def main() -> int:
          "launches_by_path": {k: v["rt_hit_resolve_blocked"]
                               for k, v in by_path.items()},
          "max_abs_err": max(k6_rec["t_abs_max"],
-                            k6_rec["timed"]["t_abs_max"]),
-         **timing(k6_rec), "k5_ms": k6_rec["k5_ms"],
-         "walk_tests_per_ray": k6_walk["tests_per_ray"],
-         "walk_bound_ms": k6_walk["bound_ms"],
+                            k6_rec["check_rays"]["t_abs_max"]),
+         **timing(k6), "tests_per_ray": k6["tests_per_ray"],
+         "tests_counted_on": counts["stress100k"]["k6_counted_on"],
+         "group": k6_rec["group"],
+         "parent_ms": parent_ms("rt_hit_resolve_blocked_1M_stress100k"),
+         "ms_by_group": {g: r["ms"] for g, r in k6_rec["by_group"].items()},
+         "resident_warps_per_sm": groups["resident_warps_per_sm"][
+             "rt_hit_resolve_blocked"],
+         "k5_ms": k6_rec["k5_ms"],
+         "device_share_stress100k_regen": device_share(
+             "stress100k_regen", "hit_resolve_blocked_kernel"),
          "coherent_vs_per_lane": coherent_summary("stress100k_regen"),
          "timed": "1M rays over stress100k"},
         {"name": "rt_lane_randoms", "route": "cuda",

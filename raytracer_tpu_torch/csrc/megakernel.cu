@@ -13,7 +13,8 @@
 //   rt_nearest_hit  K2 + K3 over a batch of rays (no randomness), so the
 //                   hit contract can be checked on the card on its own,
 //                   with the same group walk as K1;
-//   rt_hit_resolve  K5: K2 with exact triangle division + K3, the winner's
+//   rt_hit_resolve  K5: K2 with exact triangle division + K3, G threads a
+//                   ray (ops/intersect_cuda.py resolve_group), the winner's
 //                   material id, colour and smoothness decoded; with a
 //                   stats pointer, also each ray's primitive-test count
 //                   (K5's with_stats arm, intersect_pallas.py:74-105);
@@ -22,7 +23,8 @@
 // ops/sweep.py::nearest_hit_reference,
 // ops/intersect_cuda.py::hit_resolve_reference (the counts:
 // primitive_tests_reference) and ops/megakernel.py::fetch_image_reference.
-// The primitive tests live in sweep.cuh, shared with K6 (wavefront.cu).
+// The primitive tests and the group walk live in sweep.cuh, shared with
+// K6 (wavefront.cu).
 //
 // Layout. A group of G consecutive threads of a warp (G = 1, 2, 4 or 8,
 // a template parameter the wrapper picks by a rule) shares one lane slot
@@ -42,23 +44,23 @@
 // thread of a tile hashes the same seven elements of an iteration (lane 0
 // of an 8-row draw) and so scatters alike after a bounce.
 //
-// Sweep (K2, nearest_group). The group walks the cluster arrays of
-// pack_scene in index order: supers (if any), then the clusters they
-// cover, then the leaf primitives; spheres first, triangles second. The
-// boxes of a level are slab-tested G at a time, one a thread, and a
-// ballot names the ones entered before the group's best t; the group
-// visits those in order, and a leaf's primitives are strided over its G
-// threads (a thread keeps the first of a tie with a strict '<'). Each
-// leaf's candidates are merged with __shfl_xor_sync on the key (t,
-// is_triangle, primitive index): the plain version's argmin, where an
-// exact tie goes to the sphere, then to the lower index (ops/sweep.py:
-// 301-325). In index order a box entered at or beyond the best t holds
-// only later primitives, which lose a tie, so gating it out leaves the
-// ungated argmin. The gate is per group (the TPU tile sweeps a leaf when
-// any lane enters its box, so a ray that misses a padded box can still
-// win a primitive there through float error on the TPU, and cannot here).
-// A group of one thread runs the one-thread walk (sweep_pool), which K5
-// keeps too, for the primitive-test counts it reports.
+// Sweep (K2, `nearest`). The group walks the cluster arrays of pack_scene
+// with sweep.cuh's walk_pool: spheres first, triangles second, each pool
+// in index order (supers, their clusters, the leaf primitives), the boxes
+// of a level slab-tested G at a time and a leaf's primitives strided over
+// the group and merged. In that order the first hit is the plain
+// version's argmin, where an exact tie goes to the sphere, then to the
+// lower index (ops/sweep.py:301-325), at every G. The gate is per group
+// (the TPU tile sweeps a leaf when any lane enters its box, so a ray that
+// misses a padded box can still win a primitive there through float error
+// on the TPU, and cannot here). K5 runs the same walk, with exact triangle
+// division and, in its counting arm, the primitive tests of the clusters
+// the group enters, which are the one-thread walk's. Alone (K2, K5) the
+// walk is bound by each ray's dependent chain of box and primitive tests,
+// not by bytes: the pools stay in L2 (stress100k's 2.4 MB too). G threads
+// a ray cut that chain by about G where the card has threads to spare;
+// the wrappers' rules (sweep.nearest_group, intersect_cuda.resolve_group)
+// take G from the rays, the arm's resident threads and the gate depth.
 //
 // What bounds it on an H100: each lane slot runs a long, divergent loop of
 // dependent scalar float math and data-dependent branches (hit or miss,
@@ -74,8 +76,8 @@
 // depth (ops/megakernel.py mega_group). The walk stays in index order
 // because the groups of a warp then load the same boxes and primitives at
 // once: a near-first walk (boxes sorted by entry distance per group) was
-// slower on the K1 paths measured (PERF.md). Registers are capped at 72 so that 7
-// blocks of an SM stay resident. Per-pixel sums stay in registers and are
+// slower on the K1 paths measured (PERF.md). Registers are capped at 72 so
+// that 7 blocks of an SM stay resident. Per-pixel sums stay in registers and are
 // written once per pixel.
 //
 // Numerics. Built with IEEE division and sqrt (no --use_fast_math: the
@@ -135,7 +137,12 @@ struct RtResolveArgs {
   void* out[12];
   float* stats;  // per-ray primitive tests (K5's with_stats), or null
   int n;
+  int group;     // threads per ray: 1, 2, 4 or 8
 };
+
+// K6's instance at group size `group` (csrc/wavefront.cu), for
+// rt_occupancy; null for another group.
+const void* rt_blocked_kernel(int group);
 
 struct RtMegaArgs {
   RtScene scene;
@@ -193,241 +200,41 @@ struct Winner {
   int pa, pb;
 };
 
-// Sphere i (sweep.py:821-860): half-b quadratic, NaN on a miss.
-__device__ __forceinline__ void sphere_test(const RtScene& s, int i,
-                                            const Ray& r, float ddo,
-                                            float osq, Hit& h) {
-  const float t = sphere_t(s.sph_f + i, s.n_sph, r, ddo, osq);
-  if (t > kEps && t < h.t) {
-    h.t = t;
-    h.code = 2 * i;
-  }
+// The scene's resident pools, spheres then triangles: in that visit order
+// the first hit is the plain version's winner in the order (t,
+// is_triangle, primitive index) (ops/sweep.py:301-325).
+__device__ __forceinline__ Pool sphere_pool(const RtScene& s) {
+  return Pool{s.sph_f, s.n_sph, s.sph_cl, s.sph_sup, s.n_sph_cl,
+              s.n_sph_sup, s.n_sph, s.sph_leaf, 0};
 }
 
-// Triangle k (sweep.py:961-1032): Woop rows, one-way cull; FAST_DIV or
-// exact division.
-template <bool kFastDiv>
-__device__ __forceinline__ void triangle_test(const RtScene& s, int k,
-                                              const Ray& r, Hit& h) {
-  float t, u, v;
-  const bool valid =
-      triangle_t<kFastDiv>(s.tri_f + k, s.n_tri, r, s.has_one_way, t, u, v);
-  if (valid && t < h.t) {
-    h.t = t;
-    h.code = 2 * k + 1;
-    h.bu = u;
-    h.bv = v;
-  }
+__device__ __forceinline__ Pool triangle_pool(const RtScene& s) {
+  return Pool{s.tri_f, s.n_tri, s.tri_cl, s.tri_sup, s.n_tri_cl,
+              s.n_tri_sup, s.n_tri, s.tri_leaf, 0};
 }
 
-// One pool: supers -> clusters -> leaves when the scene has them, else
-// every slot in order. Each box is gated per thread. kStats adds to
-// ``tests`` the primitive count (box[7]) of every leaf cluster the ray
-// enters against its best t, or the whole pool when it has no clusters
-// (sweep.py:601-603, 1119-1126); super boxes are not counted.
-template <bool kTri, bool kFastDiv, bool kStats>
-__device__ void sweep_pool(const RtScene& s, const Ray& r, float ddo,
-                           float osq, float ix, float iy, float iz, Hit& h,
-                           float& tests) {
-  const float* __restrict__ cl = kTri ? s.tri_cl : s.sph_cl;
-  const float* __restrict__ sup = kTri ? s.tri_sup : s.sph_sup;
-  const int n_cl = kTri ? s.n_tri_cl : s.n_sph_cl;
-  const int n_sup = kTri ? s.n_tri_sup : s.n_sph_sup;
-  const int leaf = kTri ? s.tri_leaf : s.sph_leaf;
-  const int n_prim = kTri ? s.n_tri : s.n_sph;
-  auto leaf_sweep = [&](int c) {
-    for (int i = c * leaf; i < (c + 1) * leaf; ++i) {
-      if (kTri) {
-        triangle_test<kFastDiv>(s, i, r, h);
-      } else {
-        sphere_test(s, i, r, ddo, osq, h);
-      }
-    }
-  };
-  if (n_sup > 0) {
-    for (int g = 0; g < n_sup; ++g) {
-      const float* box = sup + 8 * g;
-      if (!slab(box, r, ix, iy, iz, h.t)) continue;
-      const int first = static_cast<int>(box[6]);
-      const int count = static_cast<int>(box[7]);
-      for (int c = first; c < first + count; ++c) {
-        if (slab(cl + 8 * c, r, ix, iy, iz, h.t)) {
-          if (kStats) tests += cl[8 * c + 7];
-          leaf_sweep(c);
-        }
-      }
-    }
-  } else if (n_cl > 0) {
-    for (int c = 0; c < n_cl; ++c) {
-      if (slab(cl + 8 * c, r, ix, iy, iz, h.t)) {
-        if (kStats) tests += cl[8 * c + 7];
-        leaf_sweep(c);
-      }
-    }
-  } else {
-    if (kStats) tests += static_cast<float>(n_prim);
-    for (int i = 0; i < n_prim; ++i) {
-      if (kTri) {
-        triangle_test<kFastDiv>(s, i, r, h);
-      } else {
-        sphere_test(s, i, r, ddo, osq, h);
-      }
-    }
-  }
-}
-
-// K2: nearest hit of a unit-direction ray; kStats counts its primitive
-// tests into ``tests``.
-template <bool kFastDiv, bool kStats>
-__device__ Hit nearest(const RtScene& s, const Ray& r, float& tests) {
-  const float ddo = r.dx * r.ox + r.dy * r.oy + r.dz * r.oz;
-  const float osq = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
-  const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
+// K2 for a group of G threads (sweep.cuh walk_pool): every thread returns
+// the plain version's winner. kFastDiv: K1's and rt_nearest_hit's
+// triangle reciprocal; exact division for K5. kStats counts the ray's
+// primitive tests into ``tests``.
+template <int G, bool kFastDiv, bool kStats>
+__device__ Hit nearest(const RtScene& s, const Ray& r, const Group<G>& grp,
+                       float& tests) {
+  const Probe q = probe(r);
   Hit h{kInf, 0, 0.0f, 0.0f};
-  sweep_pool<false, kFastDiv, kStats>(s, r, ddo, osq, ix, iy, iz, h, tests);
-  sweep_pool<true, kFastDiv, kStats>(s, r, ddo, osq, ix, iy, iz, h, tests);
+  walk_pool<false, kFastDiv, kStats>(sphere_pool(s), r, q, false, h, grp,
+                                     tests);
+  walk_pool<true, kFastDiv, kStats>(triangle_pool(s), r, q, s.has_one_way,
+                                    h, grp, tests);
   return h;
 }
 
-template <bool kFastDiv>
-__device__ Hit nearest(const RtScene& s, const Ray& r) {
+// K2 as K1 and rt_nearest_hit run it: FAST_DIV triangles, no counters.
+template <int G>
+__device__ __forceinline__ Hit nearest_group(const RtScene& s, const Ray& r,
+                                             const Group<G>& grp) {
   float unused = 0.0f;
-  return nearest<kFastDiv, false>(s, r, unused);
-}
-
-// ---- K2 for a group of G threads that share one ray ----------------------
-
-// Threads a block of the kernels that walk in groups.
-constexpr int kBlock = 128;
-
-// The G threads of a warp that share one lane slot: their lanes and the
-// thread's rank among them. Groups are aligned to G within the warp.
-template <int G>
-struct Group {
-  unsigned mask;
-  int rank;
-  int base;  // the group's first lane in the warp
-};
-
-template <int G>
-__device__ __forceinline__ Group<G> this_group() {
-  const int lane = threadIdx.x & 31;
-  return Group<G>{((1u << G) - 1u) << (lane & ~(G - 1)), lane & (G - 1),
-                  lane & ~(G - 1)};
-}
-
-// The plain version's order of hits: t, then spheres before triangles,
-// then the lower primitive index (code = 2 * index + is_triangle).
-__device__ __forceinline__ uint32_t hit_rank(int code) {
-  return (static_cast<uint32_t>(code & 1) << 31) |
-         static_cast<uint32_t>(code >> 1);
-}
-
-__device__ __forceinline__ bool hit_before(float t, int code, const Hit& h) {
-  return t < h.t || (t == h.t && hit_rank(code) < hit_rank(h.code));
-}
-
-// Every thread of the group ends with the group's first hit in that order;
-// a triangle's barycentrics ride with it.
-template <int G>
-__device__ __forceinline__ void merge_hits(Hit& h, unsigned mask) {
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1) {
-    const float t = __shfl_xor_sync(mask, h.t, off);
-    const int code = __shfl_xor_sync(mask, h.code, off);
-    const float bu = __shfl_xor_sync(mask, h.bu, off);
-    const float bv = __shfl_xor_sync(mask, h.bv, off);
-    if (hit_before(t, code, h)) h = Hit{t, code, bu, bv};
-  }
-}
-
-// Visit the boxes first .. first + count - 1 that the ray enters before
-// the group's best t in index order, G at a time: thread rank tests box
-// c + rank of each chunk c, and the group visits the chunk's entered boxes
-// in order, each gated again against the best t it meets, with slab()'s
-// strict '<'. The supers of pack_scene cover the clusters in ascending
-// runs (first, count), so clusters, and so primitives, are met in index
-// order.
-template <int G, typename Visit>
-__device__ __forceinline__ void in_order(const float* __restrict__ boxes,
-                                         int first, int count, const Ray& r,
-                                         float ix, float iy, float iz, Hit& h,
-                                         const Group<G>& grp, Visit&& visit) {
-  for (int c = first; c < first + count; c += G) {
-    const int b = c + grp.rank;
-    const float e =
-        b < first + count ? box_entry(boxes + 8 * b, r, ix, iy, iz) : kInf;
-    unsigned entered =
-        (__ballot_sync(grp.mask, e < h.t) >> grp.base) & ((1u << G) - 1u);
-    while (entered) {
-      const int k = __ffs(entered) - 1;
-      entered &= entered - 1;
-      const float ek = __shfl_sync(grp.mask, e, grp.base + k);
-      if (ek < h.t) visit(c + k);
-    }
-  }
-}
-
-// One pool, walked by the group in index order: supers -> clusters ->
-// leaves when the scene has them, else every slot, each leaf's slots
-// strided over the group and merged. The groups of a warp then test the
-// same boxes and sweep the same leaves together.
-template <bool kTri, int G>
-__device__ __forceinline__ void group_pool(const RtScene& s, const Ray& r,
-                                           float ddo, float osq, float ix,
-                                           float iy, float iz, Hit& h,
-                                           const Group<G>& grp) {
-  const float* __restrict__ cl = kTri ? s.tri_cl : s.sph_cl;
-  const float* __restrict__ sup = kTri ? s.tri_sup : s.sph_sup;
-  const int n_cl = kTri ? s.n_tri_cl : s.n_sph_cl;
-  const int n_sup = kTri ? s.n_tri_sup : s.n_sph_sup;
-  const int leaf = kTri ? s.tri_leaf : s.sph_leaf;
-  const int n_prim = kTri ? s.n_tri : s.n_sph;
-  // a thread meets its pools' primitives in index order, spheres first
-  // (see in_order), so the strict '<' of the tests keeps the first of a
-  // tie: the key's order
-  auto test = [&](int i) {
-    if (kTri) {
-      triangle_test<true>(s, i, r, h);
-    } else {
-      sphere_test(s, i, r, ddo, osq, h);
-    }
-  };
-  auto leaf_sweep = [&](int c) {
-    for (int i = c * leaf + grp.rank; i < (c + 1) * leaf; i += G) test(i);
-    merge_hits<G>(h, grp.mask);
-  };
-  if (n_sup > 0) {
-    in_order<G>(sup, 0, n_sup, r, ix, iy, iz, h, grp, [&](int g) {
-      const float* box = sup + 8 * g;
-      in_order<G>(cl, static_cast<int>(box[6]), static_cast<int>(box[7]), r,
-                  ix, iy, iz, h, grp, leaf_sweep);
-    });
-  } else if (n_cl > 0) {
-    in_order<G>(cl, 0, n_cl, r, ix, iy, iz, h, grp, leaf_sweep);
-  } else {
-    for (int i = grp.rank; i < n_prim; i += G) test(i);
-    merge_hits<G>(h, grp.mask);
-  }
-}
-
-// K2 for a group: every thread of the group returns the same hit, the
-// plain version's winner (FAST_DIV triangles). A group of one walks alone.
-template <int G>
-__device__ Hit nearest_group(const RtScene& s, const Ray& r,
-                             const Group<G>& grp) {
-  if constexpr (G == 1) {
-    return nearest<true>(s, r);
-  } else {
-    const float ddo = r.dx * r.ox + r.dy * r.oy + r.dz * r.oz;
-    const float osq = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
-    const float ix = safe_inv(r.dx), iy = safe_inv(r.dy),
-                iz = safe_inv(r.dz);
-    Hit h{kInf, 0, 0.0f, 0.0f};
-    group_pool<false, G>(s, r, ddo, osq, ix, iy, iz, h, grp);
-    group_pool<true, G>(s, r, ddo, osq, ix, iy, iz, h, grp);
-    return h;
-  }
+  return nearest<G, true, false>(s, r, grp, unused);
 }
 
 // K3: the winner's centre or normal, colour30, smooth|mat and texture UV
@@ -547,19 +354,22 @@ __global__ void __launch_bounds__(kBlock)
   static_cast<int*>(a.out[8])[i] = w.pb;
 }
 
-// K5 (intersect_pallas.py:60-120): the nearest hit with exact triangle
-// division, the winner's parameters and its decoded material; a miss
-// keeps the sweep's zero carry. kStats also writes the ray's primitive
-// tests, so the plain launch pays nothing for the counters.
-template <bool kStats>
-__global__ void __launch_bounds__(128)
+// K5 (intersect_pallas.py:60-120), G threads a ray: the nearest hit with
+// exact triangle division, the winner's parameters and its decoded
+// material; a miss keeps the sweep's zero carry. kStats also writes the
+// ray's primitive tests, so the plain launch pays nothing for the
+// counters.
+template <int G, bool kStats>
+__global__ void __launch_bounds__(kBlock)
     hit_resolve_kernel(const RtResolveArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (i >= a.n) return;  // whole groups: the G threads share i
   const Ray r{a.o[0][i], a.o[1][i], a.o[2][i],
               a.d[0][i], a.d[1][i], a.d[2][i]};
+  const Group<G> grp = this_group<G>();
   float tests = 0.0f;
-  const Hit h = nearest<false, kStats>(a.scene, r, tests);
+  const Hit h = nearest<G, false, kStats>(a.scene, r, grp, tests);
+  if (grp.rank != 0) return;
   if (kStats) a.stats[i] = tests;
   Winner w = fetch_winner(a.scene, h);
   if (!(h.t < kInf)) w = Winner{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0, 0};
@@ -894,12 +704,29 @@ int launch_mega(const RtMegaArgs& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel instance of (kind, group): kind 0 is K1, 1 rt_nearest_hit.
-// Null for another group.
+template <int G>
+int launch_resolve(const RtResolveArgs& a, cudaStream_t st) {
+  const int blocks = static_cast<int>(
+      (static_cast<long long>(a.n) * G + kBlock - 1) / kBlock);
+  if (a.stats != nullptr) {
+    hit_resolve_kernel<G, true><<<blocks, kBlock, 0, st>>>(a);
+  } else {
+    hit_resolve_kernel<G, false><<<blocks, kBlock, 0, st>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel instance of (kind, group), kind as rt_occupancy's. Null for
+// another group.
 template <int G>
 const void* kernel_ptr(int kind) {
-  return kind ? (const void*)nearest_hit_kernel<G>
-              : (const void*)megakernel<G>;
+  switch (kind) {
+    case 0: return (const void*)megakernel<G>;
+    case 1: return (const void*)nearest_hit_kernel<G>;
+    case 2: return (const void*)hit_resolve_kernel<G, false>;
+    case 3: return rt_blocked_kernel(G);
+    default: return nullptr;
+  }
 }
 
 const void* kernel_of(int kind, int group) {
@@ -928,7 +755,8 @@ int rt_nearest_hit(const RtHitArgs* args, void* stream) {
   }
 }
 
-// Threads of kernel `kind` (0: K1, 1: rt_nearest_hit) at group size
+// Threads of kernel `kind` (0: K1, 1: rt_nearest_hit, 2: K5, 3: K6
+// (wavefront.cu)) at group size
 // `group` that the current device keeps resident at once: the blocks one
 // SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor) times the
 // block's threads times the SMs.
@@ -950,14 +778,14 @@ int rt_occupancy(int kind, int group, int* resident_threads) {
 
 int rt_hit_resolve(const RtResolveArgs* args, void* stream) {
   if (args->n <= 0) return 0;
-  const int blocks = (args->n + 127) / 128;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (args->stats != nullptr) {
-    hit_resolve_kernel<true><<<blocks, 128, 0, st>>>(*args);
-  } else {
-    hit_resolve_kernel<false><<<blocks, 128, 0, st>>>(*args);
+  switch (args->group) {
+    case 1: return launch_resolve<1>(*args, st);
+    case 2: return launch_resolve<2>(*args, st);
+    case 4: return launch_resolve<4>(*args, st);
+    case 8: return launch_resolve<8>(*args, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 int rt_fetch_image(const RtFetchArgs* args, void* stream) {

@@ -3,41 +3,41 @@
 //
 // rt_hit_resolve_blocked replaces K6 of raytracer_tpu,
 //   ops/intersect_pallas.py:150-440  _kernel_blocked (pallas_call :688):
-// the nearest hit of rays over a scene too big for the TPU's SMEM, which
-// streams 4096-sphere / 1024-triangle blocks of the primitive pools into
-// SMEM behind block-union -> super -> cluster gates, popping blocks
-// near-first. Here one CTA (kK6Threads threads, one ray each) does the
-// same with shared memory:
-//   1. each thread takes its ray's entry distance into every block's
-//      sphere and triangle unions; the CTA keeps the minimum per block;
-//   2. it pops blocks in ascending entry distance (lowest index first on
-//      ties) while the smallest remaining entry distance is below the
-//      CTA's largest best t (intersect_pallas.py:386-433);
-//   3. per popped block and pool, a CTA vote (__syncthreads_or) on the
-//      per-thread union gate, with the per-pool guards b < pool_blocks of
-//      visit_block (:240-262), decides whether the CTA copies the pool's
-//      words of that block into shared memory (coalesced float4 loads);
-//   4. each thread whose ray enters the union walks the block's supers ->
-//      clusters -> leaves from shared memory against its running best,
-//      with block-global codes 2 * (b * BLOCK + k) (+1) and a strict '<'
-//      (:323-377).
-// The winner's parameters (centre or normal, colour30, smooth|mat, the
-// texture UV of a triangle) are read from the pools in global memory once
-// at the end, by code. Outputs are raw, as the TPU kernel's: t, code, u,
-// v, n0-2, pa, pb; a miss keeps zeros. Its plain version is
+// the nearest hit of rays over a scene too big for the TPU's SMEM. The TPU
+// kernel streams 4096-sphere / 1024-triangle blocks of the primitive pools
+// from HBM into SMEM behind block-union -> super -> cluster gates, popping
+// blocks near-first per 4096-ray tile. On the H100 nothing needs staging:
+// stress100k's whole blocked layout, about 5 MB with its filler rows,
+// sits in the 50 MB L2. So G threads of a warp share a ray (G = 1, 2, 4 or
+// 8, by the wrapper's rule, ops/intersect_cuda.py blocked_group) and walk
+// the blocks from global memory in index order, b = 0 .. nblocks - 1, with
+// sweep.cuh's walk_pool: block b's sphere union (row 2b of bbox, only if
+// b < sph_blocks: the guards of visit_block, :240-262), then its supers,
+// clusters and leaves; then its triangle union (row 2b + 1, only if
+// b < tri_blocks), the same way. Every gate is per group, against the
+// group's best t, with a strict '<'; a leaf's primitives are strided over
+// the group and merged. Codes are block-global, 2 * (b * BLOCK + k) (+ 1).
+// The leader reads the winner's parameters (centre or normal, colour30,
+// smooth|mat, the texture UV of a triangle) from the pools by code.
+// Outputs are raw, as the TPU kernel's: t, code, u, v, n0-2, pa, pb; a
+// miss keeps zeros. Its plain version is
 // ops/intersect_cuda.py::hit_resolve_blocked_reference, which
-// brute-forces every block and merges the block winners.
+// brute-forces every block and merges the block winners in block order.
 //
-// Differences from the TPU kernel that change only exact ties: a CTA holds
-// kK6Threads rays, not 4096, so its pop order differs (hazard H3), and
-// the gates are per thread, not per tile (a ray that hits a primitive
-// without entering its box cannot win it here).
+// Ties. The walk visits the primitives in the order (block, spheres before
+// triangles, index in the block), the plain version's merge order, so K6
+// returns its winner on exact ties too: a block-0 triangle beats a block-1
+// sphere at the same t (K5's order would pick the sphere). The TPU kernel
+// pops blocks in another order per tile (hazard H3), and gates per tile,
+// not per ray (a ray that hits a primitive without entering its box
+// cannot win it here).
 //
-// What bounds it on an H100: latency of the dependent per-thread walk and
-// the block copies, not device memory: a 100k-sphere scene (2.4 MB of
-// pools) stays in the 50 MB L2, and each entered block costs one 64-72 KB
-// copy from L2 into shared memory. The pool buffer is one 72 KB array
-// reused by the two pools of a block, so three CTAs fit on an SM.
+// What bounds it on an H100: each ray's dependent chain of gate and
+// primitive tests, read from L2, not device-memory bytes. What the design
+// does about it: no copies and no CTA-wide barrier, so a group stops at
+// its own best t and never waits for other rays; the block unions give a
+// gate level above the per-block supers; and G threads a ray cut the
+// chain by about G where the card has threads to spare.
 //
 // rt_lane_randoms is not a TPU kernel: JAX draws the wavefront samplers'
 // randoms in XLA (raytracer_tpu/ops/rng.py:42-101). Per lane it folds the
@@ -79,6 +79,7 @@ struct RtBlockedArgs {
   const float* d[3];  // unit directions
   void* out[9];       // t, code, u, v, n0, n1, n2, pa, pb
   int n;
+  int group;          // threads per ray: 1, 2, 4 or 8
 };
 
 struct RtLaneArgs {
@@ -99,162 +100,41 @@ struct RtTileArgs {
 
 namespace {
 
-constexpr int kK6Threads = 256;
-constexpr int kWarps = kK6Threads / 32;
 constexpr int kSphBlock = 4096;
 constexpr int kTriBlock = 1024;
-constexpr int kSphRows = 4;      // sphere f32 rows the sweep reads
-constexpr int kTriRowsCull = 18;  // triangle rows 0-17: Woop + normal + cull
-constexpr int kTriRowsNoCull = 12;
-constexpr int kPoolFloats = kTriRowsCull * kTriBlock;  // >= 4 * 4096
 constexpr int kTriNrm = 12, kTriUV = 18;
 
-// CTA-wide minimum (kMax: maximum); every thread gets the result.
-template <bool kMax>
-__device__ __forceinline__ float cta_reduce(float v, float* red) {
-  auto op = [](float a, float b) { return kMax ? fmaxf(a, b) : fminf(a, b); };
-  for (int off = 16; off > 0; off >>= 1)
-    v = op(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = op(r, red[w]);
-  __syncthreads();
-  return r;
-}
-
-// Copy ``rows`` rows of ``block`` floats of block b from a pool of
-// ``total`` floats per row into the shared buffer, row-major.
-__device__ __forceinline__ void copy_block(float* __restrict__ dst,
-                                           const float* __restrict__ pool,
-                                           int rows, int block, int b,
-                                           int total) {
-  const int per_row = block / 4;
-  for (int q = threadIdx.x; q < rows * per_row; q += kK6Threads) {
-    const int row = q / per_row;
-    const int col = (q % per_row) * 4;
-    reinterpret_cast<float4*>(dst + row * block)[col / 4] =
-        *reinterpret_cast<const float4*>(pool + row * total +
-                                         b * block + col);
-  }
-}
-
-// One block of one pool from shared memory: supers -> clusters -> leaves,
-// each box gated on this thread's ray and running best.
-template <bool kTri>
-__device__ void walk_block(const RtBlockedArgs& a, const float* pool, int b,
-                           const Ray& r, float ddo, float osq, float ix,
-                           float iy, float iz, Hit& h) {
-  const int ns = kTri ? a.ts_rows : a.ss_rows;
-  const int nc = kTri ? a.tc_rows : a.sc_rows;
-  const int leaf = kTri ? a.tri_leaf : a.sph_leaf;
-  const int block = kTri ? kTriBlock : kSphBlock;
-  const float* __restrict__ sup = (kTri ? a.tri_sup : a.sph_sup) + 8 * b * ns;
-  const float* __restrict__ cl = (kTri ? a.tri_cl : a.sph_cl) + 8 * b * nc;
-  const int base = 2 * b * block;
-  for (int g = 0; g < ns; ++g) {
-    const float* box = sup + 8 * g;
-    if (!slab(box, r, ix, iy, iz, h.t)) continue;
-    const int first = static_cast<int>(box[6]);
-    const int count = static_cast<int>(box[7]);
-    for (int c = first; c < first + count; ++c) {
-      if (!slab(cl + 8 * c, r, ix, iy, iz, h.t)) continue;
-      for (int k = c * leaf; k < (c + 1) * leaf; ++k) {
-        if (kTri) {
-          float t, u, v;
-          if (triangle_t<false>(pool + k, kTriBlock, r, a.has_one_way, t, u,
-                                v) &&
-              t < h.t) {
-            h.t = t;
-            h.code = base + 2 * k + 1;
-            h.bu = u;
-            h.bv = v;
-          }
-        } else {
-          const float t = sphere_t(pool + k, kSphBlock, r, ddo, osq);
-          if (t > kEps && t < h.t) {
-            h.t = t;
-            h.code = base + 2 * k;
-            h.bu = 0.0f;
-            h.bv = 0.0f;
-          }
-        }
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kK6Threads)
+// K6, G threads a ray.
+template <int G>
+__global__ void __launch_bounds__(kBlock)
     hit_resolve_blocked_kernel(const RtBlockedArgs a) {
-  extern __shared__ float4 smem4[];
-  float* pool = reinterpret_cast<float*>(smem4);
-  float* tvec = pool + kPoolFloats;         // per-block entry distance
-  float* red = tvec + a.nblocks;            // kWarps reduction slots
-  int* pick = reinterpret_cast<int*>(red + kWarps);
-
-  const int i = blockIdx.x * kK6Threads + threadIdx.x;
-  const bool live = i < a.n;
-  const Ray r = live ? Ray{a.o[0][i], a.o[1][i], a.o[2][i],
-                           a.d[0][i], a.d[1][i], a.d[2][i]}
-                     : Ray{0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f};
-  const float ddo = r.dx * r.ox + r.dy * r.oy + r.dz * r.oz;
-  const float osq = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
-  const float ix = safe_inv(r.dx), iy = safe_inv(r.dy), iz = safe_inv(r.dz);
-  Hit h{kInf, 0, 0.0f, 0.0f};
-
-  // 1. the CTA's entry distance into each block (real pools only;
-  // intersect_pallas.py:389-403)
-  for (int b = 0; b < a.nblocks; ++b) {
-    float tb = kInf;
-    if (live && b < a.sph_blocks)
-      tb = box_entry(a.bbox + 16 * b, r, ix, iy, iz);
-    if (live && b < a.tri_blocks)
-      tb = fminf(tb, box_entry(a.bbox + 16 * b + 8, r, ix, iy, iz));
-    tb = cta_reduce<false>(tb, red);
-    if (threadIdx.x == 0) tvec[b] = tb;
-  }
-  __syncthreads();
-
+  const int i = (blockIdx.x * blockDim.x + threadIdx.x) / G;
+  if (i >= a.n) return;  // whole groups: the G threads share i
+  const Ray r{a.o[0][i], a.o[1][i], a.o[2][i],
+              a.d[0][i], a.d[1][i], a.d[2][i]};
+  const Group<G> grp = this_group<G>();
+  const Probe q = probe(r);
   const int total_s = a.nblocks * kSphBlock;
   const int total_t = a.nblocks * kTriBlock;
-  const int tri_rows = a.has_one_way ? kTriRowsCull : kTriRowsNoCull;
-  // 2. near-first pops until no remaining block can beat any best t
-  while (true) {
-    const float worst = cta_reduce<true>(live ? h.t : 0.0f, red);
-    if (threadIdx.x == 0) {
-      int bmin = 0;
-      for (int b = 1; b < a.nblocks; ++b)
-        if (tvec[b] < tvec[bmin]) bmin = b;
-      pick[0] = bmin;
+  Hit h{kInf, 0, 0.0f, 0.0f};
+  float unused = 0.0f;
+  for (int b = 0; b < a.nblocks; ++b) {
+    if (b < a.sph_blocks && entry(a.bbox + 16 * b, r, q) < h.t) {
+      const Pool p{a.sphf + b * kSphBlock, total_s,
+                   a.sph_cl + 8 * b * a.sc_rows, a.sph_sup + 8 * b * a.ss_rows,
+                   a.sc_rows, a.ss_rows, kSphBlock, a.sph_leaf,
+                   2 * b * kSphBlock};
+      walk_pool<false, false, false>(p, r, q, false, h, grp, unused);
     }
-    __syncthreads();
-    const int b = pick[0];
-    const float m = tvec[b];
-    __syncthreads();
-    if (!(m < worst)) break;
-
-    // 3. per-pool votes on the union gates, with the pool-filler guards
-    const bool es = live && b < a.sph_blocks &&
-                    slab(a.bbox + 16 * b, r, ix, iy, iz, h.t);
-    const bool et = live && b < a.tri_blocks &&
-                    slab(a.bbox + 16 * b + 8, r, ix, iy, iz, h.t);
-    if (__syncthreads_or(es)) {
-      copy_block(pool, a.sphf, kSphRows, kSphBlock, b, total_s);
-      __syncthreads();
-      // 4. the walk, per thread
-      if (es) walk_block<false>(a, pool, b, r, ddo, osq, ix, iy, iz, h);
-      __syncthreads();
+    if (b < a.tri_blocks && entry(a.bbox + 16 * b + 8, r, q) < h.t) {
+      const Pool p{a.trif + b * kTriBlock, total_t,
+                   a.tri_cl + 8 * b * a.tc_rows, a.tri_sup + 8 * b * a.ts_rows,
+                   a.tc_rows, a.ts_rows, kTriBlock, a.tri_leaf,
+                   2 * b * kTriBlock};
+      walk_pool<true, false, false>(p, r, q, a.has_one_way, h, grp, unused);
     }
-    if (__syncthreads_or(et)) {
-      copy_block(pool, a.trif, tri_rows, kTriBlock, b, total_t);
-      __syncthreads();
-      if (et) walk_block<true>(a, pool, b, r, ddo, osq, ix, iy, iz, h);
-      __syncthreads();
-    }
-    if (threadIdx.x == 0) tvec[b] = kInf;
-    __syncthreads();
   }
-  if (!live) return;
+  if (grp.rank != 0) return;
 
   // the winner's parameters from the pools in global memory
   const bool hit = h.t < kInf;
@@ -291,6 +171,14 @@ __global__ void __launch_bounds__(kK6Threads)
   static_cast<float*>(a.out[6])[i] = n2;
   static_cast<int*>(a.out[7])[i] = pa;
   static_cast<int*>(a.out[8])[i] = pb;
+}
+
+template <int G>
+int launch_blocked(const RtBlockedArgs& a, cudaStream_t st) {
+  const int blocks = static_cast<int>(
+      (static_cast<long long>(a.n) * G + kBlock - 1) / kBlock);
+  hit_resolve_blocked_kernel<G><<<blocks, kBlock, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // -- the lane randoms --------------------------------------------------------
@@ -397,16 +285,26 @@ extern "C" {
 
 int rt_hit_resolve_blocked(const RtBlockedArgs* args, void* stream) {
   if (args->n <= 0) return 0;
-  const size_t smem = sizeof(float) * (kPoolFloats + args->nblocks + kWarps) +
-                      sizeof(int) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      hit_resolve_blocked_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (args->n + kK6Threads - 1) / kK6Threads;
-  hit_resolve_blocked_kernel<<<blocks, kK6Threads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(*args);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (args->group) {
+    case 1: return launch_blocked<1>(*args, st);
+    case 2: return launch_blocked<2>(*args, st);
+    case 4: return launch_blocked<4>(*args, st);
+    case 8: return launch_blocked<8>(*args, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K6's instance at group size `group`, for rt_occupancy (megakernel.cu);
+// null for another group.
+const void* rt_blocked_kernel(int group) {
+  switch (group) {
+    case 1: return (const void*)hit_resolve_blocked_kernel<1>;
+    case 2: return (const void*)hit_resolve_blocked_kernel<2>;
+    case 4: return (const void*)hit_resolve_blocked_kernel<4>;
+    case 8: return (const void*)hit_resolve_blocked_kernel<8>;
+    default: return nullptr;
+  }
 }
 
 int rt_lane_randoms(const RtLaneArgs* args, void* stream) {

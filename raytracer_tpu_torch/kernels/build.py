@@ -119,7 +119,7 @@ class ResolveArgs(ctypes.Structure):
     _fields_ = [("scene", SceneArgs),
                 ("o", ctypes.c_void_p * 3), ("d", ctypes.c_void_p * 3),
                 ("out", ctypes.c_void_p * 12), ("stats", ctypes.c_void_p),
-                ("n", ctypes.c_int)]
+                ("n", ctypes.c_int), ("group", ctypes.c_int)]
 
 
 class BlockedArgs(ctypes.Structure):
@@ -131,7 +131,8 @@ class BlockedArgs(ctypes.Structure):
             "sc_rows", "tc_rows", "ss_rows", "ts_rows", "has_one_way",
             "needs_tri_uv")]
         + [("o", ctypes.c_void_p * 3), ("d", ctypes.c_void_p * 3),
-           ("out", ctypes.c_void_p * 9), ("n", ctypes.c_int)])
+           ("out", ctypes.c_void_p * 9), ("n", ctypes.c_int),
+           ("group", ctypes.c_int)])
 
 
 class LaneArgs(ctypes.Structure):
@@ -234,8 +235,9 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
-# rt_occupancy's kernels: K1 (rt_megakernel) and rt_nearest_hit
-KIND_MEGAKERNEL, KIND_NEAREST = 0, 1
+# rt_occupancy's kernels: K1 (rt_megakernel), rt_nearest_hit, K5
+# (rt_hit_resolve) and K6 (rt_hit_resolve_blocked)
+KIND_MEGAKERNEL, KIND_NEAREST, KIND_RESOLVE, KIND_BLOCKED = 0, 1, 2, 3
 _RESIDENT: dict = {}
 
 

@@ -2,25 +2,35 @@
 
 Port of ``raytracer_tpu/ops/intersect_pallas.py``. The wavefront samplers
 hand a batch of rays to one of two CUDA kernels (csrc/) and resolve the
-shading data with torch ops after it:
+shading data with torch ops after it. Both run the group walk of
+csrc/sweep.cuh that K2 runs: G threads of a warp share a ray (G = 1, 2, 4
+or 8), test a level's boxes G at a time, stride a leaf's primitives over
+the group and merge them, and read the scene from global memory (L2).
+Each is bound by the dependent chain of box and primitive tests of a ray,
+not by bytes; G threads a ray cut that chain where the card has threads
+to spare, and a rule beside the wrapper (``resolve_group``,
+``blocked_group``) picks G from the rays, the arm's resident threads and
+waves fitted by a sweep (scripts/k1_groups.py sweep, PERF.md).
 
-- **K5, ``rt_hit_resolve``** (replaces ``intersect_pallas._kernel``): one
-  thread per ray walks the scene's own cluster arrays (supers -> clusters
-  -> leaves, per-thread gates, index order) with exact triangle division,
-  then loads the winner's parameters and decodes its material id, colour
-  and smoothness. Plain version: ``hit_resolve_reference``. Its
-  ``with_stats`` arm (``hit_resolve_counted``, ``intersection_stats``)
+- **K5, ``rt_hit_resolve``** (replaces ``intersect_pallas._kernel``): the
+  walk over the scene's own cluster arrays (supers -> clusters -> leaves,
+  index order) with exact triangle division, then the winner's
+  parameters, its material id, colour and smoothness decoded. Its winner
+  is the plain version's, ``hit_resolve_reference``, ties included.
+  Its ``with_stats`` arm (``hit_resolve_counted``, ``intersection_stats``)
   also counts each ray's primitive tests, the counterpart of the
-  reference's ``BVH::debug_stats`` (src/objects.cu:534-584); plain
-  version: ``primitive_tests_reference``.
+  reference's ``BVH::debug_stats`` (src/objects.cu:534-584), at every G;
+  plain version: ``primitive_tests_reference``.
 - **K6, ``rt_hit_resolve_blocked``** (replaces ``_kernel_blocked``): for
   scenes past the TPU's SMEM budget (``fits_smem``), the JAX package
   streams 4096-sphere / 1024-triangle blocks into SMEM behind block-union,
-  super and cluster gates. The kernel keeps that design: one CTA per ray
-  tile pops blocks near-first, votes on entry, copies an entered block's
-  pool words into shared memory and walks it per thread. Plain version:
-  ``hit_resolve_blocked_reference``, which brute-forces every block of
-  the same blocked tables and merges the block winners.
+  super and cluster gates. On the card the blocked tables fit in L2, so
+  nothing is staged: the group walks the blocks in index order, each
+  block's sphere union, supers, clusters and leaves, then its triangles'.
+  That visit order (block, spheres before triangles, index) is the merge
+  order of its plain version, ``hit_resolve_blocked_reference``, which
+  brute-forces every block of the same blocked tables and merges the
+  block winners; so K6 returns its winner on exact ties too.
 
 ``blocked_tables`` builds the blocked layout exactly as
 ``_run_kernel_blocked`` does (padded pools, poisoned padding spheres,
@@ -28,13 +38,14 @@ synthesised leaf boxes for clusterless pools, block unions, per-block
 supers, NaN rows for inverted boxes); the tests hold it array-equal to
 what JAX hands its pallas_call. JAX's per-cell static block order
 (``border``/``bgrid``) feeds only its ``RAYTRACER_BLOCK_NEARFIRST=0``
-arm; the port pops near-first, JAX's default, and builds neither.
+arm; the port walks blocks in index order and builds neither.
 
 Both routes share the torch ops around the kernels (padding, direction
 rsqrt, t rescale, the resolve), so a kernel and its plain version see the
 same inputs. A CUDA tensor launches the kernel or raises; the plain
 versions run on CPU tensors, or on any device when ``plain=True`` (how the
-card holds the kernels against them).
+card holds the kernels against them). ``_group`` forces G, for the tests
+and the sweeps.
 """
 
 from __future__ import annotations
@@ -46,9 +57,10 @@ import math
 import torch
 
 from .intersect import HitRecord, ShadeData
-from .sweep import (INF, LANES, S_F32_ROWS, S_I32_ROWS, T_F32_ROWS,
-                    T_I32_ROWS, T_NRM, T_UV, PackedScene, _check_rays,
-                    _sweep_chunk, decode_colour30, decode_smooth_mat,
+from .sweep import (GROUPS, INF, LANES, S_F32_ROWS, S_I32_ROWS,
+                    T_F32_ROWS, T_I32_ROWS, T_NRM, T_UV, PackedScene,
+                    _check_rays, _sweep_chunk, check_group, decode_colour30,
+                    decode_smooth_mat, gate_depth, group_size,
                     nearest_hit_reference, pack, pack_scene, sphere_t,
                     triangle_tuv)
 
@@ -65,6 +77,37 @@ SMEM_BUDGET = 800_000
 LAUNCHES = 0
 STATS_LAUNCHES = 0
 BLOCKED_LAUNCHES = 0
+
+# Waves of resident threads the group rules fill: K5's by the scene's gate
+# depth (``sweep.gate_depth``), K6's one number, since the blocked layout
+# always gates by block unions, supers and clusters. From the measured
+# sweep (scripts/k1_groups.py sweep, PERF.md).
+RESOLVE_WAVES = {0: 1, 1: 4, 2: 64}
+BLOCKED_WAVES = 64
+
+
+def _rule_group(kind: int, n: int, waves: float, group) -> int:
+    check_group(group)
+    if group is not None:
+        return group
+    from ..kernels import build
+    resident = {g: build.resident_threads(kind, g) for g in GROUPS}
+    return group_size(n, resident, waves)
+
+
+def resolve_group(n: int, ps: PackedScene, group=None) -> int:
+    """G for K5 over ``n`` rays of ``ps``: ``group`` when given, else the
+    rule's, ``sweep.group_size`` with RESOLVE_WAVES of the gate depth."""
+    from ..kernels import build
+    return _rule_group(build.KIND_RESOLVE, n,
+                       RESOLVE_WAVES[gate_depth(ps)], group)
+
+
+def blocked_group(n: int, group=None) -> int:
+    """G for K6 over ``n`` rays: ``group`` when given, else the rule's,
+    ``sweep.group_size`` with BLOCKED_WAVES."""
+    from ..kernels import build
+    return _rule_group(build.KIND_BLOCKED, n, BLOCKED_WAVES, group)
 
 
 def smem_bytes(scene) -> int:
@@ -454,16 +497,18 @@ _K5_DTYPES = (_F32, _I32, _F32, _F32, _F32, _F32, _F32, _I32, _F32, _F32,
 _K6_DTYPES = (_F32, _I32, _F32, _F32, _F32, _F32, _F32, _I32, _I32)
 
 
-def _hit_resolve_cuda(ps: PackedScene, o, d, with_stats: bool = False):
-    """Launch K5; with ``with_stats`` its counting arm, whose 13th output
-    is each ray's primitive tests."""
+def _hit_resolve_cuda(ps: PackedScene, o, d, with_stats: bool = False,
+                      group=None):
+    """Launch K5 at G = ``resolve_group``; with ``with_stats`` its counting
+    arm, whose 13th output is each ray's primitive tests."""
     from ..kernels import build
-    outs = _outs(o.shape[1], o.device,
-                 _K5_DTYPES + ((_F32,) if with_stats else ()))
+    n = o.shape[1]
+    outs = _outs(n, o.device, _K5_DTYPES + ((_F32,) if with_stats else ()))
     args = build.ResolveArgs(
         scene=build.scene_args(ps), o=build.ptrs3(o), d=build.ptrs3(d),
         out=(ctypes.c_void_p * 12)(*[x.data_ptr() for x in outs[:12]]),
-        stats=outs[12].data_ptr() if with_stats else None, n=o.shape[1])
+        stats=outs[12].data_ptr() if with_stats else None, n=n,
+        group=resolve_group(n, ps, group))
     lib = build.load()
     rc = lib.rt_hit_resolve(ctypes.byref(args),
                             ctypes.c_void_p(build.stream(o.device)))
@@ -474,9 +519,11 @@ def _hit_resolve_cuda(ps: PackedScene, o, d, with_stats: bool = False):
     return outs
 
 
-def _hit_resolve_blocked_cuda(bt: BlockedTables, o, d):
+def _hit_resolve_blocked_cuda(bt: BlockedTables, o, d, group=None):
+    """Launch K6 at G = ``blocked_group``."""
     from ..kernels import build
-    outs = _outs(o.shape[1], o.device, _K6_DTYPES)
+    n = o.shape[1]
+    outs = _outs(n, o.device, _K6_DTYPES)
     args = build.BlockedArgs(
         *[x.data_ptr() for x in (bt.sphf, bt.sphi, bt.trif, bt.trii,
                                  bt.sph_cl, bt.tri_cl, bt.sph_sup,
@@ -485,7 +532,8 @@ def _hit_resolve_blocked_cuda(bt: BlockedTables, o, d):
         bt.sc_rows, bt.tc_rows, bt.ss_rows, bt.ts_rows,
         int(bt.has_one_way), int(bt.needs_tri_uv),
         build.ptrs3(o), build.ptrs3(d),
-        (ctypes.c_void_p * 9)(*[x.data_ptr() for x in outs]), o.shape[1])
+        (ctypes.c_void_p * 9)(*[x.data_ptr() for x in outs]), n,
+        blocked_group(n, group))
     lib = build.load()
     rc = lib.rt_hit_resolve_blocked(ctypes.byref(args),
                                     ctypes.c_void_p(build.stream(o.device)))
@@ -496,10 +544,12 @@ def _hit_resolve_blocked_cuda(bt: BlockedTables, o, d):
 
 
 def hit_resolve_unit(ws: WaveScene, o: torch.Tensor, d: torch.Tensor,
-                     plain: bool = False):
+                     plain: bool = False, *, _group=None):
     """K5 or K6 (by ``ws.blocked``) on rays with unit directions; the 12
     outputs of K5 (K6's pa/pb decoded after it). CPU tensors, or
-    ``plain=True``, take the plain versions; CUDA tensors launch."""
+    ``plain=True``, take the plain versions; CUDA tensors launch, at the
+    rule's G (``_group`` forces it, for the tests and the sweeps)."""
+    check_group(_group)
     if o.device.type == "cpu" or plain:
         if ws.blocked:
             return _decode(hit_resolve_blocked_reference(ws.tables, o, d))
@@ -507,23 +557,25 @@ def hit_resolve_unit(ws: WaveScene, o: torch.Tensor, d: torch.Tensor,
     if o.device.type != "cuda":
         raise ValueError(f"no hit kernel for device {o.device}")
     if ws.blocked:
-        return _decode(_hit_resolve_blocked_cuda(ws.tables, o, d))
-    return _hit_resolve_cuda(ws.packed, o, d)
+        return _decode(_hit_resolve_blocked_cuda(ws.tables, o, d, _group))
+    return _hit_resolve_cuda(ws.packed, o, d, group=_group)
 
 
 def hit_resolve_counted(ps: PackedScene, o: torch.Tensor, d: torch.Tensor,
-                        plain: bool = False):
+                        plain: bool = False, *, _group=None):
     """K5 with its counters (``with_stats``) on unit-direction rays over
     the resident pools, whatever ``fits_smem`` says: the 12 outputs of K5
     and each ray's primitive tests (float32). CPU tensors, or
     ``plain=True``, take ``hit_resolve_reference`` and
-    ``primitive_tests_reference``; CUDA tensors launch."""
+    ``primitive_tests_reference``; CUDA tensors launch, at the rule's G
+    (``_group`` forces it)."""
+    check_group(_group)
     if o.device.type == "cpu" or plain:
         return hit_resolve_reference(ps, o, d) + [
             primitive_tests_reference(ps, o, d)]
     if o.device.type != "cuda":
         raise ValueError(f"no hit kernel for device {o.device}")
-    return _hit_resolve_cuda(ps, o, d, with_stats=True)
+    return _hit_resolve_cuda(ps, o, d, with_stats=True, group=_group)
 
 
 def _unit_rays(o: torch.Tensor, d: torch.Tensor):

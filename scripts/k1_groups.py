@@ -1,8 +1,12 @@
-"""The megakernel's (K1's) and the nearest hit's (K2's) group sweep, and
-their paths on two trees, timed on one CUDA card.
+"""The group sweeps of the walking kernels (K1 megakernel, K2 nearest hit,
+K5 and K6 wavefront hits), and their paths on two trees, timed on one
+CUDA card.
 
     python scripts/k1_groups.py sweep [--out FILE]
-    python scripts/k1_groups.py paths [--tree DIR] [--label NAME] [--out FILE]
+    python scripts/k1_groups.py paths [--tree DIR] [--label NAME]
+                                      [--set all|k1k2|wavefront] [--out FILE]
+    python scripts/k1_groups.py pairs --parent DIR [--pairs 10]
+                                      [--set wavefront] [--out FILE]
 
 Run from the root of a checkout on a machine with one NVIDIA card. The
 scenes, rays, cameras and timers are chip_smoke.py's.
@@ -18,19 +22,28 @@ pixpack 1, and on small 256x128 frames of scene 4, scene 2 and stress10k
 (pixpack 8: one tile, 4096 lane slots; pixpack 1: 32,768). It times
 ``rt_nearest_hit`` the same way on 65,536 and 1M rays over scene 4
 (chip_smoke.py's phase-3 rays), scene 2 and stress10k (rays inside each
-field), and prints each kernel instance's registers, its resident warps
-per SM and the G each rule picks.
+field); ``rt_hit_resolve`` (K5) on 65,536 and 1M field rays over scenes 4
+and 2 and stress100k's resident pools, and ``rt_hit_resolve_blocked``
+(K6) on 65,536, 262,144 and 1M field rays over stress100k (phases 9 and
+10's rays), each G bitwise with G = 1; and prints each kernel instance's
+registers, its resident warps per SM and the G each rule picks.
+``--set`` limits it to K1 and K2 (k1k2) or K5 and K6 (wavefront).
 
 ``paths`` imports ``raytracer_tpu_torch`` from DIR (default: this
-checkout) and times what chip_smoke.py's phases 3, 6, 7, 13 and 14c time
-of K1 and K2, through the entry points a user calls: ``rt_nearest_hit`` on
-1M rays over scene 4; the scene-4 and scene-2 1000x800, 20 spp paths
-through ``Renderer`` (5 frames after a warm-up, and one kernel frame);
-one frame of each bench scene; the 4K fly-through (16 moves, each followed
-by a frame, one final sync); the coherent scene-4 and stress10k paths.
-Run it once per tree in separate processes, in turns (parent, change,
-change, parent), to compare two trees on one card: ``chip_smoke.py
---parent DIR`` does that.
+checkout) and times, through the entry points a user calls, what
+chip_smoke.py's phases 3, 6, 7, 13 and 14c time of K1 and K2 (k1k2):
+``rt_nearest_hit`` on 1M rays over scene 4; the scene-4 and scene-2
+1000x800, 20 spp paths through ``Renderer`` (5 frames after a warm-up,
+and one kernel frame); one frame of each bench scene; the 4K fly-through
+(16 moves, each followed by a frame, one final sync); the coherent
+scene-4 and stress10k paths; and what phases 9, 10 and 12 time of K5 and
+K6 (wavefront): K5 on phase 9's 1M rays over scene 4, K6 and K5 on phase
+10's 1M stress100k field rays, and the scene-4 (20 spp) and stress100k
+(4 spp) regen paths through ``Renderer`` at 1000x800 (5 frames after a
+warm-up). Run it once per tree in separate processes, in turns, to
+compare two trees on one card: ``pairs`` does that (``chip_smoke.py
+--parent DIR`` runs two pairs of every path), printing each path's values,
+medians and interquartile ranges and the pairs the change won.
 
 Each measurement is one JSON line on stdout, also appended to FILE when
 ``--out`` names one.
@@ -97,13 +110,11 @@ def in_turns(variants, run, repeats: int) -> dict:
     return times
 
 
-def sweep(dev) -> None:
+def sweep(dev, which: str) -> None:
     import torch
 
-    import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.kernels import build
-    from raytracer_tpu_torch.ops import megakernel as mk
-    from raytracer_tpu_torch.ops import rng, sweep as sw
+    from raytracer_tpu_torch.ops import sweep as sw
     t0 = time.perf_counter()
     build.build()
     build.load()
@@ -112,10 +123,19 @@ def sweep(dev) -> None:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     emit({"what": "resident_warps_per_sm", "sms": sms, **{
         name: {g: build.resident_threads(kind, g) // 32 // sms
-               for g in sw.GROUPS}
-        for kind, name in ((build.KIND_MEGAKERNEL, "rt_megakernel"),
-                           (build.KIND_NEAREST, "rt_nearest_hit"))}})
+               for g in sw.GROUPS} for name, kind in cs.ARM_KINDS}})
+    if which != "wavefront":
+        sweep_k1k2(dev)
+    if which != "k1k2":
+        sweep_wavefront(dev)
 
+
+def sweep_k1k2(dev) -> None:
+    import torch
+
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.ops import megakernel as mk
+    from raytracer_tpu_torch.ops import rng, sweep as sw
     for name, (scene, sky), width, height, spp, pos, reps, pixpack in \
             sweep_frames(rtt):
         ms = mk.MegaScene(scene.to(dev))
@@ -163,17 +183,97 @@ def sweep(dev) -> None:
                   "card": cs.card_line()})
 
 
-def paths(dev, label: str) -> None:
+def sweep_wavefront(dev) -> None:
+    """K5 and K6 at every G on phases 9 and 10's rays, in turns."""
     import torch
 
     import raytracer_tpu_torch as rtt
-    from raytracer_tpu_torch.ops import megakernel as mk
-    from raytracer_tpu_torch.ops import rng, sweep as sw
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    from raytracer_tpu_torch.ops import sweep as sw
+    big = cs.stress_scene(100000)[0].to(dev)
+    cases = [("k5", name, ic.WaveScene(scene.to(dev), blocked=False), seed)
+             for name, scene, seed in (
+                 ("scene4", rtt.build_scene(4, seed=0)[0], 11),
+                 ("scene2", rtt.build_scene(2)[0], 9),
+                 ("stress100k", big, 12))]
+    cases.append(("k6", "stress100k", ic.WaveScene(big), 12))
+    for kernel, name, ws, seed in cases:
+        sizes = (1 << 16, 1 << 18, 1 << 20) if kernel == "k6" else \
+            (1 << 16, 1 << 20)
+        for n in sizes:
+            o, d = cs.field_rays(dev, n, seed, ws.scene)
+            outs = {g: ic.hit_resolve_unit(ws, o, d, _group=g)
+                    for g in sw.GROUPS}
+            times = in_turns(sw.GROUPS, lambda g: ic.hit_resolve_unit(
+                ws, o, d, _group=g), 3 if name == "stress100k" else 10)
+            rule = ic.blocked_group(n) if ws.blocked else \
+                ic.resolve_group(n, ws.packed)
+            emit({"what": f"{kernel}_sweep", "scene": name, "rays": n,
+                  "gate_depth": 3 if ws.blocked else sw.gate_depth(
+                      ws.packed),
+                  "rule_group": rule, "ms": times,
+                  "ms_mean": {g: float(np.mean(t)) for g, t in times.items()},
+                  "bitwise_vs_g1": {g: all(bool(torch.equal(a, b)) for a, b
+                                           in zip(x, outs[1]))
+                                    for g, x in outs.items()},
+                  "card": cs.card_line()})
+
+
+def paths(dev, label: str, which: str) -> None:
     card = cs.card_line()
 
     def emit_path(phase, path, **rec):
         emit({"what": "k1_path", "tree": label, "phase": phase,
               "path": path, **rec, "card": card})
+    if which != "wavefront":
+        paths_k1k2(dev, emit_path)
+    if which != "k1k2":
+        paths_wavefront(dev, emit_path)
+
+
+def paths_wavefront(dev, emit_path) -> None:
+    import torch
+
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    scene, _ = rtt.build_scene(4, seed=0, device=dev)
+    ws = ic.WaveScene(scene)
+    o, d = cs.field_rays(dev, 1 << 20, 11, scene)
+    ic.hit_resolve_unit(ws, o, d)
+    emit_path("9", "rt_hit_resolve_1M_scene4",
+              ms=cs.cuda_ms(lambda: ic.hit_resolve_unit(ws, o, d), 10))
+    big = cs.stress_scene(100000)[0].to(dev)
+    o, d = cs.field_rays(dev, 1 << 20, 12, big)
+    for path, ws in (("rt_hit_resolve_blocked_1M_stress100k",
+                      ic.WaveScene(big)),
+                     ("rt_hit_resolve_1M_stress100k",
+                      ic.WaveScene(big, blocked=False))):
+        ic.hit_resolve_unit(ws, o, d)
+        emit_path("10", path,
+                  ms=cs.cuda_ms(lambda: ic.hit_resolve_unit(ws, o, d), 3))
+    for path, (scene, sky), spp, pos in (
+            ("scene4_regen", rtt.build_scene(4, seed=0), 20,
+             (0.0, 0.0, 0.0)),
+            ("stress100k_regen", cs.stress_scene(100000), 4,
+             (0.0, 1.0, -4.0))):
+        s = rtt.RenderSettings(rays_per_pixel=spp, reflect_limit=5,
+                               antialias=True, sampler="regen").with_sky(sky)
+        r = rtt.Renderer(scene, rtt.CameraConfig(width=1000, height=800,
+                                                 position=pos),
+                         s, seed=0, device=dev)
+        r.render_frame(block=True)
+        stat = r.render_frames(5)
+        emit_path("12", path, frame_ms=stat["frame_ms"] / stat["frames"],
+                  mrays_per_sec=stat["mrays_per_sec"],
+                  finite=bool(torch.isfinite(r.accum).all()))
+
+
+def paths_k1k2(dev, emit_path) -> None:
+    import torch
+
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.ops import megakernel as mk
+    from raytracer_tpu_torch.ops import rng, sweep as sw
 
     scene, _ = rtt.build_scene(4, seed=0, device=dev)
     ps = sw.pack(scene)
@@ -235,17 +335,34 @@ def paths(dev, label: str) -> None:
                   finite=bool(torch.isfinite(r.accum).all()))
 
 
+def pairs(parent: str, n: int, which: str) -> None:
+    turns = cs.phase_parent_turns(parent, pairs=n, which=which)
+    for path, row in turns.items():
+        emit({"what": "pairs", "path": path, **row,
+              "card": cs.card_line()})
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("mode", choices=("sweep", "paths"))
+    p.add_argument("mode", choices=("sweep", "paths", "pairs"))
     p.add_argument("--tree", default=str(ROOT),
                    help="checkout to import raytracer_tpu_torch from")
     p.add_argument("--label", default="change")
+    p.add_argument("--set", dest="which", default="all",
+                   choices=("all", "k1k2", "wavefront"),
+                   help="which kernels' sweeps or paths")
+    p.add_argument("--parent", help="pairs: the earlier tree (git archive)")
+    p.add_argument("--pairs", type=int, default=10)
     p.add_argument("--out", type=pathlib.Path,
                    help="also append the JSON lines to this file")
     a = p.parse_args()
     global OUT
     OUT = a.out
+    if a.mode == "pairs":
+        if a.parent is None:
+            p.error("pairs needs --parent")
+        pairs(a.parent, a.pairs, a.which)
+        return 0
     sys.path.insert(0, str(pathlib.Path(a.tree).resolve()))
     import torch
     if not torch.cuda.is_available():
@@ -254,9 +371,9 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     if a.mode == "sweep":
-        sweep(dev)
+        sweep(dev, a.which)
     else:
-        paths(dev, a.label)
+        paths(dev, a.label, a.which)
     return 0
 
 

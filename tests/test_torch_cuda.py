@@ -10,10 +10,11 @@ float32 operations in the same order (the kernels are built without FMA
 contraction) and draw the same hash bits, so they are held tightly: a
 pixel may differ only where a path runs another way, which the per-thread
 cluster gate could cause for a ray that hits a primitive without entering
-its padded box. The megakernel and rt_nearest_hit are held bitwise at
-every group size G (``GROUP_CASES``: the rule's G and each forced G), on
-scenes 4 and 2, stress10k tiles and the exact-tie scene of
-test_torch_tie_scene.py.
+its padded box. The megakernel, rt_nearest_hit and the wavefront hit
+kernels K5 and K6 are held bitwise at every group size G
+(``GROUP_CASES``: the rule's G and each forced G), on scenes 4 and 2,
+stress10k tiles, a two-block field and the exact-tie scenes of
+test_torch_tie_scene.py (K6 on its blocked variant).
 """
 
 import dataclasses
@@ -342,68 +343,104 @@ def test_tile_randoms_kernel_matches_plain(dev):
         assert (tile1[:, 0] != tile0[:, 0]).all()
 
 
-def _k5_k6_agree(got, want, code_mismatch_max=1e-4):
-    same = got[1] == want[1]
-    assert float((~same).float().mean()) <= code_mismatch_max
-    t_g, t_w = got[0][same], want[0][same]
-    assert float(((t_g - t_w).abs() / t_w.abs().clamp(min=1.0)).max()) \
-        <= 1e-5
-    for a, b in zip(got[2:], want[2:]):
-        assert torch.equal(a[same], b[same])
+def _bitwise(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
 
 
-def test_hit_resolve_kernel_matches_plain(dev):
-    """K5 (rt_hit_resolve) against its plain version on scene 4 and on a
-    textured triangle scene."""
+@pytest.mark.parametrize("group", GROUP_CASES)
+def test_hit_resolve_kernel_matches_plain(dev, group):
+    """K5 (rt_hit_resolve) bitwise with its plain version on scene 4 and
+    on a textured triangle scene, at every G."""
     from raytracer_tpu_torch.ops import intersect_cuda as ic
     for scene in (rtt.build_scene(4, seed=0, device=dev)[0],
                   _field_scene(dev, n_sph=300)):
         ws = ic.WaveScene(scene, blocked=False)
         o, d = _field_rays(dev, 1 << 15)
         before = ic.LAUNCHES
-        got = ic.hit_resolve_unit(ws, o, d)
+        got = ic.hit_resolve_unit(ws, o, d, _group=group)
         torch.cuda.synchronize()
         assert ic.LAUNCHES == before + 1
-        _k5_k6_agree(got, ic.hit_resolve_unit(ws, o, d, plain=True))
+        _bitwise(got, ic.hit_resolve_unit(ws, o, d, plain=True))
 
 
-def test_counting_hit_resolve_matches_plain(dev):
-    """K5's with_stats arm: its 12 outputs as the plain K5's, and every
-    ray's primitive-test count equal to the plain walk's, on scene 4 and
-    on a field of spheres with supers and textured triangles."""
+@pytest.mark.parametrize("group", GROUP_CASES)
+def test_counting_hit_resolve_matches_plain(dev, group):
+    """K5's with_stats arm at every G: its 12 outputs bitwise the plain
+    K5's, and every ray's primitive-test count equal to the plain walk's
+    (primitive_tests_reference), on scene 4 and on a field of spheres with
+    supers and textured triangles."""
     from raytracer_tpu_torch.ops import intersect_cuda as ic
     for scene in (rtt.build_scene(4, seed=0, device=dev)[0],
                   _field_scene(dev, n_sph=3000)):
         ps = tsweep.pack(scene)
         o, d = _field_rays(dev, 1 << 15)
         before = (ic.LAUNCHES, ic.STATS_LAUNCHES)
-        got = ic.hit_resolve_counted(ps, o, d)
+        got = ic.hit_resolve_counted(ps, o, d, _group=group)
         torch.cuda.synchronize()
         assert (ic.LAUNCHES, ic.STATS_LAUNCHES) == (before[0] + 1,
                                                     before[1] + 1)
-        want = ic.hit_resolve_counted(ps, o, d, plain=True)
-        _k5_k6_agree(got[:12], want[:12])
-        assert torch.equal(got[12], want[12])
+        _bitwise(got, ic.hit_resolve_counted(ps, o, d, plain=True))
         assert float(got[12].mean()) < scene.num_spheres + \
             scene.num_triangles
 
 
-def test_hit_resolve_blocked_kernel_matches_plain(dev):
-    """K6 (rt_hit_resolve_blocked) against plain K6 on two sphere blocks,
-    and against K5 on the same rays: only exact ties may differ."""
+@pytest.mark.parametrize("group", GROUP_CASES)
+def test_hit_resolve_kernel_exact_ties(dev, group):
+    """K5 on the exact-tie scene at every G: the plain K5's winner, the
+    sphere over the triangle and the lower index of two equal spheres."""
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    scene, ab = _tie_scene(dev)
+    ws = ic.WaveScene(scene, blocked=False)
+    o, d = (torch.as_tensor(x, device=dev) for x in tie_scene.rays())
+    got = ic.hit_resolve_unit(ws, o, d, _group=group)
+    _bitwise(got, ic.hit_resolve_unit(ws, o, d, plain=True))
+    n = tie_scene.N_AXIS
+    assert bool((got[1][n:2 * n] == 2 * min(ab)).all())
+    assert bool(((got[1] & 1)[:n] == 0).all())
+
+
+@pytest.mark.parametrize("group", GROUP_CASES)
+def test_hit_resolve_blocked_kernel_matches_plain(dev, group):
+    """K6 (rt_hit_resolve_blocked) bitwise with plain K6 on two sphere
+    blocks, at every G, and against K5 on the same rays: only exact ties
+    may differ."""
     from raytracer_tpu_torch.ops import intersect_cuda as ic
     scene = _field_scene(dev)
     wb = ic.WaveScene(scene, blocked=True)
     assert wb.tables.nblocks == 2
     o, d = _field_rays(dev, 1 << 15)
     before = ic.BLOCKED_LAUNCHES
-    got = ic.hit_resolve_unit(wb, o, d)
+    got = ic.hit_resolve_unit(wb, o, d, _group=group)
     torch.cuda.synchronize()
     assert ic.BLOCKED_LAUNCHES == before + 1
-    _k5_k6_agree(got, ic.hit_resolve_unit(wb, o, d, plain=True))
+    _bitwise(got, ic.hit_resolve_unit(wb, o, d, plain=True))
     k5 = ic.hit_resolve_unit(ic.WaveScene(scene, blocked=False), o, d)
     differ = got[1] != k5[1]
     assert torch.equal(got[0][differ], k5[0][differ])
+
+
+@pytest.mark.parametrize("group", GROUP_CASES)
+def test_hit_resolve_blocked_kernel_exact_ties(dev, group):
+    """K6 on the blocked variant of the exact-tie scene (two sphere
+    blocks) at every G: the plain K6's winner in its visit order (block,
+    spheres before triangles, index): P over T, the block-0 triangle T_Q
+    over the block-1 sphere Q, A over its copy B."""
+    from raytracer_tpu_torch.models.materials import Material as TMaterial
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    scene = tie_scene.blocked_variant(
+        tie_scene.build_blocked(SceneBuilder(), TMaterial.default()),
+        torch.as_tensor)
+    wb = ic.WaveScene(scene.to(dev), blocked=True)
+    o, d = (torch.as_tensor(x, device=dev) for x in tie_scene.blocked_rays())
+    got = ic.hit_resolve_unit(wb, o, d, _group=group)
+    _bitwise(got, ic.hit_resolve_unit(wb, o, d, plain=True))
+    n = tie_scene.N_AXIS
+    want = torch.as_tensor(tie_scene.blocked_axis_codes(scene), device=dev)
+    assert torch.equal(got[1][:3 * n], want.to(torch.int32))
+    assert not bool((got[1] == 2 * tie_scene.BLOCKED_SLOTS["b"]).any())
 
 
 @pytest.mark.parametrize("sampler", ["regen", "scan", "rebin", "lanesort"])

@@ -291,8 +291,10 @@ def test_wrappers_check_inputs_and_count_nothing_on_cpu():
 def test_wavefront_kernel_sources_and_binding_without_nvcc(tmp_path,
                                                            monkeypatch):
     """The new entry points exist, their ctypes argument structs match the
-    C structs field by field, and every header a source includes is part
-    of the library's hash (a changed header rebuilds the library)."""
+    C structs field by field (K5 and K6 end with the group size), K6 has
+    no shared memory and no CTA barrier, and every header a source
+    includes is part of the library's hash (a changed header rebuilds the
+    library)."""
     import re
     import shutil
 
@@ -312,6 +314,11 @@ def test_wavefront_kernel_sources_and_binding_without_nvcc(tmp_path,
                              ("wavefront.cu", "RtLaneArgs", build.LaneArgs)):
         assert _c_struct_fields(srcs[name], c_name) == [
             f[0] for f in py._fields_]
+    for py in (build.ResolveArgs, build.BlockedArgs):
+        assert [f[0] for f in py._fields_][-2:] == ["n", "group"]
+    for word in ("__shared__", "__syncthreads", "cudaFuncSetAttribute"):
+        assert word not in srcs["wavefront.cu"]
+    assert "template <int G>" in srcs["wavefront.cu"]
     included = {h for src in srcs.values()
                 for h in re.findall(r'#include "([^"]+)"', src)}
     assert included

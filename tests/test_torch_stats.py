@@ -175,7 +175,8 @@ def test_stats_raise_past_fits_smem():
 
 def test_resolve_args_binding_without_nvcc():
     """The ctypes ResolveArgs struct matches RtResolveArgs field by field,
-    the stats pointer included."""
+    the stats pointer and the group size included, and the counting arm
+    is a template argument of every group instance."""
     from raytracer_tpu_torch.kernels import build
     src = (pathlib.Path(ic.__file__).resolve().parents[1] / "csrc" /
            "megakernel.cu").read_text()
@@ -184,4 +185,6 @@ def test_resolve_args_binding_without_nvcc():
     names = [re.sub(r"\[\d+\]", "", d.split()[-1].lstrip("*"))
              for d in body.split(";") if d.strip()]
     assert names == [f[0] for f in build.ResolveArgs._fields_]
-    assert "template <bool kStats>" in src
+    assert names[-2:] == ["n", "group"]
+    assert "template <int G, bool kStats>" in src
+    assert "hit_resolve_kernel<G, true>" in src

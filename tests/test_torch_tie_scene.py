@@ -14,6 +14,15 @@ along +z through (3, 0) (A and B tie), and rays from all around aimed at
 A (A and B tie; the two clusters are entered in either order). Every tie
 has one winner in the order (t, is_triangle, primitive index): the sphere
 over the triangle, the lower index of A and B.
+
+The blocked variant (``build_blocked``, ``into_blocks``) is the same
+scene over 4,500 random spheres, so that the blocked layout of the
+wavefront kernel K6 holds two 4096-sphere blocks, with a third sphere Q at
+(-3, 0, 5) touching a second triangle T_Q in the plane z = 4. P and A go
+into sphere block 0, Q and B into block 1. There a tie has one winner in
+K6's visit order (block, spheres before triangles, index in the block):
+P over T, A over B, and T_Q (triangle block 0) over Q (sphere block 1),
+where the order (t, is_triangle, index) would pick Q.
 """
 
 import dataclasses
@@ -26,6 +35,13 @@ A_CENTRE = (3.0, 0.0, 5.0)
 TRIANGLE = ((-0.5, -0.5, 4.0), (1.5, -0.5, 4.0), (-0.5, 1.5, 4.0))
 N_AXIS = 16      # axis rays per tie, from z = 0, -1, ..., -15
 N_AIMED = 4096
+# the blocked variant
+Q_CENTRE = (-3.0, 0.0, 5.0)
+TRIANGLE_Q = ((-3.5, -0.5, 4.0), (-1.5, -0.5, 4.0), (-3.5, 1.5, 4.0))
+N_FIELD_BLOCKED = 4500
+SPH_BLOCK = 4096
+# where into_blocks puts P, A, Q and B (the copy of A)
+BLOCKED_SLOTS = {"p": 10, "a": 20, "q": SPH_BLOCK + 10, "b": SPH_BLOCK + 20}
 
 
 def build(builder, material) -> object:
@@ -42,6 +58,49 @@ def build(builder, material) -> object:
     return builder.build()
 
 
+def build_blocked(builder, material) -> object:
+    """The blocked variant through a SceneBuilder instance and a default
+    material, before ``into_blocks``."""
+    g = np.random.default_rng(23)
+    n = N_FIELD_BLOCKED
+    centres = np.column_stack([g.uniform(-20, 20, n), g.uniform(6, 20, n),
+                               g.uniform(0, 40, n)])
+    builder.add_spheres(centres, g.uniform(0.2, 0.5, n), material)
+    for c in (P_CENTRE, A_CENTRE, Q_CENTRE):
+        builder.add_sphere(c, 1.0, material)
+    builder.add_triangle(*TRIANGLE, material)
+    builder.add_triangle(*TRIANGLE_Q, material)
+    return builder.build()
+
+
+def _slot(centre: np.ndarray, c) -> int:
+    return int(np.flatnonzero((centre == np.float32(c)).all(axis=1))[0])
+
+
+def _grow(clusters: np.ndarray, cl: int, c: np.ndarray, r) -> None:
+    pad = np.float32(1e-3)
+    clusters[cl, :3] = np.minimum(clusters[cl, :3], c - r - pad)
+    clusters[cl, 3:6] = np.maximum(clusters[cl, 3:6], c + r + pad)
+
+
+def into_blocks(centre: np.ndarray, radius: np.ndarray,
+                clusters: np.ndarray, leaf: int):
+    """Move P, A and Q of the blocked variant to their BLOCKED_SLOTS and
+    copy A to B's, growing each target cluster's box around it; the slots
+    they leave get radius 0 (never hit). Takes and returns numpy copies of
+    sph_center, sph_radius and sph_clusters."""
+    centre, radius, clusters = centre.copy(), radius.copy(), clusters.copy()
+    src = {k: _slot(centre, c) for k, c in
+           (("p", P_CENTRE), ("a", A_CENTRE), ("q", Q_CENTRE))}
+    src["b"] = src["a"]
+    moved = {k: (centre[v].copy(), radius[v]) for k, v in src.items()}
+    radius[list(src.values())] = 0.0
+    for k, dst in BLOCKED_SLOTS.items():
+        centre[dst], radius[dst] = moved[k]
+        _grow(clusters, dst // leaf, *moved[k])
+    return centre, radius, clusters
+
+
 def duplicate_a(centre: np.ndarray, radius: np.ndarray,
                 clusters: np.ndarray, leaf: int):
     """Copy sphere A over the first slot of the next cluster (B) and grow
@@ -49,29 +108,51 @@ def duplicate_a(centre: np.ndarray, radius: np.ndarray,
     scene's sph_center (S, 3), sph_radius (S,) and sph_clusters (C, 8);
     also returns (a, b), the two slots."""
     centre, radius, clusters = centre.copy(), radius.copy(), clusters.copy()
-
-    def slot(c):
-        return int(np.flatnonzero((centre == np.float32(c)).all(axis=1))[0])
-    a, p = slot(A_CENTRE), slot(P_CENTRE)
+    a, p = _slot(centre, A_CENTRE), _slot(centre, P_CENTRE)
     assert clusters.shape[0] > 1, "the sphere pool must be clustered"
     cb = (a // leaf + 1) % clusters.shape[0]
     b = int(clusters[cb, 6])
     b = b + 1 if b == p else b
     centre[b], radius[b] = centre[a], radius[a]
-    pad = np.float32(1e-3)
-    clusters[cb, :3] = np.minimum(clusters[cb, :3],
-                                  centre[a] - radius[a] - pad)
-    clusters[cb, 3:6] = np.maximum(clusters[cb, 3:6],
-                                   centre[a] + radius[a] + pad)
+    _grow(clusters, cb, centre[a], radius[a])
     return centre, radius, clusters, (a, b)
 
 
-def rays():
-    """(o, d) float32 (3, N) unit rays: the axis rays through P and T, the
-    axis rays through A, then N_AIMED rays aimed at A."""
+def blocked_variant(scene, as_array):
+    """``into_blocks`` applied to a built blocked variant of either package
+    (``as_array``: torch.as_tensor or jnp.asarray)."""
+    c, r, cl = into_blocks(np.asarray(scene.sph_center),
+                           np.asarray(scene.sph_radius),
+                           np.asarray(scene.sph_clusters),
+                           int(scene.sph_leaf))
+    return dataclasses.replace(scene, sph_center=as_array(c),
+                               sph_radius=as_array(r),
+                               sph_clusters=as_array(cl))
+
+
+def blocked_rays():
+    """The blocked variant's rays: the axis rays through P, Q and A, then
+    the rays aimed at A."""
+    return rays((P_CENTRE, Q_CENTRE, A_CENTRE))
+
+
+def blocked_axis_codes(scene) -> np.ndarray:
+    """K6's winner codes on the axis rays of ``blocked_rays`` over
+    ``blocked_variant``: P, then T_Q, then A (block-global codes)."""
+    tq = _slot(np.asarray(scene.tri_v0), TRIANGLE_Q[0])
+    n = N_AXIS
+    return np.concatenate([np.full(n, 2 * BLOCKED_SLOTS["p"]),
+                           np.full(n, 2 * tq + 1),
+                           np.full(n, 2 * BLOCKED_SLOTS["a"])])
+
+
+def rays(centres=(P_CENTRE, A_CENTRE)):
+    """(o, d) float32 (3, N) unit rays: N_AXIS axis rays along +z through
+    each of ``centres`` (P and T, then A, by default; the blocked variant
+    adds Q and T_Q), then N_AIMED rays aimed at A."""
     k = np.arange(N_AXIS, dtype=np.float32)
-    axis_p = np.stack([np.zeros_like(k), np.zeros_like(k), -k])
-    axis_a = np.stack([np.full_like(k, 3.0), np.zeros_like(k), -k])
+    axes = [np.stack([np.full_like(k, c[0]), np.full_like(k, c[1]), -k])
+            for c in centres]
     g = np.random.default_rng(22)
     u = g.standard_normal((3, N_AIMED))
     u /= np.linalg.norm(u, axis=0, keepdims=True)
@@ -80,8 +161,9 @@ def rays():
     target = a + g.uniform(-0.7, 0.7, (3, N_AIMED))
     d_aim = target - o_aim
     d_aim /= np.linalg.norm(d_aim, axis=0, keepdims=True)
-    axis_d = np.tile(np.array([[0.0], [0.0], [1.0]]), (1, 2 * N_AXIS))
-    o = np.concatenate([axis_p, axis_a, o_aim], axis=1).astype(np.float32)
+    axis_d = np.tile(np.array([[0.0], [0.0], [1.0]]),
+                     (1, len(centres) * N_AXIS))
+    o = np.concatenate(axes + [o_aim], axis=1).astype(np.float32)
     d = np.concatenate([axis_d, d_aim], axis=1).astype(np.float32)
     d /= np.linalg.norm(d, axis=0, keepdims=True)
     return o, d
@@ -114,3 +196,34 @@ def test_tie_scene_has_exact_ties():
     assert a // ps.sph_leaf != b // ps.sph_leaf
     aimed = st[2 * n:, a] < tsweep.INF
     assert 0.5 < float(aimed.float().mean()) < 1.0
+
+
+def test_blocked_tie_scene_has_exact_ties():
+    """The blocked variant lays out as two sphere blocks with P and A in
+    block 0, Q and B in block 1, and its axis rays tie exactly (exact
+    division, K6's): P with T, Q with T_Q, A with B."""
+    from raytracer_tpu_torch.models.materials import Material
+    from raytracer_tpu_torch.models.scene import SceneBuilder
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    from raytracer_tpu_torch.ops import sweep as tsweep
+    ts = blocked_variant(build_blocked(SceneBuilder(), Material.default()),
+                         torch.as_tensor)
+    bt = ic.blocked_tables(ts)
+    assert (bt.nblocks, bt.sph_blocks, bt.tri_blocks) == (2, 2, 1)
+    slots = BLOCKED_SLOTS
+    assert [v // SPH_BLOCK for v in slots.values()] == [0, 0, 1, 1]
+    o, d = (torch.from_numpy(x) for x in blocked_rays())
+    cols = [x[:, None] for x in (*o, *d)]
+    st = tsweep.sphere_t(bt.sphf, *cols)
+    tt = tsweep.triangle_tuv(bt.trif, bt.has_one_way, *cols,
+                             fast_div=False)[0]
+    tq = _slot(ts.tri_v0.numpy(), TRIANGLE_Q[0])
+    tp = _slot(ts.tri_v0.numpy(), TRIANGLE[0])
+    n = N_AXIS
+    for rows, s_slot, t_tie in ((slice(0, n), slots["p"], tt[:, tp]),
+                                (slice(n, 2 * n), slots["q"], tt[:, tq]),
+                                (slice(2 * n, 3 * n), slots["a"],
+                                 st[:, slots["b"]])):
+        assert torch.equal(st[rows, s_slot], t_tie[rows])
+        assert bool((t_tie[rows] < tsweep.INF).all())
+        assert torch.equal(st[rows].min(dim=1).values, t_tie[rows])

@@ -11,8 +11,15 @@ ties (tests/test_torch_tie_scene.py): a sphere and a triangle at the same
 t, and two identical spheres in different clusters. The card tests
 (test_torch_cuda.py) hold the kernel to the same winners at every G.
 
+The wavefront kernel K6 visits its blocked layout in the order (block,
+spheres before triangles, index in the block), and its plain version
+merges the block winners in that order; on the blocked variant of the tie
+scene that order picks a block-0 triangle over a block-1 sphere at the same
+t, where the order above (and JAX's oracle) picks the sphere.
+
 Then the rules that pick G (``sweep.group_size`` with the megakernel's
-``MEGA_WAVES`` and rt_nearest_hit's ``NEAREST_WAVES``) as plain functions.
+``MEGA_WAVES``, rt_nearest_hit's ``NEAREST_WAVES`` and the wavefront
+kernels' ``RESOLVE_WAVES`` and ``BLOCKED_WAVES``) as plain functions.
 """
 
 import dataclasses
@@ -28,6 +35,7 @@ from raytracer_tpu.models.materials import Material as JMaterial
 from raytracer_tpu.ops import intersect as jint
 from raytracer_tpu_torch.models import scene as tscene
 from raytracer_tpu_torch.models.materials import Material as TMaterial
+from raytracer_tpu_torch.ops import intersect_cuda as tic
 from raytracer_tpu_torch.ops import megakernel as tmk
 from raytracer_tpu_torch.ops import sweep as tsweep
 
@@ -38,6 +46,11 @@ torch.set_num_threads(2)
 # rt_nearest_hit (48 warps an SM at G = 1, 36 above)
 MEGA_RESIDENT = {g: 132 * 7 * 128 for g in tsweep.GROUPS}
 NEAREST_RESIDENT = {g: 132 * (48 if g == 1 else 36) * 32
+                    for g in tsweep.GROUPS}
+# ... and of K5 (rt_hit_resolve: as rt_nearest_hit) and K6
+# (rt_hit_resolve_blocked: 40 warps an SM at G = 1, 32 above)
+RESOLVE_RESIDENT = NEAREST_RESIDENT
+BLOCKED_RESIDENT = {g: 132 * (40 if g == 1 else 32) * 32
                     for g in tsweep.GROUPS}
 SLOTS_1000x800_PP8 = 25 * 4096      # ceil(800,000 / 32,768) tiles
 SLOTS_1000x800_PP1 = 196 * 4096     # ceil(800,000 / 4,096) tiles
@@ -98,6 +111,39 @@ def test_plain_tie_order_matches_jax_oracle(scenes, fast_div):
     assert min(ab) in aimed and max(ab) not in aimed
 
 
+def test_plain_k6_tie_order_is_visit_order(same_bvh):
+    """On the blocked variant (two sphere blocks) the plain K6 gives every
+    ray the plain K5's winner, which is JAX's oracle's, except on the exact
+    ties of a block-0 triangle with a block-1 sphere, where K6's visit
+    order picks the triangle: P over T, T_Q over Q, A over its copy B."""
+    js = tie_scene.blocked_variant(
+        tie_scene.build_blocked(jscene.SceneBuilder(), JMaterial.default()),
+        jnp.asarray)
+    ts = tie_scene.blocked_variant(
+        tie_scene.build_blocked(tscene.SceneBuilder(), TMaterial.default()),
+        torch.as_tensor)
+    o, d = tie_scene.blocked_rays()
+    rec = jint.nearest_hit(jnp.asarray(o), jnp.asarray(d), js)
+    hit = np.asarray(rec.hit)
+    oracle = np.where(hit, np.asarray(rec.idx) * 2 + np.asarray(rec.is_tri),
+                      0)
+    ot, dt = torch.from_numpy(o), torch.from_numpy(d)
+    k5 = tic.hit_resolve_reference(tsweep.pack(ts), ot, dt)[1].numpy()
+    np.testing.assert_array_equal(k5, oracle)
+    ws = tic.WaveScene(ts, blocked=True)
+    k6 = tic.hit_resolve_unit(ws, ot, dt)[1].numpy()   # the plain K6 on CPU
+    n = tie_scene.N_AXIS
+    np.testing.assert_array_equal(k6[:3 * n], tie_scene.blocked_axis_codes(ts))
+    q_rays = slice(n, 2 * n)
+    np.testing.assert_array_equal(
+        k5[q_rays], 2 * tie_scene.BLOCKED_SLOTS["q"])   # the sphere Q
+    k6[q_rays] = k5[q_rays]
+    np.testing.assert_array_equal(k6, k5)
+    b = 2 * tie_scene.BLOCKED_SLOTS["b"]
+    assert not (k6 == b).any() and (k6 == 2 * tie_scene.BLOCKED_SLOTS[
+        "a"]).sum() > 2 * n
+
+
 def test_nearest_hit_rejects_unknown_group():
     ts = tie_scene.build(tscene.SceneBuilder(), TMaterial.default())
     o, d = (torch.from_numpy(x) for x in tie_scene.rays())
@@ -152,6 +198,52 @@ def test_nearest_rule(rays, depth, want):
     flat pools, G = 8 over supers (2.7x G = 1 on stress10k)."""
     waves = tsweep.NEAREST_WAVES[depth]
     assert tsweep.group_size(rays, NEAREST_RESIDENT, waves) == want
+
+
+@pytest.mark.parametrize("rays, depth, want", [
+    (1 << 20, 0, 1),                # scene 2
+    (1 << 20, 1, 1),                # scene 4
+    (1 << 20, 2, 8),                # stress100k over the resident pools
+    (1 << 16, 0, 2),
+    (1 << 16, 1, 8),
+    (1 << 16, 2, 8),
+])
+def test_resolve_rule(rays, depth, want):
+    """K5's rule (rt_hit_resolve), by the scene's gate depth."""
+    waves = tic.RESOLVE_WAVES[depth]
+    assert tsweep.group_size(rays, RESOLVE_RESIDENT, waves) == want
+
+
+@pytest.mark.parametrize("rays, want", [
+    (1 << 20, 8),                   # phase 10's field rays over stress100k
+    (800_000, 8),                   # a stress100k regen bounce at 1000x800
+    (1 << 16, 8),
+    (4096, 8),
+])
+def test_blocked_rule(rays, want):
+    """K6's rule (rt_hit_resolve_blocked): the blocked layout always gates
+    by block unions, supers and clusters."""
+    assert tsweep.group_size(rays, BLOCKED_RESIDENT,
+                             tic.BLOCKED_WAVES) == want
+
+
+def test_wavefront_rules_take_a_forced_group_and_check_it():
+    """``_group`` reaches the rules unchanged, through check_group."""
+    scene = tie_scene.build(tscene.SceneBuilder(), TMaterial.default())
+    ps = tsweep.pack(scene)
+    for g in tsweep.GROUPS:
+        assert tic.resolve_group(10, ps, g) == g
+        assert tic.blocked_group(10, g) == g
+    for g in (0, 3, 16):
+        with pytest.raises(ValueError):
+            tic.resolve_group(10, ps, g)
+        with pytest.raises(ValueError):
+            tic.blocked_group(10, g)
+    o, d = (torch.from_numpy(x) for x in tie_scene.rays())
+    with pytest.raises(ValueError):
+        tic.hit_resolve_unit(tic.WaveScene(scene), o, d, _group=3)
+    with pytest.raises(ValueError):
+        tic.hit_resolve_counted(ps, o, d, _group=5)
 
 
 def test_group_rule_reads_each_arms_residency():

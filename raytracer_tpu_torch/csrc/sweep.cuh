@@ -260,8 +260,12 @@ __device__ __forceinline__ void walk_pool(const Pool& p, const Ray& r,
         h = Hit{t, p.code0 + 2 * i + 1, u, v};
       }
     } else {
+      // a sphere's barycentrics are never read: bu, bv stay as they are
       const float t = sphere_t(p.f + i, p.stride, r, q.ddo, q.osq);
-      if (t > kEps && t < h.t) h = Hit{t, p.code0 + 2 * i, 0.0f, 0.0f};
+      if (t > kEps && t < h.t) {
+        h.t = t;
+        h.code = p.code0 + 2 * i;
+      }
     }
   };
   auto leaf_sweep = [&](int c) {

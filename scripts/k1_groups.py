@@ -40,7 +40,8 @@ scene-4 and stress10k paths; and what phases 9, 10 and 12 time of K5 and
 K6 (wavefront): K5 on phase 9's 1M rays over scene 4, K6 and K5 on phase
 10's 1M stress100k field rays, and the scene-4 (20 spp) and stress100k
 (4 spp) regen paths through ``Renderer`` at 1000x800 (5 frames after a
-warm-up). Run it once per tree in separate processes, in turns, to
+warm-up; then one frame under torch.profiler: the device ms of K5 or
+K6 in it). Run it once per tree in separate processes, in turns, to
 compare two trees on one card: ``pairs`` does that (``chip_smoke.py
 --parent DIR`` runs two pairs of every path), printing each path's values,
 medians and interquartile ranges and the pairs the change won.
@@ -266,6 +267,13 @@ def paths_wavefront(dev, emit_path) -> None:
         emit_path("12", path, frame_ms=stat["frame_ms"] / stat["frames"],
                   mrays_per_sec=stat["mrays_per_sec"],
                   finite=bool(torch.isfinite(r.accum).all()))
+        kernel = "hit_resolve_blocked_kernel" if r.packed_scene.blocked \
+            else "hit_resolve_kernel"
+        prof = cs.device_shares(lambda: r.render_frame(block=True),
+                                (kernel,))
+        emit_path("12", f"{path}_{kernel}_device",
+                  ms=prof[kernel]["device_ms"],
+                  device_ms=prof["device_ms"], window_ms=prof["window_ms"])
 
 
 def paths_k1k2(dev, emit_path) -> None:

@@ -57,12 +57,11 @@ import math
 import torch
 
 from .intersect import HitRecord, ShadeData
-from .sweep import (GROUPS, INF, LANES, S_F32_ROWS, S_I32_ROWS,
-                    T_F32_ROWS, T_I32_ROWS, T_NRM, T_UV, PackedScene,
-                    _check_rays, _sweep_chunk, check_group, decode_colour30,
-                    decode_smooth_mat, gate_depth, group_size,
-                    nearest_hit_reference, pack, pack_scene, sphere_t,
-                    triangle_tuv)
+from .sweep import (INF, LANES, S_F32_ROWS, S_I32_ROWS, T_F32_ROWS,
+                    T_I32_ROWS, T_NRM, T_UV, PackedScene, _check_rays,
+                    _sweep_chunk, check_group, decode_colour30,
+                    decode_smooth_mat, gate_depth, nearest_hit_reference,
+                    pack, pack_scene, rule_group, sphere_t, triangle_tuv)
 
 RAY_TILE = 32 * LANES    # rays are padded to whole 4096-ray tiles
 SPH_BLOCK = 4096         # spheres per block of the blocked layout
@@ -86,28 +85,19 @@ RESOLVE_WAVES = {0: 1, 1: 4, 2: 64}
 BLOCKED_WAVES = 64
 
 
-def _rule_group(kind: int, n: int, waves: float, group) -> int:
-    check_group(group)
-    if group is not None:
-        return group
-    from ..kernels import build
-    resident = {g: build.resident_threads(kind, g) for g in GROUPS}
-    return group_size(n, resident, waves)
-
-
 def resolve_group(n: int, ps: PackedScene, group=None) -> int:
     """G for K5 over ``n`` rays of ``ps``: ``group`` when given, else the
     rule's, ``sweep.group_size`` with RESOLVE_WAVES of the gate depth."""
     from ..kernels import build
-    return _rule_group(build.KIND_RESOLVE, n,
-                       RESOLVE_WAVES[gate_depth(ps)], group)
+    return rule_group(build.KIND_RESOLVE, n,
+                      RESOLVE_WAVES[gate_depth(ps)], group)
 
 
 def blocked_group(n: int, group=None) -> int:
     """G for K6 over ``n`` rays: ``group`` when given, else the rule's,
     ``sweep.group_size`` with BLOCKED_WAVES."""
     from ..kernels import build
-    return _rule_group(build.KIND_BLOCKED, n, BLOCKED_WAVES, group)
+    return rule_group(build.KIND_BLOCKED, n, BLOCKED_WAVES, group)
 
 
 def smem_bytes(scene) -> int:

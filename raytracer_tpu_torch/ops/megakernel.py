@@ -476,14 +476,9 @@ def mega_group(slots: int, ps: sweep.PackedScene, group=None) -> int:
     """G for rt_megakernel over ``slots`` lane slots of ``ps``: ``group``
     when given, else the rule's, ``sweep.group_size`` with MEGA_WAVES of
     the scene's gate depth."""
-    sweep.check_group(group)
-    if group is not None:
-        return group
     from ..kernels import build
-    resident = {g: build.resident_threads(build.KIND_MEGAKERNEL, g)
-                for g in sweep.GROUPS}
-    return sweep.group_size(slots, resident,
-                            MEGA_WAVES[sweep.gate_depth(ps)])
+    return sweep.rule_group(build.KIND_MEGAKERNEL, slots,
+                            MEGA_WAVES[sweep.gate_depth(ps)], group)
 
 
 def _mega_cuda(ps, mat, o, d, seed, *, tex, img_rows, pixpack, spp, limit,

@@ -4,15 +4,17 @@ Port of ``raytracer_tpu/ops/sweep.py``: the colour30 and smooth|mat
 codecs, ``pack_scene`` and ``pack_param_planes`` (bitwise the same arrays),
 and the sweep's hit math. On the TPU the sweep walks a tile of rays through
 cluster gates (K2, sweep.py:491) and fetches the winner's parameters with
-lane gathers (K3, sweep.py:1170). Here both are ``__device__`` functions of
-``csrc/megakernel.cu``: a group of G threads walks the cluster arrays in
-index order for one ray, the boxes and a leaf's primitives strided over
-the group. ``nearest_hit`` runs them alone over a batch of rays
+lane gathers (K3, sweep.py:1170). Here both are ``__device__`` code: a
+group of G threads walks the cluster arrays in index order for one ray,
+the boxes and a leaf's primitives strided over the group (``walk_pool``
+in ``csrc/sweep.cuh``, which the wavefront kernels K5 and K6 run too).
+``nearest_hit`` runs them alone over a batch of rays
 (``rt_nearest_hit``); ``nearest_hit_reference`` is its plain version.
-``group_size`` is the rule's form, which picks G from the rays (or the
-megakernel's lane slots) and the threads the card keeps resident;
-``nearest_group`` is rt_nearest_hit's rule, ``megakernel.mega_group``
-rt_megakernel's.
+``group_size`` is the rules' form, which picks G from the rays (or the
+megakernel's lane slots) and the threads the card keeps resident, and
+``rule_group`` applies it for one kernel: ``nearest_group`` is
+rt_nearest_hit's rule, ``megakernel.mega_group`` rt_megakernel's,
+``intersect_cuda.resolve_group`` and ``blocked_group`` K5's and K6's.
 
 The hit contract, kept by both versions:
 
@@ -93,16 +95,24 @@ def check_group(group) -> None:
         raise ValueError(f"group must be one of {GROUPS}, got {group}")
 
 
-def nearest_group(n: int, ps, group=None) -> int:
-    """G for rt_nearest_hit over ``n`` rays of ``ps``: ``group`` when
-    given, else the rule's."""
+def rule_group(kind: int, slots: int, waves: float, group=None) -> int:
+    """A kernel's group rule: ``group`` when given (checked), else
+    ``group_size`` over the threads the current card keeps resident for
+    each G of kernel ``kind`` (``build.KIND_*``, rt_occupancy)."""
     check_group(group)
     if group is not None:
         return group
     from ..kernels import build
-    resident = {g: build.resident_threads(build.KIND_NEAREST, g)
-                for g in GROUPS}
-    return group_size(n, resident, NEAREST_WAVES[gate_depth(ps)])
+    resident = {g: build.resident_threads(kind, g) for g in GROUPS}
+    return group_size(slots, resident, waves)
+
+
+def nearest_group(n: int, ps, group=None) -> int:
+    """G for rt_nearest_hit over ``n`` rays of ``ps``: ``group`` when
+    given, else the rule's, with NEAREST_WAVES of the gate depth."""
+    from ..kernels import build
+    return rule_group(build.KIND_NEAREST, n, NEAREST_WAVES[gate_depth(ps)],
+                      group)
 
 
 def leaf_size(n: int) -> int:

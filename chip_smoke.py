@@ -16,11 +16,20 @@ Then the wavefront samplers: ``rt_lane_randoms`` (1M lanes), K5
 ``rt_hit_resolve_blocked`` with K5 beside it (65,536 and 1M rays over
 stress100k) against their plain versions, one ``Renderer`` frame of each
 sampler (regen, scan, rebin, lanesort) against the plain route with rebin
-and lanesort bitwise equal to regen, and three regen paths through
+and lanesort bitwise equal to regen, ``rt_wave_bounce`` (the bounce after
+the hit, fused) against its plain version, bitwise, in both arms on
+256x128 lanes of scenes 1-4, stress100k and earth2048 and timed on scene
+4's 1000x800 regen lanes (phase 19), and three regen paths through
 ``Renderer`` at 1000x800, 5 bounces: scene 4 at 20 spp (K5), stress100k
 at 4 spp (K6) and the 1024x2048 earth at 20 spp (K5 + the atlas gather),
-each with one frame under torch.profiler (K5's and K6's share of the
-device time) and its first frame against the plain route at 256x128.
+each with its frame ms, the graph replays and kernel launches a frame,
+one frame under torch.profiler (the device ms of K5 / K6, the randoms and
+``rt_wave_bounce``, the busy share, the kernel and graph launches the
+host issued against the device ops that ran) and its first frame
+against the plain route at 256x128. On the card the wavefront samplers
+replay their iterations as CUDA graphs (ops/wave_graph.py), so the
+launch counts come from each graph's captured launches times its
+replays.
 
 Then the temporal fly-through (phase 13): ``rt_warp_gather`` (K7) and
 ``rt_gather_history`` against their plain versions, bitwise, on the 4K
@@ -66,8 +75,9 @@ Then the goldens and the rest of the public API (phases 17-18): scenes
 kernel route, bitwise against the plain route, with each PSNR against
 ``tests/goldens`` (scenes 1-4 judged by tests/test_torch_golden.py's
 bounds, scene 0 printed: its golden needs a mesh the repository lacks);
-``trace`` on scene 4 at 1000x800, one sample, kernel route against
-``backend="plain"``, bitwise; and ``Renderer.profile_frame`` on the
+``trace`` on scene 4 at 1000x800, one sample, on a WaveScene whose graph
+the warm-up call captures, kernel route against ``backend="plain"``,
+bitwise; and ``Renderer.profile_frame`` on the
 bench.py path, its Chrome trace read back for the megakernel's device
 events, their ms and share of the window.
 
@@ -79,8 +89,9 @@ rules' G on the main paths; phases 3, 5, 9, 10, 14a and 14d hold every
 arm (the rule's G and G = 1, 2, 4, 8) bitwise against the plain versions.
 With ``--parent DIR`` (an earlier tree of this repository, unpacked with
 ``git archive``), phase 15 times the K1 and K2 paths of phases 3, 6, 7, 13
-and 14c and the K5 and K6 paths of phases 9, 10 and 12 on that tree and
-on this checkout in turns (parent, change, change, parent), one
+and 14c and the K5 and K6 paths of phases 9, 10 and 12 (the three regen
+paths' frame ms and busy shares) and phase 18a's ``trace`` on that tree
+and on this checkout in turns (parent, change, change, parent), one
 ``scripts/k1_groups.py paths`` process per turn, and prints both; the
 kernels line then carries the parent's times.
 
@@ -136,6 +147,7 @@ FRAME_MEAN_REL_MAX = 1e-3        # frame-mean radiance, kernel vs plain
 KERNEL_SOURCE = "raytracer_tpu_torch/csrc/megakernel.cu"
 WAVEFRONT_SOURCE = "raytracer_tpu_torch/csrc/wavefront.cu"
 WARP_SOURCE = "raytracer_tpu_torch/csrc/warp.cu"
+BOUNCE_SOURCE = "raytracer_tpu_torch/csrc/bounce.cu"
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
 # device-memory bandwidth and non-tensor FP32 rate. Integer operations are
@@ -1011,7 +1023,8 @@ def phase_samplers(dev, width: int, height: int) -> dict:
                    "vs_plain": stats,
                    "checkpoint_bitwise": bool(torch.equal(r.accum, r2.accum))}
         check(launches["rt_hit_resolve"] > 0
-              and launches["rt_lane_randoms"] > 0,
+              and launches["rt_lane_randoms"] > 0
+              and launches["rt_wave_bounce"] == launches["rt_hit_resolve"],
               f"sampler {s}: the Renderer frame launched {launches}")
         check_pixels(stats, f"sampler {s} frame vs the plain route")
         check(stats["segs_rel"] <= SEGS_REL_MAX,
@@ -1031,21 +1044,24 @@ def phase_samplers(dev, width: int, height: int) -> dict:
 
 
 def _wave_counts():
+    from raytracer_tpu_torch.ops import bounce
     from raytracer_tpu_torch.ops import intersect_cuda as ic
     from raytracer_tpu_torch.ops import rng
     return {"rt_hit_resolve": ic.LAUNCHES,
             "rt_hit_resolve_blocked": ic.BLOCKED_LAUNCHES,
             "rt_lane_randoms": rng.LAUNCHES,
-            "rt_tile_randoms": rng.TILE_LAUNCHES}
+            "rt_tile_randoms": rng.TILE_LAUNCHES,
+            "rt_wave_bounce": bounce.LAUNCHES}
 
 
 def _zero_counts() -> None:
+    from raytracer_tpu_torch.ops import bounce
     from raytracer_tpu_torch.ops import intersect_cuda as ic
     from raytracer_tpu_torch.ops import megakernel as mk
     from raytracer_tpu_torch.ops import rng
     from raytracer_tpu_torch.ops import warp
     ic.LAUNCHES = ic.STATS_LAUNCHES = ic.BLOCKED_LAUNCHES = rng.LAUNCHES = 0
-    rng.TILE_LAUNCHES = 0
+    rng.TILE_LAUNCHES = bounce.LAUNCHES = 0
     mk.LAUNCHES = mk.IMAGE_LAUNCHES = mk.FETCH_LAUNCHES = 0
     mk.COHERENT_LAUNCHES = 0
     warp.GATHER_LAUNCHES = warp.HISTORY_LAUNCHES = 0
@@ -1073,8 +1089,20 @@ def device_shares(fn, names) -> dict:
         window_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     total = sum(dev_us(e) for e in events) / 1e3
+
+    def calls(name):
+        return sum(e.count for e in events if e.key == name)
+    kernels = sorted(((dev_us(e) / 1e3, e.key, e.count) for e in events
+                      if dev_us(e) and str(e.device_type).endswith("CUDA")),
+                     reverse=True)
     rec = {"window_ms": window_ms, "device_ms": total,
-           "busy_share": total / window_ms if total else None}
+           "busy_share": total / window_ms if total else None,
+           # what the host issued: kernel launches and graph launches
+           "host_kernel_launches": calls("cudaLaunchKernel"),
+           "host_graph_launches": calls("cudaGraphLaunch"),
+           "device_ops": sum(c for _, _, c in kernels),
+           "top_device_ms": [[name[:60], ms, c]
+                             for ms, name, c in kernels[:8]]}
     for name in names:
         ms = sum(dev_us(e) for e in events if name in e.key) / 1e3
         rec[name] = {"device_ms": ms,
@@ -1085,37 +1113,47 @@ def device_shares(fn, names) -> dict:
 
 def phase_wave_path(dev, name: str, scene, sky, spp: int, pos,
                     width=1000, height=800, check_size=(256, 128)) -> dict:
-    """One regen path through Renderer: a warm-up frame and 5 frames,
-    counts set to 0 just before and read just after; one more frame under
-    torch.profiler (K5's and K6's share of the device time, the device's
-    busy share); then its first frame at check_size through the kernel
-    route against the plain route."""
+    """One regen path through Renderer: a warm-up frame (it captures the
+    graphs) and 5 frames, counts set to 0 just before and read just
+    after, with the graph replays the host issued; one more frame under
+    torch.profiler (the device ms of K5 / K6, the randoms and
+    rt_wave_bounce and their shares, the device's busy share, the kernel
+    and graph launches the host issued against the device ops that ran);
+    then its first frame at check_size through the kernel route against
+    the plain route."""
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.ops import integrator as integ
     from raytracer_tpu_torch.ops import rng
+    from raytracer_tpu_torch.ops import wave_graph
     settings = rtt.RenderSettings(rays_per_pixel=spp, reflect_limit=5,
                                   antialias=True,
                                   sampler="regen").with_sky(sky)
     cam = rtt.CameraConfig(width=width, height=height, position=pos)
     r = rtt.Renderer(scene, cam, settings, seed=0, device=dev)
     _zero_counts()
+    replays = wave_graph.REPLAYS
     r.render_frame(block=True)
     rec = r.render_frames(5)
     launches = _wave_counts()
+    replays = wave_graph.REPLAYS - replays
     r.check_health()
     out = {"path": name, "spp": spp, "blocked": r.packed_scene.blocked,
            "launches": launches,
+           "graph_replays_per_frame": replays / (rec["frames"] + 1),
+           "kernel_launches_per_frame": {
+               k: v / (rec["frames"] + 1) for k, v in launches.items()},
            "frame_ms": rec["frame_ms"] / rec["frames"],
            "mrays_per_sec": rec["mrays_per_sec"],
            "segments_per_frame": rec["segments"] / rec["frames"]}
     hit_kernel = "rt_hit_resolve_blocked" if out["blocked"] else \
         "rt_hit_resolve"
-    check(launches[hit_kernel] > 0 and launches["rt_lane_randoms"] > 0,
+    check(launches[hit_kernel] > 0 and launches["rt_lane_randoms"] > 0
+          and launches["rt_wave_bounce"] == launches[hit_kernel],
           f"{name}: the path launched {launches}")
     out["profiled_frame"] = device_shares(
         lambda: r.render_frame(block=True),
         ("hit_resolve_blocked_kernel", "hit_resolve_kernel",
-         "lane_randoms_kernel"))
+         "lane_randoms_kernel", "wave_bounce_kernel"))
 
     w, h = check_size
     o, d = camera_rays(w, h, dev, position=pos)
@@ -1164,6 +1202,210 @@ def phase_wave_paths(dev) -> list:
     paths.append(phase_wave_path(dev, "earth2048_regen", scene, sky, 20,
                                  (0.0, 0.0, 0.0)))
     return paths
+
+
+# -- phase 19: rt_wave_bounce, the wavefront bounce after the hit -----------
+
+# the settings the bounce is held under besides phase 12's (5 bounces,
+# antialias): russian roulette from bounce 2 with the exit-IOR fix and
+# emissive termination
+BOUNCE_VARIANTS = {"base": {}, "rr_fix_emissive": {
+    "russian_roulette": 2, "fix_exit_ior": True,
+    "emissive_terminates": True}}
+
+
+def bounce_scenes(dev) -> list:
+    """(name, scene, sky, camera position): scenes 1-4 (phase 17's
+    cameras, scene 4 at phase 12's), stress100k (K6, phase 12's camera)
+    and earth2048 (scene 2 with the 1024x2048 procedural earth)."""
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.models.scenes import procedural_earth_texture
+    out = []
+    for num in (1, 2, 3, 4):
+        scene, sky = rtt.build_scene(num, device=dev,
+                                     **({"seed": 0} if num == 4 else {}))
+        out.append((f"scene{num}", scene, sky, (0.0, 0.0, 0.0)))
+    big, sky = stress_scene(100000)
+    out.append(("stress100k", big.to(dev), sky, (0.0, 1.0, -4.0)))
+    earth, sky = rtt.build_scene(2, device=dev,
+                                 earth_image=procedural_earth_texture(1024))
+    out.append(("earth2048", earth, sky, (0.0, 0.0, 0.0)))
+    return out
+
+
+def bounce_lanes(dev, ws, settings, pos, width, height, regen):
+    """The lane state of ``width`` x ``height`` camera rays (Morton order,
+    frame key (0, 0)) and a function that draws, jitters and traces the
+    next bounce's inputs through the kernel route: the argument tuple of
+    ``wave_bounce`` after ``settings``."""
+    from raytracer_tpu_torch.ops import integrator as integ
+    from raytracer_tpu_torch.ops import rng
+    from raytracer_tpu_torch.ops.intersect_cuda import hit_and_resolve
+    from raytracer_tpu_torch.ops.scatter import antialias_jitter
+    o, d = camera_rays(width, height, dev, position=pos)
+    keys = rng.per_ray_keys(rng.frame_key(rng.key(0), 0),
+                            camera_order(width, height, dev))
+    use_rr = settings.russian_roulette > 0
+    if regen:
+        st = integ._regen_state(o, d, keys)
+    else:
+        st = integ._scan_state(o, d)
+
+    def inputs(b):
+        drawn = (rng.lane_randoms(keys, st["sample_i"], st["bounce_i"],
+                                  use_rr) if regen
+                 else rng.bounce_randoms(keys, b, use_rr))
+        dj = antialias_jitter(drawn[0], st["d"])
+        rec, shade = hit_and_resolve(
+            ws, st["o"], dj, need_sphere_uv=ws.scene.needs_sphere_uv)
+        return (st, dj, rec.hit, shade, drawn[1], drawn[2],
+                drawn[3] if use_rr else None)
+    return st, inputs
+
+
+def bounce_vs_plain(dev, ws, settings, pos, width, height, regen,
+                    bounces: int = 4) -> dict:
+    """``bounces`` bounces of rt_wave_bounce against wave_bounce_reference
+    on the same inputs, each output tensor compared; the state advances
+    with the kernel's."""
+    import torch
+
+    from raytracer_tpu_torch.ops import bounce as tb
+    st, inputs = bounce_lanes(dev, ws, settings, pos, width, height, regen)
+    kw = {"regen": regen, "park": regen}
+    bitwise, max_abs = True, 0.0
+    for b in range(bounces):
+        args = (ws.scene, settings) + inputs(b)
+        got = tb.wave_bounce(*args, bounce=b, **kw)
+        want = tb.wave_bounce_reference(*args, bounce=b, **kw)
+        for k in want:
+            bitwise = bitwise and bool(torch.equal(got[k], want[k]))
+            if want[k].is_floating_point():
+                max_abs = max(max_abs, float(torch.nan_to_num(
+                    (got[k] - want[k]).abs()).max()))
+        st.update(got)
+    return {"bitwise": bitwise, "max_abs_err": max_abs}
+
+
+def fresh_launch_times(launch, restore, kernel: str,
+                       repeats: int = 20) -> dict:
+    """Milliseconds of ``launch()`` (a bare launch that updates its state
+    in place) when every launch starts from the same state: ``restore()``
+    before each, outside the timed interval. ``ms``: the mean of CUDA
+    events around each launch; ``profiled_ms``: the profiler's device time
+    of ``kernel`` a launch (None where it saw none)."""
+    import torch
+    restore()
+    launch()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(repeats)]
+    for start, stop in events:
+        restore()
+        start.record()
+        launch()
+        stop.record()
+    torch.cuda.synchronize()
+    ms = sum(a.elapsed_time(b) for a, b in events) / repeats
+
+    def loop():
+        for _ in range(repeats):
+            restore()
+            launch()
+    dev_ms = device_shares(loop, (kernel,))[kernel]["device_ms"]
+    return {"ms": ms, "profiled_ms": dev_ms / repeats if dev_ms else None}
+
+
+def phase_wave_bounce(dev, check_size=(256, 128),
+                      time_size=(1000, 800)) -> dict:
+    """Phase 19: rt_wave_bounce against its plain version on the card,
+    bitwise, in both arms (regen with parking), 4 bounces of check_size
+    camera lanes, under phase 12's settings and BOUNCE_VARIANTS, on scenes
+    1-4, stress100k and earth2048; then timed on phase 12's scene-4 regen
+    lanes at time_size (the inputs of their third bounce): bare launches
+    each from the same state (``fresh_launch_times``: ``ms``,
+    ``profiled_ms``), through the wrapper on copies (``wrapper_ms``) and
+    the plain version (``plain_ms``), beside its bytes bound counted on
+    these inputs: every lane reads its state, hit flag and pixel sum and
+    writes its state (145 bytes); a live hit also reads its material id,
+    uv, normal, point, Gaussian, smoothness and Fresnel draw (56), its
+    colour (12) on a colour texture or its texel (12) on an image; a path
+    end reads the lane's primary ray (24); the material table once."""
+    import torch
+
+    import ctypes
+
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.kernels import build
+    from raytracer_tpu_torch.ops import bounce as tb
+    from raytracer_tpu_torch.ops.intersect_cuda import WaveScene
+    w, h = check_size
+    checks = {}
+    for name, scene, sky, pos in bounce_scenes(dev):
+        ws = WaveScene(scene)
+        for variant, extra in BOUNCE_VARIANTS.items():
+            s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=5,
+                                   antialias=True, **extra).with_sky(sky)
+            for arm in ("scan", "regen"):
+                checks[f"{name}_{variant}_{arm}"] = bounce_vs_plain(
+                    dev, ws, s, pos, w, h, arm == "regen")
+    rec = {"checks": checks, "bitwise": all(
+        r["bitwise"] for r in checks.values()),
+        "max_abs_err": max(r["max_abs_err"] for r in checks.values())}
+
+    scene, sky = rtt.build_scene(4, seed=0, device=dev)
+    ws = WaveScene(scene)
+    s = rtt.RenderSettings(rays_per_pixel=20, reflect_limit=5,
+                           antialias=True, sampler="regen").with_sky(sky)
+    w, h = time_size
+    st, inputs = bounce_lanes(dev, ws, s, (0.0, 0.0, 0.0), w, h, True)
+    for b in range(2):
+        st.update(tb.wave_bounce(ws.scene, s, *inputs(b), regen=True))
+    args = (ws.scene, s) + inputs(2)
+    hit, shade = args[4], args[5]
+    want = tb.wave_bounce_reference(*args, regen=True)
+    live = (st["sample_i"] < s.rays_per_pixel) & hit
+    ends = int((want["sample_i"] != st["sample_i"]).sum())
+    ttype = scene.tex_type[shade.mat_id.long()]
+    n = w * h
+    n_bytes = (n * 145 + 56 * int(live.sum()) + 24 * ends
+               + 12 * int((live & ((ttype == 0) | (ttype == 3))).sum())
+               + tensor_bytes(scene.mat_type, scene.mat_ior, scene.mat_emit,
+                              scene.tex_type, scene.tex_light,
+                              scene.tex_dark, scene.tex_nsq,
+                              scene.tex_offset, scene.tex_width,
+                              scene.tex_height))
+    timed = {k: v.clone() for k, v in st.items()}
+    bare = tb.bounce_args(ws.scene, s, timed, *args[3:], regen=True)
+    lib = build.load()
+    stream = ctypes.c_void_p(build.stream(dev))
+
+    def restore():
+        for k, x in st.items():
+            timed[k].copy_(x)
+    rec.update(fresh_launch_times(
+        lambda: lib.rt_wave_bounce(ctypes.byref(bare), stream), restore,
+        "wave_bounce_kernel"))
+    restore()
+    lib.rt_wave_bounce(ctypes.byref(bare), stream)
+    rec["bare_launch_bitwise"] = all(
+        bool(torch.equal(timed[k], want[k])) for k in want)
+    rec.update(lanes=n, live_hits=int(live.sum()), path_ends=ends,
+               wrapper_ms=cuda_ms(lambda: tb.wave_bounce(
+                   *args, regen=True), 20),
+               plain_ms=cuda_ms(lambda: tb.wave_bounce_reference(
+                   *args, regen=True), 3),
+               library_ms=None)
+    rec.update(bound(n_bytes, 0.0))
+    print(f"phase 19 rt_wave_bounce vs plain, {check_size[0]}x"
+          f"{check_size[1]} lanes, scenes 1-4, stress100k, earth2048, both "
+          f"arms; timed on scene 4's {w}x{h} regen lanes:", json.dumps(rec),
+          flush=True)
+    check(rec["bitwise"], "rt_wave_bounce differs from its plain version: "
+          + json.dumps({k: v for k, v in checks.items()
+                        if not v["bitwise"]}))
+    check(rec["bare_launch_bitwise"], "rt_wave_bounce's bare launch differs")
+    return rec
 
 
 def fly_camera(i: int, width: int, height: int):
@@ -1707,30 +1949,25 @@ def segment_tests(dev, scene, width: int, height: int, settings) -> dict:
     o0, d0 = camera_rays(width, height, dev)
     idx = camera_order(width, height, dev)
     use_rr = settings.russian_roulette > 0
-    # the jitter is applied here, before the count, so not again inside
-    bare = dataclasses.replace(settings, antialias=False)
-    sky = integ._sky(settings, dev)
+    # the jitter is applied here, before the count, so not again inside;
+    # the bounces run eagerly (no graph), the counting launch between them
+    route = integ._Route(ws, dataclasses.replace(settings, antialias=False),
+                         "pallas")
     fkey = rng.frame_key(rng.key(0), 0)
     tests = torch.zeros((), dtype=torch.float64, device=dev)
     segs = torch.zeros((), dtype=torch.float64, device=dev)
     for s in range(settings.rays_per_pixel):
         keys = rng.per_ray_keys(rng.sample_key(fkey, s), idx)
-        o, d = o0, d0
-        thru, rad = torch.ones_like(o0), torch.zeros_like(o0)
-        alive = torch.ones(o0.shape[1], dtype=torch.bool, device=dev)
-        ior = torch.ones(o0.shape[1], dtype=torch.float32, device=dev)
+        st = integ._scan_state(o0, d0)
         for b in range(settings.reflect_limit):
             drawn = rng.bounce_randoms(keys, b, use_rr)
             if settings.antialias:
-                d = antialias_jitter(drawn[0], d)
-            o_u, d_u, _ = ic._unit_rays(o, d)
+                st["d"] = antialias_jitter(drawn[0], st["d"])
+            o_u, d_u, _ = ic._unit_rays(st["o"], st["d"])
             count = ic.hit_resolve_counted(ws.packed, o_u, d_u)[12]
-            tests += count[:o.shape[1]][alive].double().sum()
-            segs += alive.sum()
-            o, d, thru, rad, ior, alive = integ._bounce_physics(
-                ws, bare, "pallas", sky, o, d, thru, rad, alive, ior,
-                *drawn[:3], rr_u=drawn[3] if use_rr else None,
-                bounces_done=b)
+            tests += count[:o0.shape[1]][st["alive"]].double().sum()
+            segs += st["alive"].sum()
+            integ._bounce(route, st, drawn, regen=False, bounce=b)
     return {"tests_per_segment": float(tests / segs),
             "segments": float(segs),
             "counted_on": f"estimate: the segments of a {width}x{height} "
@@ -2210,7 +2447,8 @@ def phase_goldens(dev) -> dict:
                                       np.clip(golden, 0, 1)),
                "psnr_min": GOLDEN_PSNR_MIN.get(num), "launches": counts}
         out[f"scene{num}"] = rec
-        check(counts["rt_hit_resolve"] > 0 and counts["rt_lane_randoms"] > 0,
+        check(counts["rt_hit_resolve"] > 0 and counts["rt_lane_randoms"] > 0
+              and counts["rt_wave_bounce"] == counts["rt_hit_resolve"],
               f"golden scene {num}: the kernel route launched {counts}")
     print(f"phase 17 goldens {w}x{h} {GOLDEN_SPP} spp, kernel route vs "
           "plain and PSNR vs tests/goldens:", json.dumps(out), flush=True)
@@ -2297,14 +2535,18 @@ def phase_profile_frame(width: int = 1000, height: int = 800) -> dict:
 
 def phase_trace(dev, width: int = 1000, height: int = 800) -> dict:
     """Phase 18a: ``trace`` on scene 4 at bench.py's camera, one sample,
-    5 bounces, through the kernel route (K5 and the lane randoms every
-    bounce, counts set to 0 just before and read just after) against
-    ``backend="plain"`` on the same rays and key, bitwise, both timed."""
+    5 bounces, through the kernel route (K5, the lane randoms and
+    rt_wave_bounce every bounce, replayed from the graph the WaveScene
+    caches: the warm-up call captures it; counts set to 0 just before and
+    read just after the timed call) against ``backend="plain"`` on the
+    same rays and key, bitwise, both timed."""
     import torch
 
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.ops import rng
+    from raytracer_tpu_torch.ops.intersect_cuda import WaveScene
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
+    scene = WaveScene(scene)
     settings = rtt.RenderSettings(rays_per_pixel=1, reflect_limit=5,
                                   antialias=True, sampler="regen"
                                   ).with_sky(sky)
@@ -2337,9 +2579,10 @@ def phase_trace(dev, width: int = 1000, height: int = 800) -> dict:
     check(tr["bitwise"] and tr["finite"], "trace: kernel route not bitwise "
           "the plain route")
     check(trace_launches["rt_hit_resolve"] == 5
-          and trace_launches["rt_lane_randoms"] == 5,
-          f"trace launched {trace_launches}, expected K5 and the lane "
-          "randoms once a bounce")
+          and trace_launches["rt_lane_randoms"] == 5
+          and trace_launches["rt_wave_bounce"] == 5,
+          f"trace launched {trace_launches}, expected K5, the lane "
+          "randoms and rt_wave_bounce once a bounce")
     return tr
 
 
@@ -2385,8 +2628,8 @@ def phase_parent_turns(parent: str, pairs: int = 2,
                 if not line.startswith("{"):
                     continue
                 rec = json.loads(line)
-                metric = "fps" if "fps" in rec else "ms" if "ms" in rec \
-                    else "frame_ms"
+                metric = next(m for m in ("fps", "ms", "busy_share",
+                                          "frame_ms") if m in rec)
                 row = out.setdefault(rec["path"], {
                     "phase": rec["phase"], "metric": metric, "parent": [],
                     "change": []})
@@ -2401,7 +2644,7 @@ def phase_parent_turns(parent: str, pairs: int = 2,
             row.update({f"{label}_mean": float(np.mean(row[label])),
                         f"{label}_median": float(med),
                         f"{label}_iqr": float(q3 - q1)})
-        sign = -1.0 if row["metric"] == "fps" else 1.0
+        sign = -1.0 if row["metric"] in ("fps", "busy_share") else 1.0
         row["change_better"] = int(sum(
             sign * (c - p) < 0 for p, c in zip(row["parent"], row["change"])))
         print(f"phase 15 parent vs change in turns, phase {row['phase']} "
@@ -2457,6 +2700,7 @@ def main() -> int:
     k5_rec = phase_k5(dev)
     k6_rec = phase_k6(dev, 1 << 16, 1 << 20)
     samplers = phase_samplers(dev, 256, 128)
+    bounce_rec = phase_wave_bounce(dev)
     paths = phase_wave_paths(dev)
     phase_temporal_vs_plain(dev, 256, 128)
     fly = phase_flythrough(dev)
@@ -2663,6 +2907,17 @@ def main() -> int:
          "host_draw_ms": tile_rec["host_draw_ms"],
          "timed": f"{tile_rec['lanes']} lanes, with the russian-roulette "
                   "row"},
+        {"name": "rt_wave_bounce", "route": "cuda", "source": BOUNCE_SOURCE,
+         "replaces": "raytracer_tpu/ops/integrator.py:59 (XLA's fusion of "
+                     ":59-126 and :251-355, not a TPU kernel)",
+         "launches": total("rt_wave_bounce"),
+         "launches_by_path": {k: v["rt_wave_bounce"]
+                              for k, v in by_path.items()},
+         "max_abs_err": bounce_rec["max_abs_err"], **timing(bounce_rec),
+         "device_share_scene4_regen": device_share(
+             "scene4_regen", "wave_bounce_kernel"),
+         "timed": f"{bounce_rec['lanes']} regen lanes of scene 4, their "
+                  "third bounce"},
         {"name": "rt_gather_history", "route": "cuda", "source": WARP_SOURCE,
          "replaces": "raytracer_tpu/ops/warp.py:52 (with "
                      "raytracer_tpu/runtime/renderer.py:53 and :71 fused)",

@@ -53,7 +53,10 @@
 // into its 3 or 4 subkeys and draws its tile's element of each block, so
 // the rows come out already repeated over the tile's lanes, in one launch
 // and without a trip through the host. Plain version:
-// ops/rng.py::tile_randoms_reference.
+// ops/rng.py::tile_randoms_reference. Under a replayed CUDA graph the
+// iteration's key cannot come from the host: each thread then folds the
+// tile key with the iteration counter, both read from device memory
+// (plain version of that fold: ops/rng.py::fold_in_tensor).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,9 +94,14 @@ struct RtLaneArgs {
 };
 
 struct RtTileArgs {
-  unsigned int key0, key1;  // the iteration's key
+  unsigned int key0, key1;  // the iteration's key, unless key_dev is set
   float* out;               // (rows, n)
   int n, rows, tile;        // rows 7, or 8 with the russian-roulette draw
+  // Set under CUDA-graph replay: the iteration's key is
+  // fold_in((key_dev[0], key_dev[1]), iter_dev[0]), read when the kernel
+  // runs (uint32 values held in int64), not when it was captured.
+  const long long* key_dev;
+  const long long* iter_dev;
 };
 
 }  // extern "C"
@@ -266,12 +274,17 @@ __global__ void __launch_bounds__(256)
   if (i >= a.n) return;
   const uint32_t nt = static_cast<uint32_t>((a.n + a.tile - 1) / a.tile);
   const uint32_t t = static_cast<uint32_t>(i / a.tile);
+  uint32_t k0 = a.key0, k1 = a.key1;
+  if (a.key_dev != nullptr)
+    threefry(static_cast<uint32_t>(a.key_dev[0]),
+             static_cast<uint32_t>(a.key_dev[1]), 0u,
+             static_cast<uint32_t>(a.iter_dev[0]), k0, k1);
   for (int row = 0; row < a.rows; ++row) {
     const int block = row < 3 ? 0 : row < 6 ? 1 : row - 4;
     const uint32_t j =
         (row < 6 ? static_cast<uint32_t>(row % 3) * nt : 0u) + t;
     uint32_t s0, s1, b0, b1;
-    threefry(a.key0, a.key1, 0u, static_cast<uint32_t>(block), s0, s1);
+    threefry(k0, k1, 0u, static_cast<uint32_t>(block), s0, s1);
     threefry(s0, s1, 0u, j, b0, b1);
     const uint32_t bits = b0 ^ b1;
     a.out[static_cast<size_t>(row) * a.n + i] =

@@ -27,7 +27,7 @@ import time
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("megakernel.cu", "wavefront.cu", "warp.cu")
+SOURCES = ("megakernel.cu", "wavefront.cu", "warp.cu", "bounce.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
@@ -144,7 +144,8 @@ class LaneArgs(ctypes.Structure):
 class TileArgs(ctypes.Structure):
     _fields_ = [("key0", ctypes.c_uint), ("key1", ctypes.c_uint),
                 ("out", ctypes.c_void_p), ("n", ctypes.c_int),
-                ("rows", ctypes.c_int), ("tile", ctypes.c_int)]
+                ("rows", ctypes.c_int), ("tile", ctypes.c_int),
+                ("key_dev", ctypes.c_void_p), ("iter_dev", ctypes.c_void_p)]
 
 
 class MegaArgs(ctypes.Structure):
@@ -187,6 +188,32 @@ class HistoryArgs(ctypes.Structure):
         + [("width", ctypes.c_int), ("height", ctypes.c_int)])
 
 
+_P3 = ctypes.c_void_p * 3
+
+
+class BounceArgs(ctypes.Structure):
+    _fields_ = ([(n, _P3) for n in ("o", "d", "thru", "rad")]
+                + [("ior", ctypes.c_void_p), ("alive", ctypes.c_void_p),
+                   ("pixel_sum", _P3), ("sample", ctypes.c_void_p),
+                   ("bounce", ctypes.c_void_p), ("o0p", _P3), ("d0p", _P3),
+                   ("dj", _P3), ("hit", ctypes.c_void_p), ("point", _P3),
+                   ("normal", _P3), ("u", ctypes.c_void_p),
+                   ("v", ctypes.c_void_p), ("mat_id", ctypes.c_void_p),
+                   ("colour", _P3), ("smooth", ctypes.c_void_p),
+                   ("gauss", _P3), ("fresnel", ctypes.c_void_p),
+                   ("rr", ctypes.c_void_p)]
+                + [(n, ctypes.c_void_p) for n in (
+                    "mat_type", "mat_ior", "mat_emit", "tex_type",
+                    "tex_light", "tex_dark", "tex_nsq", "tex_off", "tex_w",
+                    "tex_h", "atlas")]
+                + [("atlas_rows", ctypes.c_int),
+                   ("sky", ctypes.c_float * 3)]
+                + [(n, ctypes.c_int) for n in (
+                    "n", "bounce_const", "rr_start", "limit", "spp",
+                    "fix_exit_ior", "has_refractive", "emissive_terminates",
+                    "park", "regen")])
+
+
 def scene_args(ps) -> SceneArgs:
     """SceneArgs over a PackedScene's tensors (the caller keeps ``ps``
     alive across the launch)."""
@@ -222,7 +249,8 @@ def load() -> ctypes.CDLL:
                            ("rt_lane_randoms", LaneArgs),
                            ("rt_tile_randoms", TileArgs),
                            ("rt_warp_gather", WarpGatherArgs),
-                           ("rt_gather_history", HistoryArgs)):
+                           ("rt_gather_history", HistoryArgs),
+                           ("rt_wave_bounce", BounceArgs)):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
             fn.restype = ctypes.c_int

@@ -20,122 +20,179 @@ rays as (3, N) tensors and run one bounce of every lane per step:
 Randomness is keyed by the global pixel index ``ray_idx`` (the Renderer
 passes its Morton order), sample and bounce (ops/rng.py). ``backend``
 takes the JAX names: ``"pallas"`` (default) is the kernel route, K5 or K6
-(ops/intersect_cuda.py) and ``rt_lane_randoms`` (coherent:
-``rt_tile_randoms``) on a CUDA tensor, their plain versions on a CPU
-tensor; ``"xla"`` and ``"woop"`` are the JAX package's CPU oracles
-(ops/intersect.py). ``"plain"`` is the kernel route with every kernel
-replaced by its plain version, on any device: the card holds the kernel
-route against it.
+(ops/intersect_cuda.py), ``rt_lane_randoms`` (coherent:
+``rt_tile_randoms``) and ``rt_wave_bounce`` (ops/bounce.py) on a CUDA
+tensor, their plain versions on a CPU tensor; ``"xla"`` and ``"woop"``
+are the JAX package's CPU oracles (ops/intersect.py). ``"plain"`` is the
+kernel route with every kernel replaced by its plain version, on any
+device: the card holds the kernel route against it.
+
+On a CUDA tensor the kernel route runs as the JAX package's compiled
+loop does, without the host between iterations: the iterations are
+captured once into CUDA graphs on static tensors and replayed
+(ops/wave_graph.py). ``_RegenGraphs`` holds one graph of
+EXIT_CHECK_EVERY regen / rebin / lanesort iterations (and one of the rest
+up to the ``spp * reflect_limit`` cap), ``_ScanGraph`` one sample of the
+scan sampler and of ``trace``; both live in the WaveScene's cache. Every
+other route runs the same iteration functions eagerly.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..config import RenderSettings
-from ..models.materials import MAT_EMISSIVE
-from . import film, intersect, rng
+from . import film, intersect, rng, wave_graph
+from .bounce import wave_bounce
 from .intersect_cuda import WaveScene, hit_and_resolve
 from .megakernel import MegaScene, render_sample_mean_mega
 from .rebin import (LANES, apply_lane_permutation, bucket_permutation,
                     lane_buckets, lane_destinations, permute_rows,
                     row_buckets)
-from .scatter import antialias_jitter, scatter
-from .tables import lookup_material
-from .textures import sample_texture
+from .scatter import antialias_jitter
 
 BACKENDS = ("pallas", "plain", "xla", "woop")
 # The regen loop looks for its end every this many iterations: each look
 # is a host sync on the card, and an iteration with no active lane changes
-# nothing.
+# nothing. On the card each look is followed by the replay of one graph of
+# this many iterations (or of the rest up to the cap).
 EXIT_CHECK_EVERY = 8
-_PARK_ORIGIN = 1e13
+# what rebin and lanesort regroup each iteration, besides ``home``
+_REGROUPED = ("o", "d", "thru", "rad", "pixel_sum", "o0p", "d0p",
+              "cur_ior", "kd", "bounce_i", "sample_i")
 
 
-def _bounce_physics(ws: WaveScene, settings: RenderSettings, backend: str,
-                    sky, o, d, thru, rad, alive, cur_ior, jitter_u3, gauss,
-                    fresnel_u, rr_u=None, bounces_done=None):
-    """One bounce for all lanes (integrator.py:59-126). Returns (o, d,
-    thru, rad, cur_ior, path_continues); ``sky`` is the (3, 1) sky colour
-    on the rays' device. With ``rr_u``, russian roulette on paths past
-    ``settings.russian_roulette`` bounces: survive with p =
-    clamp(max(throughput), 0.05, 1), throughput divided by p."""
+@dataclasses.dataclass
+class _Route:
+    """What a wavefront call's iterations read besides the lane state.
+    ``graph``: the iterations are captured into a CUDA graph (the kernel
+    route on the card): the state stays in its static tensors, updated in
+    place, and the coherent draw takes its key and iteration from device
+    memory. ``tile_key``: the eager coherent draw's key."""
+
+    ws: WaveScene
+    settings: RenderSettings
+    backend: str
+    graph: bool = False
+    tile_key: np.ndarray = None
+
+    @property
+    def plain(self) -> bool:
+        return self.backend == "plain"
+
+    @property
+    def use_rr(self) -> bool:
+        return self.settings.russian_roulette > 0
+
+
+def _replays(backend: str, o: torch.Tensor) -> bool:
+    """Whether a call runs as replayed CUDA graphs: the kernel route on a
+    CUDA tensor. The plain route, the oracles and CPU tensors run eagerly."""
+    return backend == "pallas" and o.device.type == "cuda"
+
+
+def _bounce(route: _Route, st: dict, drawn, *, regen: bool,
+            bounce: int = 0, park: bool = False) -> None:
+    """One bounce of every lane of ``st`` (integrator.py:59-126): the
+    antialias jitter, the nearest hit and its resolve (K5 / K6 on the
+    kernel route), then ``wave_bounce`` (``rt_wave_bounce``). ``drawn``:
+    the lane randoms (jitter, gauss, Fresnel[, russian roulette])."""
+    settings, ws = route.settings, route.ws
     scene = ws.scene
-    if settings.antialias:
-        d = antialias_jitter(jitter_u3, d)
-
-    if backend in ("pallas", "plain"):
-        rec, shade = hit_and_resolve(ws, o, d,
+    o = st["o"]
+    dj = antialias_jitter(drawn[0], st["d"]) if settings.antialias \
+        else st["d"]
+    if route.backend in ("pallas", "plain"):
+        rec, shade = hit_and_resolve(ws, o, dj,
                                      need_sphere_uv=scene.needs_sphere_uv,
-                                     plain=backend == "plain")
+                                     plain=route.plain)
     else:
-        rec = intersect.nearest_hit(o, d, scene, backend=backend)
-        shade = intersect.resolve_hit(o, d, scene, rec)
-
-    # a miss adds the sky and ends the path (src/raytracer.cu:76-80)
-    miss = alive & ~rec.hit
-    rad = rad + torch.where(miss[None, :], thru * sky, 0.0)
-
-    cols = lookup_material(scene, shade.mat_id)
-    is_emissive = cols.mat_type == MAT_EMISSIVE
-    live_hit = alive & rec.hit
-    # emission adds, else the throughput takes the texture colour
-    # (src/raytracer.cu:86-90)
-    rad = rad + torch.where((live_hit & is_emissive)[None, :],
-                            thru * cols.emit, 0.0)
-    tex = sample_texture(scene, cols, shade.u, shade.v, shade.colour)
-    thru = torch.where((live_hit & ~is_emissive)[None, :], thru * tex, thru)
-
-    new_d, new_ior = scatter(
-        gauss, fresnel_u, d, shade.normal, cols.mat_type, shade.smooth,
-        cols.ior, cur_ior, fix_exit_ior=settings.fix_exit_ior,
-        has_refractive=bool(scene.has_refractive))
-    o = torch.where(live_hit[None, :], shade.point, o)
-    d = torch.where(live_hit[None, :], new_d, d)
-    cur_ior = torch.where(live_hit, new_ior, cur_ior)
-
-    path_continues = live_hit
-    if settings.emissive_terminates:
-        path_continues = path_continues & ~is_emissive
-    if rr_u is not None:
-        p = torch.clamp(thru.amax(dim=0), 0.05, 1.0)
-        eligible = path_continues & (
-            bounces_done + 1 >= settings.russian_roulette)
-        survive = rr_u < p
-        thru = torch.where((eligible & survive)[None, :], thru / p[None, :],
-                           thru)
-        path_continues = path_continues & ~(eligible & ~survive)
-    return o, d, thru, rad, cur_ior, path_continues
+        rec = intersect.nearest_hit(o, dj, scene, backend=route.backend)
+        shade = intersect.resolve_hit(o, dj, scene, rec)
+    st.update(wave_bounce(
+        scene, settings, st, dj, rec.hit, shade, drawn[1], drawn[2],
+        drawn[3] if route.use_rr else None, regen=regen, bounce=bounce,
+        park=park, plain=route.backend != "pallas", inplace=route.graph))
 
 
-def _sky(settings: RenderSettings, dev) -> torch.Tensor:
-    return torch.tensor(settings.sky_colour, dtype=torch.float32,
-                        device=dev)[:, None]
+def _trace_iterations(route: _Route, st: dict, keys: torch.Tensor) -> None:
+    """One sample's ``reflect_limit`` bounces with an alive mask on the
+    lane state ``st`` (integrator.py:148-187), counting live segments into
+    ``st["segs"]``; ``keys``: the per-ray keys of the sample."""
+    for b in range(route.settings.reflect_limit):
+        st["segs"].add_(st["alive"].sum())
+        drawn = rng.bounce_randoms(keys, b, route.use_rr, plain=route.plain)
+        _bounce(route, st, drawn, regen=False, bounce=b)
+
+
+def _scan_state(o: torch.Tensor, d: torch.Tensor) -> dict:
+    n = o.shape[1]
+    return {"o": o, "d": d, "thru": torch.ones_like(o),
+            "rad": torch.zeros_like(o),
+            "alive": torch.ones(n, dtype=torch.bool, device=o.device),
+            "cur_ior": torch.ones(n, dtype=torch.float32, device=o.device),
+            "segs": torch.zeros((), dtype=torch.int64, device=o.device)}
+
+
+class _ScanGraph:
+    """One sample of the scan sampler (and of ``trace``) captured on
+    static tensors: the primary rays, the sample's key and the pixel
+    indices in; the radiance and the live segments out. The graph derives
+    the per-ray keys from the key in device memory, so one capture serves
+    every sample, frame and camera of its shape."""
+
+    def __init__(self, route: _Route, n: int):
+        dev = route.ws.device
+        self.o0 = torch.empty((3, n), dtype=torch.float32, device=dev)
+        self.d0 = torch.empty_like(self.o0)
+        self.key = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.ray_idx = torch.zeros(n, dtype=torch.int64, device=dev)
+        self.st = _scan_state(self.o0.clone(), self.d0.clone())
+
+        def body():
+            st = self.st
+            st["o"].copy_(self.o0)
+            st["d"].copy_(self.d0)
+            st["thru"].fill_(1.0)
+            st["rad"].zero_()
+            st["alive"].fill_(True)
+            st["cur_ior"].fill_(1.0)
+            st["segs"].zero_()
+            _trace_iterations(route, st,
+                              rng.per_ray_keys(self.key, self.ray_idx))
+        self.graph = wave_graph.capture(route.ws, n, body)
+
+    def run(self, o: torch.Tensor, d: torch.Tensor, key: np.ndarray,
+            ray_idx: torch.Tensor):
+        """Replay one sample; the outputs are the static tensors, which
+        the next replay overwrites."""
+        self.o0.copy_(o)
+        self.d0.copy_(d)
+        self.ray_idx.copy_(ray_idx)
+        rng.set_key(self.key, key)
+        self.graph.replay()
+        return self.st["rad"], self.st["segs"]
 
 
 def _trace_soa(ws: WaveScene, settings: RenderSettings, ray_idx, o, d,
                key: np.ndarray, backend: str):
     """One sample for every (3, N) ray: ``reflect_limit`` bounces with an
     alive mask (integrator.py:148-187). Returns ((3, N) radiance, int64
-    count of live segments)."""
-    ray_keys = rng.per_ray_keys(key, ray_idx)
-    use_rr = settings.russian_roulette > 0
-    sky = _sky(settings, o.device)
-    thru = torch.ones_like(o)
-    rad = torch.zeros_like(o)
-    alive = torch.ones(o.shape[1], dtype=torch.bool, device=o.device)
-    cur_ior = torch.ones(o.shape[1], dtype=torch.float32, device=o.device)
-    segs = torch.zeros((), dtype=torch.int64, device=o.device)
-    for bounce_i in range(settings.reflect_limit):
-        segs = segs + alive.sum()
-        drawn = rng.bounce_randoms(ray_keys, bounce_i, use_rr,
-                                   plain=backend == "plain")
-        o, d, thru, rad, cur_ior, alive = _bounce_physics(
-            ws, settings, backend, sky, o, d, thru, rad, alive, cur_ior,
-            *drawn[:3], rr_u=drawn[3] if use_rr else None,
-            bounces_done=bounce_i)
-    return rad, segs
+    count of live segments); on the card the replayed graph's own
+    tensors, valid until the next replay of the same shape."""
+    route = _Route(ws, settings, backend)
+    if _replays(backend, o):
+        route.graph = True
+        cache_key = ("scan", o.shape[1], settings, backend)
+        if cache_key not in ws.graphs:
+            ws.graphs[cache_key] = _ScanGraph(route, o.shape[1])
+        return ws.graphs[cache_key].run(o, d, key, ray_idx)
+    st = _scan_state(o, d)
+    _trace_iterations(route, st, rng.per_ray_keys(key, ray_idx))
+    return st["rad"], st["segs"]
 
 
 def _wave_inputs(scene, o: torch.Tensor, ray_idx, backend: str):
@@ -166,15 +223,127 @@ def trace(scene, settings: RenderSettings, o: torch.Tensor,
     (``rng.key``, ``rng.fold_in``; ``jax.random.key_data`` of JAX's key),
     ``ray_idx`` the (N,) global pixel indices that key the per-ray streams
     (default 0..N-1), and ``backend`` defaults to the kernel route: on a
-    CUDA tensor every bounce launches ``rt_lane_randoms`` and K5
-    (``rt_hit_resolve``, or K6 for a scene over the resident budget);
-    ``"plain"`` runs their plain versions on any device, ``"xla"`` and
-    ``"woop"`` are JAX's CPU oracles. ``scene`` is a SceneArrays or a
-    WaveScene built from one."""
+    CUDA tensor every bounce launches ``rt_lane_randoms``, K5
+    (``rt_hit_resolve``, or K6 for a scene over the resident budget) and
+    ``rt_wave_bounce``, replayed from a CUDA graph that the WaveScene
+    caches per shape and settings; ``"plain"`` runs their plain versions
+    on any device, ``"xla"`` and ``"woop"`` are JAX's CPU oracles.
+    ``scene`` is a SceneArrays or a WaveScene built from one: pass the
+    WaveScene to replay its graph, a SceneArrays is packed (and on the
+    card captured) anew each call."""
     ws, ray_idx = _wave_inputs(scene, o, ray_idx, backend)
     rad, segs = _trace_soa(ws, settings, ray_idx, o.T.contiguous(),
                            d.T.contiguous(), key, backend)
-    return rad.T, segs.to(torch.float64)
+    return rad.T.clone(), segs.to(torch.float64)
+
+
+def _regen_state(o0: torch.Tensor, d0: torch.Tensor, kd: torch.Tensor,
+                 home_size=None) -> dict:
+    n = o0.shape[1]
+    dev = o0.device
+    st = {"o": o0, "d": d0, "o0p": o0, "d0p": d0,
+          "thru": torch.ones_like(o0), "rad": torch.zeros_like(o0),
+          "pixel_sum": torch.zeros_like(o0),
+          "bounce_i": torch.zeros(n, dtype=torch.int32, device=dev),
+          "sample_i": torch.zeros(n, dtype=torch.int32, device=dev),
+          "cur_ior": torch.ones(n, dtype=torch.float32, device=dev),
+          "kd": kd, "segs": torch.zeros((), dtype=torch.int64, device=dev)}
+    if home_size is not None:
+        st["home"] = torch.arange(home_size, dtype=torch.int64, device=dev)
+    return st
+
+
+def _regen_iteration(route: _Route, st: dict, it: int, rebin: bool,
+                     lane_sort: bool) -> None:
+    """One iteration of the regen loop (integrator.py:251-355) on the lane
+    state ``st``: every active lane bounces once, a lane whose path ends
+    restarts on its pixel's next sample (``rt_wave_bounce``'s regen arm),
+    then rebin / lanesort regroup the lanes. ``it`` counts iterations from
+    0 and keys the eager coherent draw; a captured iteration reads it from
+    ``st["it"]`` and counts it there."""
+    settings = route.settings
+    spp = settings.rays_per_pixel
+    n = st["o"].shape[1]
+    st["segs"].add_((st["sample_i"] < spp).sum())
+    if settings.coherent and route.graph:
+        drawn = rng.tile_randoms_at(st["key"], st["it"], n,
+                                    with_rr=route.use_rr)
+        st["it"].add_(1)
+    elif settings.coherent:
+        drawn = rng.tile_randoms(rng.fold_in(route.tile_key, it), n,
+                                 with_rr=route.use_rr, device=st["o"].device,
+                                 plain=route.plain)
+    else:
+        drawn = rng.lane_randoms(st["kd"], st["sample_i"], st["bounce_i"],
+                                 route.use_rr, plain=route.plain)
+    _bounce(route, st, drawn, regen=True, park=rebin or lane_sort)
+    if not (rebin or lane_sort):
+        return
+    done = st["sample_i"] >= spp
+    if lane_sort:
+        dest = lane_destinations(lane_buckets(st["o"], st["d"], done))
+        moved = apply_lane_permutation(
+            dest, [st[k] for k in _REGROUPED + ("home",)])
+    else:
+        perm = bucket_permutation(row_buckets(st["o"], st["d"], done))
+        moved = [permute_rows(perm, st[k]) for k in _REGROUPED] + [
+            st["home"][perm]]
+    for k, x in zip(_REGROUPED + ("home",), moved):
+        if route.graph:
+            st[k].copy_(x)
+        else:
+            st[k] = x
+
+
+class _RegenGraphs:
+    """The regen, rebin and lanesort iterations of one call shape,
+    captured on static lane state: a graph of EXIT_CHECK_EVERY iterations
+    and, where ``spp * reflect_limit`` is not a multiple of it, one of the
+    rest. The primary rays, the per-pixel keys, the coherent tile key and
+    the iteration counter live in device memory, so one capture serves
+    every frame and camera of its shape."""
+
+    def __init__(self, route: _Route, n: int, rebin: bool, lane_sort: bool):
+        dev = route.ws.device
+        self.route, self.rebin, self.lane_sort = route, rebin, lane_sort
+        def rows():
+            return torch.empty((3, n), dtype=torch.float32, device=dev)
+        home = None
+        if rebin or lane_sort:
+            home = n if lane_sort else n // LANES
+        self.st = _regen_state(
+            rows(), rows(),
+            torch.zeros((2, n), dtype=torch.int64, device=dev), home)
+        self.st.update(o0p=rows(), d0p=rows(),
+                       key=torch.zeros(2, dtype=torch.int64, device=dev),
+                       it=torch.zeros(1, dtype=torch.int64, device=dev))
+        self.graphs: dict = {}
+
+    def reset(self, o0, d0, kd, tile_key) -> None:
+        """The frame's start: every lane on its first sample."""
+        st = self.st
+        for k, x in (("o", o0), ("d", d0), ("o0p", o0), ("d0p", d0),
+                     ("kd", kd)):
+            st[k].copy_(x)
+        st["thru"].fill_(1.0)
+        st["cur_ior"].fill_(1.0)
+        for k in ("rad", "pixel_sum", "bounce_i", "sample_i", "segs", "it"):
+            st[k].zero_()
+        if "home" in st:
+            torch.arange(st["home"].shape[0], out=st["home"])
+        if tile_key is not None:
+            rng.set_key(st["key"], tile_key)
+
+    def step(self, it: int, k: int) -> None:
+        """Replay ``k`` iterations (captured on first use)."""
+        if k not in self.graphs:
+            def body():
+                for _ in range(k):
+                    _regen_iteration(self.route, self.st, 0, self.rebin,
+                                     self.lane_sort)
+            self.graphs[k] = wave_graph.capture(self.route.ws,
+                                                self.st["o"].shape[1], body)
+        self.graphs[k].replay()
 
 
 def _render_regen_soa(ws: WaveScene, settings: RenderSettings, ray_idx,
@@ -190,99 +359,61 @@ def _render_regen_soa(ws: WaveScene, settings: RenderSettings, ray_idx,
     iterations from 0 (integrator.py:257-269). Those draws belong to the
     lane position, not to the lane's pixel: they do not ride the rebin /
     lanesort permutation (only the per-pixel keys do, :271-274), so
-    coherent rebin and lanesort differ from coherent regen, as in JAX."""
+    coherent rebin and lanesort differ from coherent regen, as in JAX.
+
+    On the card (the kernel route) the iterations replay CUDA graphs that
+    ``ws`` caches per (N, settings, backend): one of EXIT_CHECK_EVERY
+    iterations between two looks for the end, as the eager loop looks."""
     spp = settings.rays_per_pixel
-    limit = settings.reflect_limit
+    cap = spp * settings.reflect_limit
     n = o0.shape[1]
     dev = o0.device
-    use_rr = settings.russian_roulette > 0
-    sky = _sky(settings, dev)
     lane_sort = bool(lane_sort) and n % LANES == 0 and n // LANES >= 8
     rebin = (bool(rebin) and not lane_sort
              and n % LANES == 0 and n // LANES >= 8)
-    carries_keys = rebin or lane_sort
     tile_key = rng.fold_in(frame_key, tile_offset) if settings.coherent \
         else None
-
     kd = rng.per_ray_keys(frame_key, ray_idx)
-    o, d = o0, d0
-    o0p, d0p = o0, d0
-    thru = torch.ones_like(o0)
-    rad = torch.zeros_like(o0)
-    pixel_sum = torch.zeros_like(o0)
-    bounce_i = torch.zeros(n, dtype=torch.int32, device=dev)
-    sample_i = torch.zeros(n, dtype=torch.int32, device=dev)
-    cur_ior = torch.ones(n, dtype=torch.float32, device=dev)
-    home = (torch.arange(n if lane_sort else n // LANES, dtype=torch.int64,
-                         device=dev) if carries_keys else None)
-    park_d = torch.tensor([1.0, 0.0, 0.0], device=dev)[:, None]
-    segs = torch.zeros((), dtype=torch.int64, device=dev)
+    route = _Route(ws, settings, backend, tile_key=tile_key)
+
+    if _replays(backend, o0):
+        route.graph = True
+        cache_key = ("regen", n, settings, backend)
+        if cache_key not in ws.graphs:
+            ws.graphs[cache_key] = _RegenGraphs(route, n, rebin, lane_sort)
+        runner = ws.graphs[cache_key]
+        runner.reset(o0, d0, kd, tile_key)
+        st, step = runner.st, runner.step
+    else:
+        home = None
+        if rebin or lane_sort:
+            home = n if lane_sort else n // LANES
+        st = _regen_state(o0, d0, kd, home)
+
+        def step(it, k):
+            for j in range(k):
+                _regen_iteration(route, st, it + j, rebin, lane_sort)
 
     it = 0
-    while it < spp * limit:
-        if it % EXIT_CHECK_EVERY == 0 and not bool((sample_i < spp).any()):
+    while it < cap:
+        if not bool((st["sample_i"] < spp).any()):
             break
-        it += 1
-        active = sample_i < spp
-        segs = segs + active.sum()
-        if tile_key is not None:
-            # ``it`` already counts this iteration; JAX's is 0 here
-            drawn = rng.tile_randoms(rng.fold_in(tile_key, it - 1), n,
-                                     with_rr=use_rr, device=dev,
-                                     plain=backend == "plain")
-        else:
-            drawn = rng.lane_randoms(kd, sample_i, bounce_i, use_rr,
-                                     plain=backend == "plain")
-        o, d, thru, rad, cur_ior, continues = _bounce_physics(
-            ws, settings, backend, sky, o, d, thru, rad, active, cur_ior,
-            *drawn[:3], rr_u=drawn[3] if use_rr else None,
-            bounces_done=bounce_i)
+        k = min(EXIT_CHECK_EVERY, cap - it)
+        step(it, k)
+        it += k
 
-        # a path ends on a miss or termination, or at the bounce limit
-        path_end = active & (~continues | (bounce_i + 1 >= limit))
-        pixel_sum = pixel_sum + torch.where(path_end[None, :], rad, 0.0)
-
-        # regenerate finished lanes onto their next sample
-        sample_i = torch.where(path_end, sample_i + 1, sample_i)
-        bounce_i = torch.where(path_end, 0,
-                               torch.where(active, bounce_i + 1, bounce_i))
-        restart = path_end[None, :]
-        o = torch.where(restart, o0p, o)
-        d = torch.where(restart, d0p, d)
-        thru = torch.where(restart, 1.0, thru)
-        rad = torch.where(restart, 0.0, rad)
-        cur_ior = torch.where(path_end, 1.0, cur_ior)
-
-        if carries_keys:
-            # park exhausted lanes far away, pointing at nothing
-            done = sample_i >= spp
-            o = torch.where(done[None, :], _PARK_ORIGIN, o)
-            d = torch.where(done[None, :], park_d, d)
-        if lane_sort:
-            dest = lane_destinations(lane_buckets(o, d, done))
-            (o, d, thru, rad, pixel_sum, o0p, d0p, cur_ior, kd, bounce_i,
-             sample_i, home) = apply_lane_permutation(
-                dest, (o, d, thru, rad, pixel_sum, o0p, d0p, cur_ior, kd,
-                       bounce_i, sample_i, home))
-        elif rebin:
-            perm = bucket_permutation(row_buckets(o, d, done))
-            (o, d, thru, rad, pixel_sum, o0p, d0p, kd, bounce_i, sample_i,
-             cur_ior) = (permute_rows(perm, a) for a in (
-                 o, d, thru, rad, pixel_sum, o0p, d0p, kd, bounce_i,
-                 sample_i, cur_ior))
-            home = home[perm]
-
+    pixel_sum = st["pixel_sum"]
     if lane_sort:
         # home[current lane] = original lane
         out = torch.empty_like(pixel_sum)
-        out[:, home] = pixel_sum
+        out[:, st["home"]] = pixel_sum
         pixel_sum = out
     elif rebin:
-        unperm = torch.empty_like(home)
-        unperm[home] = torch.arange(home.shape[0], device=dev)
+        unperm = torch.empty_like(st["home"])
+        unperm[st["home"]] = torch.arange(st["home"].shape[0], device=dev)
         pixel_sum = permute_rows(unperm, pixel_sum)
-    spp_t = torch.tensor(float(spp), dtype=torch.float32, device=dev)
-    return pixel_sum / spp_t, segs
+    spp_t = torch.full((), float(spp), dtype=torch.float32, device=dev)
+    return pixel_sum / spp_t, st["segs"].clone()
 
 
 def render_sample_mean(scene, settings: RenderSettings, o: torch.Tensor,
@@ -330,8 +461,8 @@ def render_sample_mean(scene, settings: RenderSettings, o: torch.Tensor,
                                      rng.sample_key(frame_key, s), backend)
             total = total + rad
             segs = segs + n_segs
-        spp_t = torch.tensor(float(settings.rays_per_pixel),
-                             dtype=torch.float32, device=o.device)
+        spp_t = torch.full((), float(settings.rays_per_pixel),
+                           dtype=torch.float32, device=o.device)
         mean = total / spp_t
     return mean.T, segs.to(torch.float64)
 

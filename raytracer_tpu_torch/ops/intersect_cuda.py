@@ -308,7 +308,9 @@ class WaveScene:
     (material and texture tables), and either the resident sweep pools
     (K5) or the blocked layout (K6). ``blocked=None`` routes by
     ``fits_smem``, as the JAX package does; True or False forces a route
-    (the JAX package's RAYTRACER_FORCE_BLOCKED)."""
+    (the JAX package's RAYTRACER_FORCE_BLOCKED). ``graphs`` caches the
+    wavefront samplers' captured CUDA graphs over this scene
+    (ops/wave_graph.py)."""
 
     def __init__(self, scene, blocked=None):
         self.scene = scene
@@ -316,6 +318,7 @@ class WaveScene:
             else bool(blocked)
         self.packed = None if self.blocked else pack(scene)
         self.tables = blocked_tables(scene) if self.blocked else None
+        self.graphs: dict = {}
 
     @property
     def device(self) -> torch.device:

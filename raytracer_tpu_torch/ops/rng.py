@@ -22,6 +22,11 @@ normals go through XLA's float32 erfinv polynomial (hazard H8: not
 version is ``lane_randoms_reference``, int64 torch arithmetic. Coherent
 sampling's per-tile draw ``tile_randoms`` launches ``rt_tile_randoms``
 (same file) on the card; its plain version is ``tile_randoms_reference``.
+A replayed CUDA graph (ops/wave_graph.py) cannot take a key from the
+host: there ``tile_randoms_at`` has ``rt_tile_randoms`` fold the tile key
+held in device memory with the iteration counter held there
+(``fold_in_tensor`` is that fold in torch), and ``per_ray_keys`` takes its
+key as a device tensor.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..utils.device import resolve_device
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 GOLDEN = 0x9E3779B9      # == int32 -1640531527, the tile-seed multiplier
@@ -167,12 +174,37 @@ def sample_key(fkey: np.ndarray, sample_idx: int) -> np.ndarray:
     return fold_in(fkey, sample_idx)
 
 
-def per_ray_keys(k: np.ndarray, ray_idx: torch.Tensor) -> torch.Tensor:
+def per_ray_keys(k, ray_idx: torch.Tensor) -> torch.Tensor:
     """``fold_in(k, i)`` for every global pixel index i of ``ray_idx``
-    (rng.py:32-39): (2, N) int64 key words on ray_idx's device."""
-    kd = key_data(k)
+    (rng.py:32-39): (2, N) int64 key words on ray_idx's device. ``k`` is
+    a key (numpy) or its two words as a (2,) int64 tensor on that device
+    (``set_key`` writes them), which a replayed graph reads from device
+    memory; both give the same bits."""
+    if isinstance(k, torch.Tensor):
+        k0, k1 = k[0], k[1]
+    else:
+        kd = key_data(k)
+        k0, k1 = int(kd[0]), int(kd[1])
     idx = ray_idx.to(torch.int64) & _MASK
-    y0, y1 = threefry2x32_t(int(kd[0]), int(kd[1]), 0, idx)
+    y0, y1 = threefry2x32_t(k0, k1, 0, idx)
+    return torch.stack([y0, y1])
+
+
+def set_key(buf: torch.Tensor, k: np.ndarray) -> None:
+    """Write a key's two words into a (2,) int64 device buffer with two
+    fills: no copy from host memory, so no host sync and nothing a CUDA
+    graph could not replay around."""
+    kd = key_data(k)
+    buf[0].fill_(int(kd[0]))
+    buf[1].fill_(int(kd[1]))
+
+
+def fold_in_tensor(k: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``fold_in`` on tensors: ``k`` (2,) int64 key words, ``data`` an
+    int64 tensor holding values in [0, 2**32); returns the (2,) int64
+    words of ``fold_in(k, data)``, bitwise ``rng.fold_in``. The plain
+    version of the fold ``rt_tile_randoms`` does on the card."""
+    y0, y1 = threefry2x32_t(k[0], k[1], 0, data.reshape(()) & _MASK)
     return torch.stack([y0, y1])
 
 
@@ -248,6 +280,11 @@ def _lane_randoms_cuda(keys, sample_i, bounce_i, with_rr) -> torch.Tensor:
     return out
 
 
+def _split_rows(out: torch.Tensor, with_rr: bool):
+    drawn = (out[0:3], out[3:6], out[6])
+    return drawn + (out[7],) if with_rr else drawn
+
+
 def lane_randoms(keys: torch.Tensor, sample_i, bounce_i,
                  with_rr: bool = False, plain: bool = False):
     """Per-lane randoms of the regeneration sampler (rng.py:75-101).
@@ -273,19 +310,20 @@ def lane_randoms(keys: torch.Tensor, sample_i, bounce_i,
         out = _lane_randoms_cuda(keys, sample_i, bounce_i, with_rr)
     else:
         raise ValueError(f"no lane randoms for device {keys.device}")
-    drawn = (out[0:3], out[3:6], out[6])
-    return drawn + (out[7],) if with_rr else drawn
+    return _split_rows(out, with_rr)
 
 
 def tile_randoms_reference(it_key: np.ndarray, n: int, tile: int = 1024,
                            with_rr: bool = False,
-                           device="cpu") -> torch.Tensor:
+                           device="cuda") -> torch.Tensor:
     """Plain version of ``rt_tile_randoms``: ``split(it_key, 3|4)`` gives
     the subkeys; each draws a (3, nt) or (nt,) ``jax.random.bits`` block,
     whose element j is ``x0 ^ x1`` of ``threefry2x32(subkey, (0, j))``,
     nt = ceil(n / tile). Returns (7|8, n) float32 rows on ``device`` (the
     rows of ``lane_randoms_reference``), each tile's value repeated over
-    its ``tile`` lanes and the last tile cut at ``n``."""
+    its ``tile`` lanes and the last tile cut at ``n``. ``device`` defaults
+    to the card (utils/device.py), as ``build_scene`` does."""
+    device = resolve_device(device)
     nt = -(-n // tile)
     rows = []
     for s, count in enumerate((3, 3, 1, 1)[:4 if with_rr else 3]):
@@ -299,13 +337,22 @@ def tile_randoms_reference(it_key: np.ndarray, n: int, tile: int = 1024,
     return rows[:, :, None].expand(-1, nt, tile).reshape(-1, nt * tile)[:, :n]
 
 
-def _tile_randoms_cuda(it_key, n, tile, with_rr, device) -> torch.Tensor:
+def _tile_randoms_cuda(it_key, n, tile, with_rr, device,
+                       key_dev=None, iter_dev=None) -> torch.Tensor:
+    """Launch rt_tile_randoms under ``it_key``, or, with ``key_dev`` and
+    ``iter_dev``, under the fold of the key words and the counter that
+    the kernel reads from device memory."""
     from ..kernels import build
     rows = 8 if with_rr else 7
     out = torch.empty((rows, n), dtype=torch.float32, device=device)
-    kd = key_data(it_key)
-    args = build.TileArgs(key0=int(kd[0]), key1=int(kd[1]),
-                          out=out.data_ptr(), n=n, rows=rows, tile=tile)
+    if key_dev is None:
+        kd = key_data(it_key)
+        args = build.TileArgs(key0=int(kd[0]), key1=int(kd[1]),
+                              out=out.data_ptr(), n=n, rows=rows, tile=tile)
+    else:
+        args = build.TileArgs(out=out.data_ptr(), n=n, rows=rows, tile=tile,
+                              key_dev=key_dev.data_ptr(),
+                              iter_dev=iter_dev.data_ptr())
     lib = build.load()
     rc = lib.rt_tile_randoms(ctypes.byref(args),
                              ctypes.c_void_p(build.stream(device)))
@@ -316,22 +363,47 @@ def _tile_randoms_cuda(it_key, n, tile, with_rr, device) -> torch.Tensor:
 
 
 def tile_randoms(it_key: np.ndarray, n: int, tile: int = 1024,
-                 with_rr: bool = False, device="cpu", plain: bool = False):
+                 with_rr: bool = False, device="cuda", plain: bool = False):
     """Coherent sampling's draw (rng.py:104-127): one bundle per ``tile``
     consecutive lanes, keyed by the caller's per-iteration key. Same
     return contract as ``lane_randoms``, each row repeated over ``tile``
-    lanes and cut at ``n``. On a CUDA ``device`` it launches
-    ``rt_tile_randoms`` (or raises); on the CPU, or with ``plain=True`` on
-    any device, it takes ``tile_randoms_reference``."""
-    device = torch.device(device)
+    lanes and cut at ``n``. ``device`` defaults to the card
+    (utils/device.py) and raises without one. On a CUDA ``device`` it
+    launches ``rt_tile_randoms`` (or raises); on the CPU, or with
+    ``plain=True`` on any device, it takes ``tile_randoms_reference``."""
+    device = resolve_device(device)
     if device.type == "cpu" or plain:
         out = tile_randoms_reference(it_key, n, tile, with_rr, device)
-    elif device.type == "cuda":
-        out = _tile_randoms_cuda(it_key, n, tile, with_rr, device)
     else:
-        raise ValueError(f"no tile randoms for device {device}")
-    drawn = (out[0:3], out[3:6], out[6])
-    return drawn + (out[7],) if with_rr else drawn
+        out = _tile_randoms_cuda(it_key, n, tile, with_rr, device)
+    return _split_rows(out, with_rr)
+
+
+def tile_randoms_at(key_dev: torch.Tensor, iter_dev: torch.Tensor, n: int,
+                    tile: int = 1024, with_rr: bool = False):
+    """``tile_randoms`` under ``fold_in(key, it)`` with the key words
+    (``key_dev``, (2,) int64) and ``it`` (``iter_dev``, (1,) int64) on the
+    device: on a CUDA tensor ``rt_tile_randoms`` reads and folds them when
+    it runs, so that a replayed CUDA graph draws each iteration under its
+    own key. CPU tensors take the plain version: ``fold_in_tensor``, then
+    ``tile_randoms_reference``."""
+    for name, x, size in (("key_dev", key_dev, 2), ("iter_dev", iter_dev, 1)):
+        if (x.dtype != torch.int64 or x.shape != (size,)
+                or x.device != key_dev.device or not x.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({size},) int64 "
+                             f"tensor on one device, got {tuple(x.shape)} "
+                             f"{x.dtype} on {x.device}")
+    dev = key_dev.device
+    if dev.type == "cpu":
+        it_key = np.array(fold_in_tensor(key_dev, iter_dev).tolist(),
+                          np.uint32)
+        out = tile_randoms_reference(it_key, n, tile, with_rr, dev)
+    elif dev.type == "cuda":
+        out = _tile_randoms_cuda(None, n, tile, with_rr, dev,
+                                 key_dev=key_dev, iter_dev=iter_dev)
+    else:
+        raise ValueError(f"no tile randoms for device {dev}")
+    return _split_rows(out, with_rr)
 
 
 def bounce_randoms(ray_keys: torch.Tensor, bounce_idx: int,

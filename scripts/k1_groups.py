@@ -38,10 +38,12 @@ and one kernel frame); one frame of each bench scene; the 4K fly-through
 (16 moves, each followed by a frame, one final sync); the coherent
 scene-4 and stress10k paths; and what phases 9, 10 and 12 time of K5 and
 K6 (wavefront): K5 on phase 9's 1M rays over scene 4, K6 and K5 on phase
-10's 1M stress100k field rays, and the scene-4 (20 spp) and stress100k
-(4 spp) regen paths through ``Renderer`` at 1000x800 (5 frames after a
-warm-up; then one frame under torch.profiler: the device ms of K5 or
-K6 in it). Run it once per tree in separate processes, in turns, to
+10's 1M stress100k field rays, the scene-4 (20 spp), stress100k (4 spp)
+and earth2048 (20 spp) regen paths through ``Renderer`` at 1000x800 (5
+frames after a warm-up; then one frame under torch.profiler: the device
+ms of K5 or K6 in it and the device's busy share), and phase 18a's
+``trace`` (scene 4, 1000x800, one sample; 5 calls after a warm-up, one
+more under torch.profiler). Run it once per tree in separate processes, in turns, to
 compare two trees on one card: ``pairs`` does that (``chip_smoke.py
 --parent DIR`` runs two pairs of every path), printing each path's values,
 medians and interquartile ranges and the pairs the change won.
@@ -237,6 +239,7 @@ def paths_wavefront(dev, emit_path) -> None:
 
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.ops import intersect_cuda as ic
+    from raytracer_tpu_torch.ops import rng
     scene, _ = rtt.build_scene(4, seed=0, device=dev)
     ws = ic.WaveScene(scene)
     o, d = cs.field_rays(dev, 1 << 20, 11, scene)
@@ -252,11 +255,15 @@ def paths_wavefront(dev, emit_path) -> None:
         ic.hit_resolve_unit(ws, o, d)
         emit_path("10", path,
                   ms=cs.cuda_ms(lambda: ic.hit_resolve_unit(ws, o, d), 3))
+    from raytracer_tpu_torch.models.scenes import procedural_earth_texture
     for path, (scene, sky), spp, pos in (
             ("scene4_regen", rtt.build_scene(4, seed=0), 20,
              (0.0, 0.0, 0.0)),
             ("stress100k_regen", cs.stress_scene(100000), 4,
-             (0.0, 1.0, -4.0))):
+             (0.0, 1.0, -4.0)),
+            ("earth2048_regen", rtt.build_scene(
+                2, earth_image=procedural_earth_texture(1024)), 20,
+             (0.0, 0.0, 0.0))):
         s = rtt.RenderSettings(rays_per_pixel=spp, reflect_limit=5,
                                antialias=True, sampler="regen").with_sky(sky)
         r = rtt.Renderer(scene, rtt.CameraConfig(width=1000, height=800,
@@ -274,6 +281,38 @@ def paths_wavefront(dev, emit_path) -> None:
         emit_path("12", f"{path}_{kernel}_device",
                   ms=prof[kernel]["device_ms"],
                   device_ms=prof["device_ms"], window_ms=prof["window_ms"])
+        emit_path("12", f"{path}_busy", busy_share=prof["busy_share"],
+                  device_ms=prof["device_ms"], window_ms=prof["window_ms"],
+                  host_kernel_launches=prof["host_kernel_launches"],
+                  host_graph_launches=prof["host_graph_launches"])
+    # phase 18a's trace: scene 4, bench.py's camera, one sample, its
+    # WaveScene built once (a tree that caches graphs replays after the
+    # warm-up call)
+    scene, sky = rtt.build_scene(4, seed=0, device=dev)
+    ws = ic.WaveScene(scene)
+    s = rtt.RenderSettings(rays_per_pixel=1, reflect_limit=5,
+                           antialias=True, sampler="regen").with_sky(sky)
+    order = cs.camera_order(1000, 800, dev)
+    o, d = rtt.primary_rays(rtt.build_camera(rtt.CameraConfig(
+        width=1000, height=800)), 1000, 800,
+        pixel_order=order.cpu().numpy(), device=dev)
+    key = rng.sample_key(rng.frame_key(rng.key(0), 0), 0)
+
+    def one_trace():
+        rad, _ = rtt.trace(ws, s, o, d, key, ray_idx=order)
+        torch.cuda.synchronize()
+        return rad
+    one_trace()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        rad = one_trace()
+    emit_path("18a", "trace_scene4_1000x800",
+              ms=(time.perf_counter() - t0) * 1e3 / 5,
+              finite=bool(torch.isfinite(rad).all()))
+    prof = cs.device_shares(one_trace, ())
+    emit_path("18a", "trace_scene4_1000x800_busy",
+              busy_share=prof["busy_share"], device_ms=prof["device_ms"],
+              window_ms=prof["window_ms"])
 
 
 def paths_k1k2(dev, emit_path) -> None:

@@ -64,7 +64,7 @@ def test_tile_randoms_match_jax(n, with_rr, tile_offset, it):
                                    tile_offset), it)
     np.testing.assert_array_equal(tk, np.asarray(jax.random.key_data(jk)))
     want = jrng.tile_randoms(jk, n, with_rr=with_rr)
-    got = trng.tile_randoms(tk, n, with_rr=with_rr)
+    got = trng.tile_randoms(tk, n, with_rr=with_rr, device="cpu")
     assert len(got) == len(want) == (4 if with_rr else 3)
     assert got[0].shape == got[1].shape == (3, n)
     assert got[2].shape == (n,)
@@ -84,7 +84,7 @@ def test_tile_randoms_share_a_tile():
     def rows(tile_offset, it, with_rr=False):
         drawn = trng.tile_randoms(
             trng.fold_in(trng.fold_in(fkey, tile_offset), it), n,
-            with_rr=with_rr)
+            with_rr=with_rr, device="cpu")
         return torch.cat([drawn[0], drawn[1]] + [x[None] for x in drawn[2:]])
 
     a = rows(0, 0)

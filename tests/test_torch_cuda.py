@@ -740,3 +740,160 @@ def test_builders_default_to_the_card(dev):
               bench_scenes.rtiow_trio_scene()[0].sph_center,
               vec.vec3(0, 0, 1)):
         assert t.device.type == "cuda"
+
+
+# -- the fused bounce (rt_wave_bounce) and the replayed wavefront loop -------
+
+def _bounce_scene(dev, num):
+    """Scenes 1-4, scene 2 with a 256x512 procedural earth ("earth") and
+    a gradient-textured sphere under an emissive one ("gradient")."""
+    if num == "gradient":
+        b = SceneBuilder()
+        b.add_sphere((0.0, 0.0, 1.7), 0.3,
+                     Material.standard(Texture.gradient(), 0.2))
+        b.add_sphere((0.3, 0.35, 1.5), 0.1,
+                     Material.emissive((1.0, 0.9, 0.8), 4))
+        return b.build(device=dev), True
+    if num == "earth":
+        return rtt.build_scene(2, device=dev,
+                               earth_image=procedural_earth_texture(256))
+    return rtt.build_scene(num, device=dev,
+                           **({"seed": 0} if num == 4 else {}))
+
+
+BOUNCE_VARIANTS = {"base": {}, "rr": {"russian_roulette": 1},
+                   "fix_emissive": {"fix_exit_ior": True,
+                                    "emissive_terminates": True}}
+
+
+@pytest.mark.parametrize("variant", sorted(BOUNCE_VARIANTS))
+@pytest.mark.parametrize("arm", ["scan", "regen"])
+@pytest.mark.parametrize("num", [1, 2, 3, 4, "earth", "gradient"])
+def test_wave_bounce_kernel_matches_plain(dev, num, arm, variant):
+    """rt_wave_bounce bitwise with wave_bounce_reference on the card, four
+    bounces of 128x64 lanes fed the same hits and randoms, in both arms
+    (regen with parking)."""
+    from raytracer_tpu_torch.ops import bounce as tb
+    from raytracer_tpu_torch.ops.intersect_cuda import (WaveScene,
+                                                        hit_and_resolve)
+    from raytracer_tpu_torch.ops.scatter import antialias_jitter
+    scene, sky = _bounce_scene(dev, num)
+    s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=3,
+                           **BOUNCE_VARIANTS[variant]).with_sky(sky)
+    ws = WaveScene(scene)
+    pos = (0.0, 0.5, -6.0) if num == 4 else (0.0, 0.0, 0.0)
+    o, d = _rays(dev, 128, 64, position=pos)
+    n = o.shape[1]
+    keys = trng.per_ray_keys(trng.key(7), torch.arange(n, device=dev))
+    use_rr = s.russian_roulette > 0
+    regen = arm == "regen"
+    st = {"o": o, "d": d, "thru": torch.ones_like(o),
+          "rad": torch.zeros_like(o),
+          "cur_ior": torch.ones(n, dtype=torch.float32, device=dev)}
+    if regen:
+        st.update(pixel_sum=torch.zeros_like(o), o0p=o, d0p=d,
+                  sample_i=torch.zeros(n, dtype=torch.int32, device=dev),
+                  bounce_i=torch.zeros(n, dtype=torch.int32, device=dev))
+    else:
+        st["alive"] = torch.ones(n, dtype=torch.bool, device=dev)
+    for b in range(4):
+        drawn = (trng.lane_randoms(keys, st["sample_i"], st["bounce_i"],
+                                   use_rr) if regen
+                 else trng.bounce_randoms(keys, b, use_rr))
+        dj = antialias_jitter(drawn[0], st["d"])
+        rec, shade = hit_and_resolve(ws, st["o"], dj,
+                                     need_sphere_uv=scene.needs_sphere_uv)
+        args = (scene, s, st, dj, rec.hit, shade, drawn[1], drawn[2],
+                drawn[3] if use_rr else None)
+        before = tb.LAUNCHES
+        got = tb.wave_bounce(*args, regen=regen, bounce=b, park=regen)
+        torch.cuda.synchronize()
+        assert tb.LAUNCHES == before + 1
+        want = tb.wave_bounce_reference(*args, regen=regen, bounce=b,
+                                        park=regen)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        st.update(got)
+
+
+GRAPH_CASES = [("regen", False), ("regen", True), ("scan", False),
+               ("rebin", False), ("lanesort", False)]
+
+
+@pytest.mark.parametrize("sampler,coherent", GRAPH_CASES)
+def test_graph_replay_matches_plain_route(dev, sampler, coherent):
+    """Two Renderer frames replay the captured iterations (12 a regen
+    frame: a block of 8 and one of 4), each running mean bitwise the
+    plain route's (every kernel replaced by its plain version, eager)."""
+    from raytracer_tpu_torch.ops import integrator as tint
+    from raytracer_tpu_torch.ops import wave_graph as twg
+    scene, sky = rtt.build_scene(4, seed=0, device=dev)
+    s = rtt.RenderSettings(rays_per_pixel=3, reflect_limit=4,
+                           sampler=sampler, coherent=coherent,
+                           russian_roulette=2).with_sky(sky)
+    cam = rtt.CameraConfig(width=64, height=32, position=(0.0, 0.5, -6.0))
+    r = rtt.Renderer(scene, cam, s, device=dev)
+    accum = rtt.film.new_accumulator(64 * 32, dev)
+    replays = twg.REPLAYS
+    for frame in range(2):
+        r.render_frame(block=True)
+        tint.render_frame(r.packed_scene, s, r._o, r._d, accum, frame,
+                          r.base_key, ray_idx=r._ray_idx, backend="plain")
+        assert torch.equal(r.accum, accum)
+    assert twg.REPLAYS > replays and r.packed_scene.graphs
+
+
+def test_camera_change_replays_without_recapture(dev):
+    """A new camera writes its rays into the captured graph's static
+    inputs: no capture after the first frame (8 iterations a frame, one
+    graph), every frame bitwise the plain route's, and ``trace`` on the
+    same WaveScene captures its own graph once."""
+    from raytracer_tpu_torch.ops import integrator as tint
+    from raytracer_tpu_torch.ops import wave_graph as twg
+    scene, sky = rtt.build_scene(4, seed=0, device=dev)
+    s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=4,
+                           sampler="regen").with_sky(sky)
+    r = rtt.Renderer(scene, rtt.CameraConfig(
+        width=64, height=32, position=(0.0, 0.5, -6.0)), s, device=dev)
+    r.render_frame(block=True)
+    captures = twg.CAPTURES
+    for pos in ((0.2, 0.6, -5.5), (-0.4, 0.4, -6.5)):
+        r.set_camera(rtt.CameraConfig(width=64, height=32, position=pos))
+        r.render_frame(block=True)
+        want, _ = tint.render_sample_mean(
+            r.packed_scene, s, r._o, r._d, trng.frame_key(r.base_key, 0),
+            ray_idx=r._ray_idx, backend="plain")
+        assert torch.equal(r.accum, want)
+    assert twg.CAPTURES == captures
+    for key in (3, 4):
+        rad, _ = rtt.trace(r.packed_scene, s, r._o, r._d, trng.key(key),
+                           ray_idx=r._ray_idx)
+        want, _ = rtt.trace(r.packed_scene, s, r._o, r._d, trng.key(key),
+                            ray_idx=r._ray_idx, backend="plain")
+        assert torch.equal(rad, want)
+    assert twg.CAPTURES == captures + 1
+
+
+def test_graph_launch_counts_add_up(dev):
+    """The counters stay truthful under replay: a regen frame of 8
+    iterations (one replay) counts 8 launches of K5, the lane randoms and
+    rt_wave_bounce; a trace of 5 bounces 5 of each in one replay."""
+    from raytracer_tpu_torch.ops import bounce as tb
+    from raytracer_tpu_torch.ops import integrator as tint
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    from raytracer_tpu_torch.ops import wave_graph as twg
+    scene, sky = rtt.build_scene(4, seed=0, device=dev)
+    ws = ic.WaveScene(scene)
+    o, d = _rays(dev, 64, 32, position=(0.0, 0.5, -6.0))
+    o, d = o.T.contiguous(), d.T.contiguous()
+    for s, want in ((rtt.RenderSettings(rays_per_pixel=2, reflect_limit=4,
+                                        sampler="regen").with_sky(sky), 8),
+                    (rtt.RenderSettings(rays_per_pixel=1, reflect_limit=5,
+                                        sampler="scan").with_sky(sky), 5)):
+        for _ in range(2):      # the first call captures, both replay
+            before = (ic.LAUNCHES, trng.LAUNCHES, tb.LAUNCHES, twg.REPLAYS)
+            tint.render_sample_mean(ws, s, o, d, trng.key(1))
+            torch.cuda.synchronize()
+            after = (ic.LAUNCHES, trng.LAUNCHES, tb.LAUNCHES, twg.REPLAYS)
+            assert [a - b for a, b in zip(after, before)] == [want] * 3 + [1]

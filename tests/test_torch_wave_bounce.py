@@ -1,0 +1,585 @@
+"""raytracer_tpu_torch's fused wavefront bounce (ops/bounce.py) and the
+wavefront loop as the card replays it (ops/integrator.py,
+ops/wave_graph.py), on the CPU.
+
+- ``wave_bounce_reference`` against the port's bounce as the integrator
+  composed it before ``rt_wave_bounce`` existed (``_todays_*`` below, kept
+  as they were, the oracle): bitwise, on scenes 1-4 and a gradient scene,
+  in the scan and the regen arm, with russian roulette on and off and with
+  ``fix_exit_ior`` and ``emissive_terminates``.
+- The samplers as refactored against that composition's renders, bitwise,
+  and against JAX's ``render_sample_mean`` with its Pallas kernel in
+  interpret mode within test_torch_wavefront.py's bounds (scene 1).
+- The coherent draw's device-side key: ``fold_in_tensor`` is bitwise
+  ``rng.fold_in`` over ``it`` = 0..99.
+- The graph route simulated without a card: ``wave_graph.capture`` is
+  replaced by a stub whose replay runs the captured body eagerly, so the
+  static state, the in-place updates, the device-side keys, the cache key
+  and the launch accounting run here, held bitwise against the eager
+  route. The card tests (tests/test_torch_cuda.py) replay real graphs.
+- The repair: ``tile_randoms`` and ``tile_randoms_reference`` default to
+  the card and raise without one.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import raytracer_tpu as rt
+import raytracer_tpu_torch as rtt
+from raytracer_tpu.models import camera as jcam
+from raytracer_tpu.ops.integrator import render_sample_mean as jrsm
+from raytracer_tpu_torch.models import camera as tcam
+from raytracer_tpu_torch.models.materials import MAT_EMISSIVE, Material, \
+    Texture
+from raytracer_tpu_torch.models.scene import SceneBuilder
+from raytracer_tpu_torch.ops import bounce as tb
+from raytracer_tpu_torch.ops import integrator as tint
+from raytracer_tpu_torch.ops import intersect as tisect
+from raytracer_tpu_torch.ops import rng as trng
+from raytracer_tpu_torch.ops import wave_graph as twg
+from raytracer_tpu_torch.ops.intersect_cuda import WaveScene, hit_and_resolve
+from raytracer_tpu_torch.ops.rebin import (LANES, apply_lane_permutation,
+                                           bucket_permutation, lane_buckets,
+                                           lane_destinations, permute_rows,
+                                           row_buckets)
+from raytracer_tpu_torch.ops.scatter import antialias_jitter, scatter
+from raytracer_tpu_torch.ops.tables import lookup_material
+from raytracer_tpu_torch.ops.textures import sample_texture
+from test_torch_wavefront import PIXEL_ABS, PIXEL_BOUNDS, SEGS_REL
+
+torch.set_num_threads(2)
+
+# camera position per scene (scenes 1-3 and the gradient scene sit in
+# front of the origin, scene 4's camera is moved back)
+POS = {1: (0.0, 0.0, 0.0), 2: (0.0, 0.0, 0.0), 3: (0.0, 0.0, 0.0),
+       4: (0.0, 0.5, -6.0), "gradient": (0.0, 0.0, 0.0)}
+VARIANTS = {"base": {}, "rr": {"russian_roulette": 1},
+            "fix_emissive": {"fix_exit_ior": True,
+                             "emissive_terminates": True}}
+
+
+# -- the port's bounce and samplers as they were composed before -------------
+
+def _todays_bounce(ws, settings, backend, sky, o, d, thru, rad, alive,
+                   cur_ior, jitter_u3, gauss, fresnel_u, rr_u=None,
+                   bounces_done=None):
+    scene = ws.scene
+    if settings.antialias:
+        d = antialias_jitter(jitter_u3, d)
+    if backend in ("pallas", "plain"):
+        rec, shade = hit_and_resolve(ws, o, d,
+                                     need_sphere_uv=scene.needs_sphere_uv,
+                                     plain=backend == "plain")
+    else:
+        rec = tisect.nearest_hit(o, d, scene, backend=backend)
+        shade = tisect.resolve_hit(o, d, scene, rec)
+    miss = alive & ~rec.hit
+    rad = rad + torch.where(miss[None, :], thru * sky, 0.0)
+    cols = lookup_material(scene, shade.mat_id)
+    is_emissive = cols.mat_type == MAT_EMISSIVE
+    live_hit = alive & rec.hit
+    rad = rad + torch.where((live_hit & is_emissive)[None, :],
+                            thru * cols.emit, 0.0)
+    tex = sample_texture(scene, cols, shade.u, shade.v, shade.colour)
+    thru = torch.where((live_hit & ~is_emissive)[None, :], thru * tex, thru)
+    new_d, new_ior = scatter(
+        gauss, fresnel_u, d, shade.normal, cols.mat_type, shade.smooth,
+        cols.ior, cur_ior, fix_exit_ior=settings.fix_exit_ior,
+        has_refractive=bool(scene.has_refractive))
+    o = torch.where(live_hit[None, :], shade.point, o)
+    d = torch.where(live_hit[None, :], new_d, d)
+    cur_ior = torch.where(live_hit, new_ior, cur_ior)
+    path_continues = live_hit
+    if settings.emissive_terminates:
+        path_continues = path_continues & ~is_emissive
+    if rr_u is not None:
+        p = torch.clamp(thru.amax(dim=0), 0.05, 1.0)
+        eligible = path_continues & (
+            bounces_done + 1 >= settings.russian_roulette)
+        survive = rr_u < p
+        thru = torch.where((eligible & survive)[None, :], thru / p[None, :],
+                           thru)
+        path_continues = path_continues & ~(eligible & ~survive)
+    return o, d, thru, rad, cur_ior, path_continues
+
+
+def _sky(settings):
+    return torch.tensor(settings.sky_colour, dtype=torch.float32)[:, None]
+
+
+def _todays_trace(ws, settings, ray_idx, o, d, key, backend):
+    ray_keys = trng.per_ray_keys(key, ray_idx)
+    use_rr = settings.russian_roulette > 0
+    sky = _sky(settings)
+    thru, rad = torch.ones_like(o), torch.zeros_like(o)
+    alive = torch.ones(o.shape[1], dtype=torch.bool)
+    cur_ior = torch.ones(o.shape[1], dtype=torch.float32)
+    segs = torch.zeros((), dtype=torch.int64)
+    for bounce_i in range(settings.reflect_limit):
+        segs = segs + alive.sum()
+        drawn = trng.bounce_randoms(ray_keys, bounce_i, use_rr,
+                                    plain=backend == "plain")
+        o, d, thru, rad, cur_ior, alive = _todays_bounce(
+            ws, settings, backend, sky, o, d, thru, rad, alive, cur_ior,
+            *drawn[:3], rr_u=drawn[3] if use_rr else None,
+            bounces_done=bounce_i)
+    return rad, segs
+
+
+def _todays_regen(ws, settings, ray_idx, o0, d0, frame_key, backend,
+                  rebin=False, lane_sort=False, tile_offset=0):
+    spp, limit = settings.rays_per_pixel, settings.reflect_limit
+    n = o0.shape[1]
+    use_rr = settings.russian_roulette > 0
+    sky = _sky(settings)
+    lane_sort = bool(lane_sort) and n % LANES == 0 and n // LANES >= 8
+    rebin = (bool(rebin) and not lane_sort
+             and n % LANES == 0 and n // LANES >= 8)
+    carries_keys = rebin or lane_sort
+    tile_key = trng.fold_in(frame_key, tile_offset) if settings.coherent \
+        else None
+    kd = trng.per_ray_keys(frame_key, ray_idx)
+    o, d, o0p, d0p = o0, d0, o0, d0
+    thru, rad = torch.ones_like(o0), torch.zeros_like(o0)
+    pixel_sum = torch.zeros_like(o0)
+    bounce_i = torch.zeros(n, dtype=torch.int32)
+    sample_i = torch.zeros(n, dtype=torch.int32)
+    cur_ior = torch.ones(n, dtype=torch.float32)
+    home = (torch.arange(n if lane_sort else n // LANES, dtype=torch.int64)
+            if carries_keys else None)
+    park_d = torch.tensor([1.0, 0.0, 0.0])[:, None]
+    segs = torch.zeros((), dtype=torch.int64)
+    it = 0
+    while it < spp * limit:
+        if it % 8 == 0 and not bool((sample_i < spp).any()):
+            break
+        it += 1
+        active = sample_i < spp
+        segs = segs + active.sum()
+        if tile_key is not None:
+            drawn = trng.tile_randoms(trng.fold_in(tile_key, it - 1), n,
+                                      with_rr=use_rr, device="cpu",
+                                      plain=backend == "plain")
+        else:
+            drawn = trng.lane_randoms(kd, sample_i, bounce_i, use_rr,
+                                      plain=backend == "plain")
+        o, d, thru, rad, cur_ior, continues = _todays_bounce(
+            ws, settings, backend, sky, o, d, thru, rad, active, cur_ior,
+            *drawn[:3], rr_u=drawn[3] if use_rr else None,
+            bounces_done=bounce_i)
+        path_end = active & (~continues | (bounce_i + 1 >= limit))
+        pixel_sum = pixel_sum + torch.where(path_end[None, :], rad, 0.0)
+        sample_i = torch.where(path_end, sample_i + 1, sample_i)
+        bounce_i = torch.where(path_end, 0,
+                               torch.where(active, bounce_i + 1, bounce_i))
+        restart = path_end[None, :]
+        o = torch.where(restart, o0p, o)
+        d = torch.where(restart, d0p, d)
+        thru = torch.where(restart, 1.0, thru)
+        rad = torch.where(restart, 0.0, rad)
+        cur_ior = torch.where(path_end, 1.0, cur_ior)
+        if carries_keys:
+            done = sample_i >= spp
+            o = torch.where(done[None, :], 1e13, o)
+            d = torch.where(done[None, :], park_d, d)
+        if lane_sort:
+            dest = lane_destinations(lane_buckets(o, d, done))
+            (o, d, thru, rad, pixel_sum, o0p, d0p, cur_ior, kd, bounce_i,
+             sample_i, home) = apply_lane_permutation(
+                dest, (o, d, thru, rad, pixel_sum, o0p, d0p, cur_ior, kd,
+                       bounce_i, sample_i, home))
+        elif rebin:
+            perm = bucket_permutation(row_buckets(o, d, done))
+            (o, d, thru, rad, pixel_sum, o0p, d0p, kd, bounce_i, sample_i,
+             cur_ior) = (permute_rows(perm, a) for a in (
+                 o, d, thru, rad, pixel_sum, o0p, d0p, kd, bounce_i,
+                 sample_i, cur_ior))
+            home = home[perm]
+    if lane_sort:
+        out = torch.empty_like(pixel_sum)
+        out[:, home] = pixel_sum
+        pixel_sum = out
+    elif rebin:
+        unperm = torch.empty_like(home)
+        unperm[home] = torch.arange(home.shape[0])
+        pixel_sum = permute_rows(unperm, pixel_sum)
+    return pixel_sum / torch.tensor(float(spp)), segs
+
+
+def _todays_mean(ws, settings, o, d, fkey, ray_idx, tile_offset=0):
+    """render_sample_mean's wavefront branch as it was (kernel route)."""
+    o3, d3 = o.T.contiguous(), d.T.contiguous()
+    if settings.sampler != "scan":
+        mean, segs = _todays_regen(
+            ws, settings, ray_idx, o3, d3, fkey, "pallas",
+            rebin=settings.sampler == "rebin",
+            lane_sort=settings.sampler == "lanesort",
+            tile_offset=tile_offset)
+        return mean.T, segs.to(torch.float64)
+    total = torch.zeros_like(o3)
+    segs = torch.zeros((), dtype=torch.int64)
+    for s in range(settings.rays_per_pixel):
+        rad, n_segs = _todays_trace(ws, settings, ray_idx, o3, d3,
+                                    trng.sample_key(fkey, s), "pallas")
+        total, segs = total + rad, segs + n_segs
+    return (total / torch.tensor(float(settings.rays_per_pixel))).T, \
+        segs.to(torch.float64)
+
+
+# -- helpers -----------------------------------------------------------------
+
+def _gradient_scene():
+    """A gradient-textured sphere and a checker floor under an emissive
+    sphere: the texture branch scenes 1-4 do not reach."""
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.0, 1.7), 0.3,
+                 Material.standard(Texture.gradient(), 0.2))
+    b.add_sphere((0.3, 0.35, 1.5), 0.1,
+                 Material.emissive((1.0, 0.9, 0.8), 4))
+    b.add_quad((-2, -0.3, 0), (2, -0.3, 0), (2, -0.3, 4), (-2, -0.3, 4),
+               Material.standard(Texture.checkerboard((1, 1, 1), (0, 0, 0),
+                                                      8), 0))
+    return b.build(device="cpu"), True
+
+
+def _scene(num):
+    if num == "gradient":
+        return _gradient_scene()
+    return rtt.build_scene(num, device="cpu",
+                           **({"seed": 0} if num == 4 else {}))
+
+
+def _rays(num, w=32, h=16):
+    order = tcam.morton_order(w, h)
+    o, d = tcam.primary_rays(tcam.build_camera(rtt.CameraConfig(
+        width=w, height=h, position=POS[num])), w, h, pixel_order=order,
+        device="cpu")
+    return o, d, torch.as_tensor(order)
+
+
+def _equal(got: dict, want: dict):
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+
+
+# -- wave_bounce_reference against today's composition -----------------------
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("arm", ["scan", "regen"])
+@pytest.mark.parametrize("num", [1, 2, 3, 4, "gradient"])
+def test_wave_bounce_reference_is_todays_bounce(num, arm, variant):
+    """Four bounces of 512 lanes, each held bitwise: the scan arm against
+    today's ``_bounce_physics``, the regen arm against it plus today's
+    regeneration bookkeeping (parking on: the rebin / lanesort arm)."""
+    scene, sky = _scene(num)
+    settings = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=3,
+                                  **VARIANTS[variant]).with_sky(sky)
+    ws = WaveScene(scene)
+    o, d, idx = _rays(num)
+    o, d = o.T.contiguous(), d.T.contiguous()
+    n = o.shape[1]
+    keys = trng.per_ray_keys(trng.key(7), idx)
+    use_rr = settings.russian_roulette > 0
+    regen = arm == "regen"
+    st = {"o": o, "d": d, "thru": torch.ones_like(o),
+          "rad": torch.zeros_like(o),
+          "cur_ior": torch.ones(n, dtype=torch.float32)}
+    if regen:
+        st.update(pixel_sum=torch.zeros_like(o), o0p=o, d0p=d,
+                  sample_i=torch.zeros(n, dtype=torch.int32),
+                  bounce_i=torch.zeros(n, dtype=torch.int32))
+    else:
+        st["alive"] = torch.ones(n, dtype=torch.bool)
+    for b in range(4):
+        if regen:
+            drawn = trng.lane_randoms(keys, st["sample_i"], st["bounce_i"],
+                                      use_rr)
+            alive = st["sample_i"] < settings.rays_per_pixel
+        else:
+            drawn = trng.bounce_randoms(keys, b, use_rr)
+            alive = st["alive"]
+        rr_u = drawn[3] if use_rr else None
+        dj = antialias_jitter(drawn[0], st["d"])
+        rec, shade = hit_and_resolve(ws, st["o"], dj,
+                                     need_sphere_uv=scene.needs_sphere_uv)
+        got = tb.wave_bounce_reference(
+            scene, settings, st, dj, rec.hit, shade, drawn[1], drawn[2],
+            rr_u, regen=regen, bounce=b, park=regen)
+        o2, d2, thru, rad, ior, cont = _todays_bounce(
+            ws, settings, "pallas", _sky(settings), st["o"], st["d"],
+            st["thru"], st["rad"], alive, st["cur_ior"], *drawn[:3],
+            rr_u=rr_u, bounces_done=st["bounce_i"] if regen else b)
+        want = {"o": o2, "d": d2, "thru": thru, "rad": rad, "cur_ior": ior}
+        if regen:
+            si, bi = st["sample_i"], st["bounce_i"]
+            end = alive & (~cont | (bi + 1 >= settings.reflect_limit))
+            restart = end[None, :]
+            done = torch.where(end, si + 1, si) >= settings.rays_per_pixel
+            want = {
+                "pixel_sum": st["pixel_sum"] + torch.where(restart, rad,
+                                                           0.0),
+                "sample_i": torch.where(end, si + 1, si),
+                "bounce_i": torch.where(end, 0, torch.where(alive, bi + 1,
+                                                            bi)),
+                "o": torch.where(done[None, :], 1e13,
+                                 torch.where(restart, st["o0p"], o2)),
+                "d": torch.where(done[None, :],
+                                 torch.tensor([1.0, 0.0, 0.0])[:, None],
+                                 torch.where(restart, st["d0p"], d2)),
+                "thru": torch.where(restart, 1.0, thru),
+                "rad": torch.where(restart, 0.0, rad),
+                "cur_ior": torch.where(end, 1.0, ior)}
+        else:
+            want["alive"] = cont
+        _equal(got, want)
+        st.update(got)
+
+
+# -- the samplers: today's renders, and JAX's --------------------------------
+
+SAMPLER_CASES = [("regen", False), ("scan", False), ("rebin", False),
+                 ("lanesort", False), ("regen", True), ("rebin", True),
+                 ("lanesort", True)]
+
+
+@pytest.mark.parametrize("sampler,coherent", SAMPLER_CASES)
+def test_samplers_are_todays_renders(sampler, coherent):
+    """render_sample_mean's kernel route (plain versions on the CPU) is
+    bitwise the composition it replaced, scene 4 at 64x32 (16 lane rows:
+    rebin and lanesort regroup), 3 spp, russian roulette from bounce 2,
+    tile offset 2."""
+    scene, sky = _scene(4)
+    s = rtt.RenderSettings(rays_per_pixel=3, reflect_limit=4,
+                           sampler=sampler, coherent=coherent,
+                           russian_roulette=2).with_sky(sky)
+    o, d, idx = _rays(4, 64, 32)
+    ws = WaveScene(scene)
+    fkey = trng.frame_key(trng.key(1), 2)
+    got = tint.render_sample_mean(ws, s, o, d, fkey, tile_offset=2,
+                                  ray_idx=idx)
+    want = _todays_mean(ws, s, o, d, fkey, idx, tile_offset=2)
+    assert torch.equal(got[0], want[0])
+    assert float(got[1]) == float(want[1])
+
+
+@pytest.mark.parametrize("sampler", ["regen", "scan", "rebin", "lanesort"])
+def test_samplers_match_jax_interpret(sampler):
+    """The port's kernel route (plain versions) against JAX's
+    render_sample_mean on its Pallas kernel in interpret mode: scene 1 at
+    32x32 (8 lane rows, so rebin and lanesort regroup), 2 spp, 3 bounces,
+    within test_torch_wavefront.py's scene-1 bounds."""
+    w, h = 32, 32
+    js, sky = rt.build_scene(1)
+    ts, _ = _scene(1)
+    order = jcam.morton_order(w, h)
+    jo, jd = jcam.primary_rays(jcam.build_camera(rt.CameraConfig(
+        width=w, height=h)), w, h, pixel_order=order)
+    kw = dict(rays_per_pixel=2, reflect_limit=3, sampler=sampler)
+    jm, jsegs = jrsm(js, rt.RenderSettings(**kw).with_sky(sky),
+                     jnp.asarray(order), jo, jd, jax.random.key(0),
+                     backend="pallas")
+    tm, tsegs = tint.render_sample_mean(
+        ts, rtt.RenderSettings(**kw).with_sky(sky),
+        torch.from_numpy(np.array(jo)), torch.from_numpy(np.array(jd)),
+        trng.key(0), ray_idx=torch.from_numpy(np.array(order)))
+    err = np.abs(tm.numpy() - np.asarray(jm))
+    share_min, mean_max = PIXEL_BOUNDS[1]
+    assert (err.max(axis=1) <= PIXEL_ABS).mean() >= share_min
+    assert err.mean() <= mean_max
+    assert abs(float(tsegs) - float(jsegs)) <= \
+        SEGS_REL[(1, "pallas")] * float(jsegs)
+
+
+# -- the coherent draw's device-side key -------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 123456789])
+def test_fold_in_tensor_is_fold_in(seed):
+    """The plain version of the fold rt_tile_randoms does on the card."""
+    k = trng.fold_in(trng.key(seed), 4)
+    kt = torch.tensor([int(w) for w in k], dtype=torch.int64)
+    for it in range(100):
+        got = trng.fold_in_tensor(kt, torch.tensor([it]))
+        assert got.tolist() == [int(w) for w in trng.fold_in(k, it)]
+
+
+def test_device_key_draws_are_the_host_key_draws():
+    """``tile_randoms_at`` (key and iteration in tensors) is bitwise
+    ``tile_randoms`` under the host's fold; ``per_ray_keys`` from a key
+    tensor is bitwise the numpy key's; ``set_key`` writes the words."""
+    k = trng.fold_in(trng.key(3), 9)
+    buf = torch.zeros(2, dtype=torch.int64)
+    trng.set_key(buf, k)
+    assert buf.tolist() == [int(w) for w in k]
+    for it, rr in ((0, False), (5, True)):
+        got = trng.tile_randoms_at(buf, torch.tensor([it]), 2100,
+                                   with_rr=rr)
+        want = trng.tile_randoms(trng.fold_in(k, it), 2100, with_rr=rr,
+                                 device="cpu")
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    idx = torch.arange(300, dtype=torch.int32) * 7919
+    assert torch.equal(trng.per_ray_keys(buf, idx),
+                       trng.per_ray_keys(k, idx))
+
+
+# -- the graph route without a card ------------------------------------------
+
+class _EagerGraph:
+    """Stands in for a captured CUDA graph: replay runs the body."""
+
+    def __init__(self, body):
+        self.body = body
+
+    def replay(self):
+        self.body()
+
+
+@pytest.fixture
+def eager_graphs(monkeypatch):
+    """Route the kernel route's CPU tensors through the graph route, its
+    captures replaced by ``_EagerGraph`` (the launches a replay adds fixed
+    at one per counter); returns the list of captures, (id(ws), N)."""
+    captured = []
+
+    def capture(ws, n, body):
+        captured.append((id(ws), n))
+        return twg.Graph(_EagerGraph(body), [1] * len(twg.COUNTERS))
+    monkeypatch.setattr(tint, "_replays",
+                        lambda backend, o: backend == "pallas")
+    monkeypatch.setattr(twg, "capture", capture)
+    return captured
+
+
+@pytest.mark.parametrize("sampler,coherent", SAMPLER_CASES)
+def test_graph_route_is_the_eager_route(eager_graphs, sampler, coherent):
+    """The graph route's static state, in-place updates, device-side
+    coherent key and iteration counter and its cache: two frames and a
+    camera move through one WaveScene capture once per block size and
+    give the eager route's frames bitwise. Scene 4, 64x32, 3 spp, 4
+    bounces (12 iterations: a block of 8 and one of 4)."""
+    scene, sky = _scene(4)
+    s = rtt.RenderSettings(rays_per_pixel=3, reflect_limit=4,
+                           sampler=sampler, coherent=coherent,
+                           russian_roulette=2).with_sky(sky)
+    ws = WaveScene(scene)
+    eager_ws = WaveScene(scene)
+    for frame, pos in ((0, (0.0, 0.5, -6.0)), (1, (0.0, 0.5, -6.0)),
+                       (2, (0.3, 0.6, -5.0))):
+        order = tcam.morton_order(64, 32)
+        o, d = tcam.primary_rays(tcam.build_camera(rtt.CameraConfig(
+            width=64, height=32, position=pos)), 64, 32,
+            pixel_order=order, device="cpu")
+        idx = torch.as_tensor(order)
+        fkey = trng.frame_key(trng.key(1), frame)
+        got = tint.render_sample_mean(ws, s, o, d, fkey, tile_offset=2,
+                                      ray_idx=idx)
+        want = tint.render_sample_mean(eager_ws, s, o, d, fkey,
+                                       tile_offset=2, ray_idx=idx,
+                                       backend="plain")
+        assert torch.equal(got[0], want[0])
+        assert float(got[1]) == float(want[1])
+    (runner,) = ws.graphs.values()
+    assert not eager_ws.graphs
+    if sampler == "scan":
+        assert eager_graphs == [(id(ws), 2048)]
+    else:
+        # one capture per block size used: 8 iterations, then the rest
+        assert set(runner.graphs) <= {8, 4} and 8 in runner.graphs
+        assert eager_graphs == [(id(ws), 2048)] * len(runner.graphs)
+
+
+def test_graph_cache_key(eager_graphs):
+    """One capture per (kind, N, settings, backend): ``trace`` with the
+    same settings replays the scan graph; another N, other settings or
+    another WaveScene capture anew; an eager route captures nothing."""
+    scene, sky = _scene(4)
+    s = rtt.RenderSettings(rays_per_pixel=1, reflect_limit=3).with_sky(sky)
+    ws = WaveScene(scene)
+    o, d, idx = _rays(4)
+    r1 = rtt.trace(ws, s, o, d, trng.key(2), ray_idx=idx)
+    r2 = rtt.trace(ws, s, o, d, trng.key(2), ray_idx=idx)
+    assert len(eager_graphs) == 1
+    assert torch.equal(r1[0], r2[0]) and float(r1[1]) == float(r2[1])
+    rtt.trace(ws, s, o[:256], d[:256], trng.key(2), ray_idx=idx[:256])
+    rtt.trace(ws, dataclasses.replace(s, reflect_limit=2), o, d,
+              trng.key(2), ray_idx=idx)
+    rtt.trace(WaveScene(scene), s, o, d, trng.key(2), ray_idx=idx)
+    assert len(eager_graphs) == 4 and len(ws.graphs) == 3
+    rtt.trace(ws, s, o, d, trng.key(2), ray_idx=idx, backend="plain")
+    assert len(eager_graphs) == 4
+    want = rtt.trace(WaveScene(scene), s, o, d, trng.key(2), ray_idx=idx,
+                     backend="plain")
+    assert torch.equal(r1[0], want[0]) and float(r1[1]) == float(want[1])
+
+
+def test_replay_adds_the_captured_launches(monkeypatch):
+    """A capture counts the launches its body issued and takes them back
+    off the counters (a capture runs nothing); each replay adds them and
+    one to REPLAYS; a body that raises leaves the counters as they were."""
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+
+    class _Stub:
+        def __init__(self):
+            self.replays = 0
+
+        def replay(self):
+            self.replays += 1
+
+    class _Capturing:
+        def __init__(self, graph):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+    stub = _Stub()
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: stub)
+    monkeypatch.setattr(torch.cuda, "graph", _Capturing)
+    monkeypatch.setattr(twg, "warm_up", lambda ws, n: None)
+    for mod, name in twg.COUNTERS:
+        monkeypatch.setattr(mod, name, 10)
+    monkeypatch.setattr(twg, "REPLAYS", 0)
+
+    def body():
+        for _ in range(8):
+            ic.LAUNCHES += 1
+            trng.LAUNCHES += 1
+            tb.LAUNCHES += 1
+    g = twg.capture(None, 4096, body)
+    assert twg.counts() == [10] * len(twg.COUNTERS)
+    assert (ic.LAUNCHES, ic.BLOCKED_LAUNCHES, trng.TILE_LAUNCHES) == (
+        10, 10, 10)
+    for _ in range(15):
+        g.replay()
+    assert stub.replays == 15 and twg.REPLAYS == 15
+    assert (ic.LAUNCHES, trng.LAUNCHES, tb.LAUNCHES) == (130, 130, 130)
+    assert (ic.BLOCKED_LAUNCHES, trng.TILE_LAUNCHES) == (10, 10)
+
+    def bad():
+        ic.LAUNCHES += 1
+        raise RuntimeError("capture failed")
+    with pytest.raises(RuntimeError, match="capture failed"):
+        twg.capture(None, 4096, bad)
+    assert ic.LAUNCHES == 130
+
+
+# -- the repair: the tile draws default to the card --------------------------
+
+def test_tile_randoms_default_to_the_card(monkeypatch):
+    """With no device both draws ask for the card, as build_scene does
+    (utils/device.py), and raise where there is none; ``device="cpu"``
+    draws on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    k = trng.key(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trng.tile_randoms(k, 100)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trng.tile_randoms_reference(k, 100)
+    assert trng.tile_randoms(k, 100, device="cpu")[0].device.type == "cpu"

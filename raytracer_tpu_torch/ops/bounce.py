@@ -8,7 +8,9 @@ on a miss, the emission, the material lookup (ops/tables.py), the texture
 regeneration bookkeeping (:251-355): the path end, the pixel sum, the
 sample and bounce counters, the restart on the lane's primary ray and,
 for the samplers that regroup lanes, the parking of exhausted lanes. The
-scan arm keeps an alive mask and does no regeneration.
+scan arm keeps an alive mask and does no regeneration. The antialias
+jitter comes before the hit, so it stays a torch pass (inside the
+replayed graph on the card) and the bounce reads its result.
 
 The lane state is a dict of tensors: ``o``, ``d``, ``thru``, ``rad``
 ((3, N) float32) and ``cur_ior`` ((N,) float32); the scan arm adds

@@ -11,25 +11,30 @@ on scenes 4, 2 and 0, bitwise), drives two paths through ``Renderer`` at
 image-texture path (scene 2, the 256x512 earth), then times one frame of
 each bench scene of benchmarks/suite.py through the kernel.
 
-Then the wavefront samplers: ``rt_lane_randoms`` (1M lanes), K5
+Then the wavefront samplers: ``rt_lane_randoms`` (1M lanes) and the
+iteration's ray set-up ``rt_wave_rays`` (1M and 800,000 lanes; regen,
+scan and coherent arms; phase 8), K5
 ``rt_hit_resolve`` (65,536 and 1M rays over scenes 4 and 2) and K6
 ``rt_hit_resolve_blocked`` with K5 beside it (65,536 and 1M rays over
 stress100k) against their plain versions, one ``Renderer`` frame of each
 sampler (regen, scan, rebin, lanesort) against the plain route with rebin
-and lanesort bitwise equal to regen, ``rt_wave_bounce`` (the bounce after
-the hit, fused) against its plain version, bitwise, in both arms on
-256x128 lanes of scenes 1-4, stress100k and earth2048 and timed on scene
-4's 1000x800 regen lanes (phase 19), and three regen paths through
-``Renderer`` at 1000x800, 5 bounces: scene 4 at 20 spp (K5), stress100k
-at 4 spp (K6) and the 1024x2048 earth at 20 spp (K5 + the atlas gather),
-each with its frame ms, the graph replays and kernel launches a frame,
-one frame under torch.profiler (the device ms of K5 / K6, the randoms and
+and lanesort bitwise equal to regen, ``rt_wave_bounce`` (the resolve and
+the bounce after the hit, fused) against its plain version on K5's and
+K6's raw outputs, bitwise, in both arms on 256x128 lanes of scenes 1-4,
+stress100k and earth2048 and timed on scene 4's 1000x800 regen lanes
+(phase 19), and three regen paths through ``Renderer`` at 1000x800, 5
+bounces: scene 4 at 20 spp (K5), stress100k at 4 spp (K6) and the
+1024x2048 earth at 20 spp (K5 + the atlas gather), each with its frame
+ms, the graph replays and kernel launches a frame (an iteration: the ray
+set-up, K5 or K6 and the bounce, no lane randoms), one frame under
+torch.profiler (the device ms of K5 / K6, the ray set-up and
 ``rt_wave_bounce``, the busy share, the kernel and graph launches the
-host issued against the device ops that ran) and its first frame
-against the plain route at 256x128. On the card the wavefront samplers
-replay their iterations as CUDA graphs (ops/wave_graph.py), so the
-launch counts come from each graph's captured launches times its
-replays.
+host issued against the device ops that ran and their count an
+iteration, the top kernels, and no torch.cat padding or torch resolve
+among them) and its first frame against the plain route at 256x128. On
+the card the wavefront samplers replay their iterations as CUDA graphs
+(ops/wave_graph.py), so the launch counts come from each graph's
+captured launches times its replays.
 
 Then the temporal fly-through (phase 13): ``rt_warp_gather`` (K7) and
 ``rt_gather_history`` against their plain versions, bitwise, on the 4K
@@ -66,7 +71,8 @@ sampler at 256x128), with each rank's ms and the max/mean over ranks,
 rank 1 of the pixpack-8 pair also bitwise against ``mega_reference`` at
 its tile offset, and the launches of the ranks' own local steps; (c)
 ``dryrun_multichip(1)`` in a spawned NCCL process. K4,
-``rt_lane_randoms`` and ``rt_tile_randoms`` are timed as bare launches
+``rt_lane_randoms``, ``rt_wave_rays`` and ``rt_tile_randoms`` are timed
+as bare launches
 on prebuilt arguments (``ms``; ``profiled_ms`` the profiler's device
 time a launch) beside their wrappers (``wrapper_ms``).
 
@@ -118,7 +124,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import functools
 import json
 import re
@@ -148,6 +153,7 @@ KERNEL_SOURCE = "raytracer_tpu_torch/csrc/megakernel.cu"
 WAVEFRONT_SOURCE = "raytracer_tpu_torch/csrc/wavefront.cu"
 WARP_SOURCE = "raytracer_tpu_torch/csrc/warp.cu"
 BOUNCE_SOURCE = "raytracer_tpu_torch/csrc/bounce.cu"
+RAYS_SOURCE = "raytracer_tpu_torch/csrc/rays.cu"
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
 # device-memory bandwidth and non-tensor FP32 rate. Integer operations are
@@ -162,7 +168,11 @@ OPS_CULL = 6         # the one-way cull row and its compare
 OPS_SHADE = 150      # a megakernel segment's randoms, jitter, material, books
 OPS_RESOLVE = 20     # K5 / K6: the winner's parameters decoded (plain_ops)
 OPS_FETCH = 20       # K4: clamps, the row and lane of one texel, decode
+# threefry's integer adds, xors and shifts are counted at the FP32 rate;
+# Hopper issues int32 at half the FP32 lanes a clock, so the draws' bounds
+# are also given at that rate (``bound_ms_int32_rate``)
 OPS_LANE = 1500      # 18 threefry evaluations (~77 ops) + 3 erfinv
+OPS_RAYS = OPS_LANE + 30  # rt_wave_rays: the draw, jitter, 2 normalisations
 OPS_TILE_VALUE = 190  # one tile draw value: 2 threefry evaluations + erfinv
 OPS_HISTORY = 80     # rt_gather_history: projection, floor, pack, weight
 FLY_W, FLY_H, FLY_MOVES = 3840, 2160, 16
@@ -192,10 +202,17 @@ def kernel_name(mangled: str) -> str:
     if m:
         stats = ", with_stats" if m.group(2) == "1" else ""
         return f"hit_resolve_kernel<G{m.group(1)}{stats}>"
+    m = re.search(r"wave_bounce_kernelILb([01])ELb([01])ELb([01])E",
+                  mangled)
+    if m:
+        arms = [("scan", "regen"), ("K5", "K6"), ("", ", sphere uv")]
+        return "wave_bounce_kernel<" + ", ".join(
+            a[int(b)] for a, b in zip(arms[:2], m.groups()[:2])) + \
+            arms[2][int(m.group(3))] + ">"
     return next((k for k in (
         "fetch_image_kernel", "lane_randoms_kernel", "tile_randoms_kernel",
-        "gather_history_kernel", "warp_gather_kernel") if k in mangled),
-        mangled)
+        "gather_history_kernel", "warp_gather_kernel", "wave_rays_kernel")
+        if k in mangled), mangled)
 
 
 def ptxas_summary(log: str) -> list:
@@ -856,6 +873,7 @@ def phase_lane_randoms(dev, n: int) -> dict:
                plain_ms=cuda_ms(lambda: rng.lane_randoms_reference(
                    keys, s, b, True), 3), library_ms=None)
     rec.update(bound(n * (16 + 4 + 4 + 8 * 4), n * OPS_LANE))
+    rec["bound_ms_int32_rate"] = n * OPS_LANE / (PEAK_OPS_PER_S / 2) * 1e3
     print("phase 8 rt_lane_randoms vs plain:", json.dumps(rec), flush=True)
     check(rec["uniforms_bitwise"], "rt_lane_randoms uniforms differ")
     check(rec["bare_launch_bitwise"], "rt_lane_randoms' bare launch differs")
@@ -863,6 +881,92 @@ def phase_lane_randoms(dev, n: int) -> dict:
           f"rt_lane_randoms normals differ: {rec['normals_equal_share']} "
           f"equal, max |d| {rec['max_abs_err']}")
     return rec
+
+
+def phase_wave_rays(dev, sizes=(1 << 20, 1000 * 800)) -> dict:
+    """rt_wave_rays (the wavefront iteration's ray set-up) against its
+    plain version on each size's lanes: the regen arm (per-pixel keys of
+    a frame, random samples and bounces, the sample fold, the count of
+    sample_i < spp), the scan arm (one bounce, the alive mask counted) and
+    the coherent arm (rt_tile_randoms' rows in), antialias and russian
+    roulette on; every output bitwise and the counts equal. The regen arm
+    timed bare on prebuilt arguments (``ms``, ``profiled_ms``), through
+    the wrapper (``wrapper_ms``) and the plain version (``plain_ms``),
+    beside its bound: each lane reads its key (16 bytes), sample, bounce
+    (8) and direction (12) once and writes its jittered and unit
+    direction, 1 / |d| and 5 draws (48); ~OPS_RAYS operations. Returns
+    the records by size."""
+    import torch
+
+    from raytracer_tpu_torch.ops import rays
+    from raytracer_tpu_torch.ops import rng
+    recs = {}
+    for n in sizes:
+        g = np.random.default_rng(16)
+        keys = rng.per_ray_keys(rng.frame_key(rng.key(0), 0),
+                                torch.arange(n, device=dev))
+        s = torch.as_tensor(g.integers(0, 24, n).astype(np.int32),
+                            device=dev)
+        b = torch.as_tensor(g.integers(0, 5, n).astype(np.int32), device=dev)
+        d = torch.as_tensor(g.standard_normal((3, n)).astype(np.float32),
+                            device=dev)
+        tiles = rng.tile_rows(rng.fold_in(rng.key(0), 3), n, with_rr=True,
+                              device=dev)
+        arms = {"regen": dict(keys=keys, sample_i=s, bounce=b, spp=20),
+                "scan": dict(keys=keys, bounce=3, alive=s < 12),
+                "coherent": dict(drawn=tiles, sample_i=s, spp=20)}
+        checks, want_regen = {}, None
+        for arm, kw in arms.items():
+            segs = [torch.zeros((), dtype=torch.int64, device=dev)
+                    for _ in range(2)]
+            got = rays.wave_rays(d, with_rr=True, segs=segs[0], **kw)
+            want = rays.wave_rays(d, with_rr=True, segs=segs[1], plain=True,
+                                  **kw)
+            fields = ("dj", "unit", "inv_len", "gauss", "fresnel", "rr")
+            checks[arm] = {
+                "bitwise": all(bool(torch.equal(getattr(got, k),
+                                                getattr(want, k)))
+                               for k in fields),
+                "equal_share": {k: float((getattr(got, k) == getattr(
+                    want, k)).float().mean()) for k in fields},
+                "max_abs_err": max(float((getattr(got, k) - getattr(
+                    want, k)).abs().max()) for k in fields),
+                "segments": int(segs[0]), "segments_equal":
+                    int(segs[0]) == int(segs[1])}
+            if arm == "regen":
+                want_regen = want
+        rec = {"lanes": n, "checks": checks,
+               "bitwise": all(c["bitwise"] and c["segments_equal"]
+                              for c in checks.values()),
+               "max_abs_err": max(c["max_abs_err"] for c in checks.values())}
+        seg = torch.zeros((), dtype=torch.int64, device=dev)
+        out = rays.WaveRays(torch.empty_like(d), torch.empty_like(d),
+                            torch.empty(n, device=dev), None, None)
+        draws = torch.empty((5, n), device=dev)
+        args = rays.rays_args(d, out, draws, keys=keys, sample_i=s, bounce=b,
+                              with_rr=True, segs=seg, spp=20)
+        rec.update(bare_times("rt_wave_rays", args, dev, "wave_rays_kernel"))
+        rec["bare_launch_bitwise"] = bool(
+            torch.equal(out.dj, want_regen.dj)
+            and torch.equal(out.unit, want_regen.unit)
+            and torch.equal(out.inv_len, want_regen.inv_len)
+            and torch.equal(draws[0:3], want_regen.gauss)
+            and torch.equal(draws[3], want_regen.fresnel)
+            and torch.equal(draws[4], want_regen.rr))
+        kw = dict(arms["regen"], with_rr=True)
+        rec.update(wrapper_ms=cuda_ms(lambda: rays.wave_rays(d, **kw), 20),
+                   plain_ms=cuda_ms(lambda: rays.wave_rays(d, plain=True,
+                                                           **kw), 3),
+                   library_ms=None)
+        rec.update(bound(n * (16 + 8 + 12 + 48), n * OPS_RAYS))
+        rec["bound_ms_int32_rate"] = n * OPS_RAYS / (PEAK_OPS_PER_S / 2) * 1e3
+        print(f"phase 8 rt_wave_rays vs plain, {n} lanes (regen, scan and "
+              "coherent arms):", json.dumps(rec), flush=True)
+        check(rec["bitwise"], f"rt_wave_rays differs from its plain version "
+              f"on {n} lanes: {json.dumps(checks)}")
+        check(rec["bare_launch_bitwise"], "rt_wave_rays' bare launch differs")
+        recs[n] = rec
+    return recs
 
 
 def by_group(run, want, plain_ms=None, repeats: int = 3) -> dict:
@@ -1023,8 +1127,9 @@ def phase_samplers(dev, width: int, height: int) -> dict:
                    "vs_plain": stats,
                    "checkpoint_bitwise": bool(torch.equal(r.accum, r2.accum))}
         check(launches["rt_hit_resolve"] > 0
-              and launches["rt_lane_randoms"] > 0
-              and launches["rt_wave_bounce"] == launches["rt_hit_resolve"],
+              and launches["rt_wave_rays"] == launches["rt_hit_resolve"]
+              and launches["rt_wave_bounce"] == launches["rt_hit_resolve"]
+              and launches["rt_lane_randoms"] == 0,
               f"sampler {s}: the Renderer frame launched {launches}")
         check_pixels(stats, f"sampler {s} frame vs the plain route")
         check(stats["segs_rel"] <= SEGS_REL_MAX,
@@ -1046,11 +1151,13 @@ def phase_samplers(dev, width: int, height: int) -> dict:
 def _wave_counts():
     from raytracer_tpu_torch.ops import bounce
     from raytracer_tpu_torch.ops import intersect_cuda as ic
+    from raytracer_tpu_torch.ops import rays
     from raytracer_tpu_torch.ops import rng
     return {"rt_hit_resolve": ic.LAUNCHES,
             "rt_hit_resolve_blocked": ic.BLOCKED_LAUNCHES,
             "rt_lane_randoms": rng.LAUNCHES,
             "rt_tile_randoms": rng.TILE_LAUNCHES,
+            "rt_wave_rays": rays.LAUNCHES,
             "rt_wave_bounce": bounce.LAUNCHES}
 
 
@@ -1058,22 +1165,24 @@ def _zero_counts() -> None:
     from raytracer_tpu_torch.ops import bounce
     from raytracer_tpu_torch.ops import intersect_cuda as ic
     from raytracer_tpu_torch.ops import megakernel as mk
+    from raytracer_tpu_torch.ops import rays
     from raytracer_tpu_torch.ops import rng
     from raytracer_tpu_torch.ops import warp
     ic.LAUNCHES = ic.STATS_LAUNCHES = ic.BLOCKED_LAUNCHES = rng.LAUNCHES = 0
-    rng.TILE_LAUNCHES = bounce.LAUNCHES = 0
+    rng.TILE_LAUNCHES = bounce.LAUNCHES = rays.LAUNCHES = 0
     mk.LAUNCHES = mk.IMAGE_LAUNCHES = mk.FETCH_LAUNCHES = 0
     mk.COHERENT_LAUNCHES = 0
     warp.GATHER_LAUNCHES = warp.HISTORY_LAUNCHES = 0
 
 
-def device_shares(fn, names) -> dict:
+def device_shares(fn, names, absent=()) -> dict:
     """One call of ``fn()`` under torch.profiler, ending in a synchronise:
     the window's host ms, the device time (the profiler's self CUDA time,
     summed), the device's busy share of the window, and for each kernel
     named in ``names`` its device ms and its share of the device time and
     of the window. Shares are null where the profiler saw no device
-    time."""
+    time. ``absent_seen``: the device kernels whose names hold one of
+    ``absent``, with their counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1102,7 +1211,9 @@ def device_shares(fn, names) -> dict:
            "host_graph_launches": calls("cudaGraphLaunch"),
            "device_ops": sum(c for _, _, c in kernels),
            "top_device_ms": [[name[:60], ms, c]
-                             for ms, name, c in kernels[:8]]}
+                             for ms, name, c in kernels[:8]],
+           "absent_seen": [[name[:80], c] for _, name, c in kernels
+                           if any(a in name for a in absent)]}
     for name in names:
         ms = sum(dev_us(e) for e in events if name in e.key) / 1e3
         rec[name] = {"device_ms": ms,
@@ -1111,16 +1222,26 @@ def device_shares(fn, names) -> dict:
     return rec
 
 
+# device kernels the wavefront iteration no longer runs: the padding's
+# torch.cat and the torch resolve's rsqrt, asin and acos (each now inside
+# rt_wave_rays or rt_wave_bounce)
+RESOLVE_OPS = ("CatArrayBatchedCopy", "rsqrt", "asin", "acos")
+
+
 def phase_wave_path(dev, name: str, scene, sky, spp: int, pos,
                     width=1000, height=800, check_size=(256, 128)) -> dict:
     """One regen path through Renderer: a warm-up frame (it captures the
     graphs) and 5 frames, counts set to 0 just before and read just
-    after, with the graph replays the host issued; one more frame under
-    torch.profiler (the device ms of K5 / K6, the randoms and
-    rt_wave_bounce and their shares, the device's busy share, the kernel
-    and graph launches the host issued against the device ops that ran);
-    then its first frame at check_size through the kernel route against
-    the plain route."""
+    after, with the graph replays the host issued: an iteration launches
+    rt_wave_rays, K5 / K6 and rt_wave_bounce once each and no lane
+    randoms. One more frame under torch.profiler: the device ms of K5 /
+    K6, the ray set-up and rt_wave_bounce and their shares, the device's
+    busy share, the kernel and graph launches the host issued against the
+    device ops that ran (and their count an iteration), the top kernels,
+    and no torch.cat padding or torch resolve (RESOLVE_OPS) run once an
+    iteration (the per-frame keys stack once a frame). Then its
+    first frame at check_size through the kernel route against the plain
+    route."""
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.ops import integrator as integ
     from raytracer_tpu_torch.ops import rng
@@ -1147,13 +1268,22 @@ def phase_wave_path(dev, name: str, scene, sky, spp: int, pos,
            "segments_per_frame": rec["segments"] / rec["frames"]}
     hit_kernel = "rt_hit_resolve_blocked" if out["blocked"] else \
         "rt_hit_resolve"
-    check(launches[hit_kernel] > 0 and launches["rt_lane_randoms"] > 0
-          and launches["rt_wave_bounce"] == launches[hit_kernel],
+    # an iteration is three kernels: the ray set-up, the hit, the bounce
+    check(launches[hit_kernel] > 0
+          and launches["rt_wave_rays"] == launches[hit_kernel]
+          and launches["rt_wave_bounce"] == launches[hit_kernel]
+          and launches["rt_lane_randoms"] == 0
+          and launches["rt_tile_randoms"] == 0,
           f"{name}: the path launched {launches}")
-    out["profiled_frame"] = device_shares(
+    iterations = launches[hit_kernel] / (rec["frames"] + 1)
+    prof = device_shares(
         lambda: r.render_frame(block=True),
         ("hit_resolve_blocked_kernel", "hit_resolve_kernel",
-         "lane_randoms_kernel", "wave_bounce_kernel"))
+         "wave_rays_kernel", "wave_bounce_kernel", "lane_randoms_kernel"),
+        absent=RESOLVE_OPS)
+    prof.update(iterations=iterations,
+                device_ops_per_iteration=prof["device_ops"] / iterations)
+    out["profiled_frame"] = prof
 
     w, h = check_size
     o, d = camera_rays(w, h, dev, position=pos)
@@ -1177,6 +1307,11 @@ def phase_wave_path(dev, name: str, scene, sky, spp: int, pos,
           f"{name}: segments differ by {stats['segs_rel']:.3g}")
     check(np.isfinite(out["mrays_per_sec"]) and out["mrays_per_sec"] > 0,
           f"{name}: no ray rate")
+    # once a frame is the per-frame work (rng.per_ray_keys' stack); once
+    # an iteration would be the padding or a resolve
+    check(all(c < iterations for _, c in prof["absent_seen"]),
+          f"{name}: the padding or a torch resolve ran every iteration of "
+          f"the profiled frame: {prof['absent_seen']}")
     return out
 
 
@@ -1235,13 +1370,14 @@ def bounce_scenes(dev) -> list:
 
 def bounce_lanes(dev, ws, settings, pos, width, height, regen):
     """The lane state of ``width`` x ``height`` camera rays (Morton order,
-    frame key (0, 0)) and a function that draws, jitters and traces the
-    next bounce's inputs through the kernel route: the argument tuple of
-    ``wave_bounce`` after ``settings``."""
+    frame key (0, 0)) and a function that sets up (rt_wave_rays) and
+    traces (K5 or K6, by ``ws``) the next bounce's inputs through the
+    kernel route: the argument tuple of ``wave_bounce`` after
+    ``settings``, the hit kernel's raw outputs in it."""
     from raytracer_tpu_torch.ops import integrator as integ
     from raytracer_tpu_torch.ops import rng
-    from raytracer_tpu_torch.ops.intersect_cuda import hit_and_resolve
-    from raytracer_tpu_torch.ops.scatter import antialias_jitter
+    from raytracer_tpu_torch.ops.intersect_cuda import hit_raw
+    from raytracer_tpu_torch.ops.rays import wave_rays
     o, d = camera_rays(width, height, dev, position=pos)
     keys = rng.per_ray_keys(rng.frame_key(rng.key(0), 0),
                             camera_order(width, height, dev))
@@ -1252,39 +1388,46 @@ def bounce_lanes(dev, ws, settings, pos, width, height, regen):
         st = integ._scan_state(o, d)
 
     def inputs(b):
-        drawn = (rng.lane_randoms(keys, st["sample_i"], st["bounce_i"],
-                                  use_rr) if regen
-                 else rng.bounce_randoms(keys, b, use_rr))
-        dj = antialias_jitter(drawn[0], st["d"])
-        rec, shade = hit_and_resolve(
-            ws, st["o"], dj, need_sphere_uv=ws.scene.needs_sphere_uv)
-        return (st, dj, rec.hit, shade, drawn[1], drawn[2],
-                drawn[3] if use_rr else None)
+        if regen:
+            rays = wave_rays(st["d"], keys=keys, sample_i=st["sample_i"],
+                             bounce=st["bounce_i"], with_rr=use_rr)
+        else:
+            rays = wave_rays(st["d"], keys=keys, bounce=b, with_rr=use_rr)
+        raw = hit_raw(ws, st["o"], rays.unit)
+        return (st, rays.dj, raw, rays.inv_len, rays.gauss, rays.fresnel,
+                rays.rr)
     return st, inputs
 
 
 def bounce_vs_plain(dev, ws, settings, pos, width, height, regen,
                     bounces: int = 4) -> dict:
     """``bounces`` bounces of rt_wave_bounce against wave_bounce_reference
-    on the same inputs, each output tensor compared; the state advances
-    with the kernel's."""
+    on the same inputs (K5's or K6's raw outputs), each output tensor
+    compared, with the share of equal values and the largest difference;
+    the state advances with the kernel's."""
     import torch
 
     from raytracer_tpu_torch.ops import bounce as tb
     st, inputs = bounce_lanes(dev, ws, settings, pos, width, height, regen)
     kw = {"regen": regen, "park": regen}
-    bitwise, max_abs = True, 0.0
+    bitwise, max_abs, equal, total = True, 0.0, 0, 0
     for b in range(bounces):
         args = (ws.scene, settings) + inputs(b)
         got = tb.wave_bounce(*args, bounce=b, **kw)
         want = tb.wave_bounce_reference(*args, bounce=b, **kw)
         for k in want:
             bitwise = bitwise and bool(torch.equal(got[k], want[k]))
+            same = (got[k] == want[k]) | (torch.isnan(got[k].float())
+                                          & torch.isnan(want[k].float()))
+            equal += int(same.sum())
+            total += same.numel()
             if want[k].is_floating_point():
                 max_abs = max(max_abs, float(torch.nan_to_num(
                     (got[k] - want[k]).abs()).max()))
         st.update(got)
-    return {"bitwise": bitwise, "max_abs_err": max_abs}
+    return {"bitwise": bitwise, "max_abs_err": max_abs,
+            "equal_share": equal / total,
+            "raw_outputs": "K6" if ws.blocked else "K5"}
 
 
 def fresh_launch_times(launch, restore, kernel: str,
@@ -1326,11 +1469,13 @@ def phase_wave_bounce(dev, check_size=(256, 128),
     each from the same state (``fresh_launch_times``: ``ms``,
     ``profiled_ms``), through the wrapper on copies (``wrapper_ms``) and
     the plain version (``plain_ms``), beside its bytes bound counted on
-    these inputs: every lane reads its state, hit flag and pixel sum and
-    writes its state (145 bytes); a live hit also reads its material id,
-    uv, normal, point, Gaussian, smoothness and Fresnel draw (56), its
-    colour (12) on a colour texture or its texel (12) on an image; a path
-    end reads the lane's primary ray (24); the material table once."""
+    these inputs: every lane reads its state, pixel sum, traced direction,
+    raw t and code and 1 / |d| and writes its state (156 bytes); a live
+    hit also reads its material id, uv, centre or normal, Gaussian,
+    smoothness and Fresnel draw (44), its colour (12) on a colour texture
+    or its texel (12) on an image; a path end reads the lane's primary ray
+    (24); the material table once. The stress100k cases feed it K6's raw
+    outputs, the others K5's."""
     import torch
 
     import ctypes
@@ -1338,7 +1483,7 @@ def phase_wave_bounce(dev, check_size=(256, 128),
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.kernels import build
     from raytracer_tpu_torch.ops import bounce as tb
-    from raytracer_tpu_torch.ops.intersect_cuda import WaveScene
+    from raytracer_tpu_torch.ops.intersect_cuda import WaveScene, resolve
     w, h = check_size
     checks = {}
     for name, scene, sky, pos in bounce_scenes(dev):
@@ -1351,7 +1496,8 @@ def phase_wave_bounce(dev, check_size=(256, 128),
                     dev, ws, s, pos, w, h, arm == "regen")
     rec = {"checks": checks, "bitwise": all(
         r["bitwise"] for r in checks.values()),
-        "max_abs_err": max(r["max_abs_err"] for r in checks.values())}
+        "max_abs_err": max(r["max_abs_err"] for r in checks.values()),
+        "equal_share": min(r["equal_share"] for r in checks.values())}
 
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
     ws = WaveScene(scene)
@@ -1362,13 +1508,15 @@ def phase_wave_bounce(dev, check_size=(256, 128),
     for b in range(2):
         st.update(tb.wave_bounce(ws.scene, s, *inputs(b), regen=True))
     args = (ws.scene, s) + inputs(2)
-    hit, shade = args[4], args[5]
+    rec_hit, shade = resolve(args[4], st["o"], args[3], args[5],
+                             scene.needs_sphere_uv)
+    hit = rec_hit.hit
     want = tb.wave_bounce_reference(*args, regen=True)
     live = (st["sample_i"] < s.rays_per_pixel) & hit
     ends = int((want["sample_i"] != st["sample_i"]).sum())
     ttype = scene.tex_type[shade.mat_id.long()]
     n = w * h
-    n_bytes = (n * 145 + 56 * int(live.sum()) + 24 * ends
+    n_bytes = (n * 156 + 44 * int(live.sum()) + 24 * ends
                + 12 * int((live & ((ttype == 0) | (ttype == 3))).sum())
                + tensor_bytes(scene.mat_type, scene.mat_ior, scene.mat_emit,
                               scene.tex_type, scene.tex_light,
@@ -1397,10 +1545,10 @@ def phase_wave_bounce(dev, check_size=(256, 128),
                    *args, regen=True), 3),
                library_ms=None)
     rec.update(bound(n_bytes, 0.0))
-    print(f"phase 19 rt_wave_bounce vs plain, {check_size[0]}x"
-          f"{check_size[1]} lanes, scenes 1-4, stress100k, earth2048, both "
-          f"arms; timed on scene 4's {w}x{h} regen lanes:", json.dumps(rec),
-          flush=True)
+    print(f"phase 19 rt_wave_bounce vs plain on raw K5 / K6 outputs, "
+          f"{check_size[0]}x{check_size[1]} lanes, scenes 1-4, stress100k "
+          f"(K6), earth2048, both arms; timed on scene 4's {w}x{h} regen "
+          "lanes:", json.dumps(rec), flush=True)
     check(rec["bitwise"], "rt_wave_bounce differs from its plain version: "
           + json.dumps({k: v for k, v in checks.items()
                         if not v["bitwise"]}))
@@ -1761,8 +1909,8 @@ def phase_tile_randoms(dev, n: int) -> dict:
 
 def phase_coherent_regen(dev, width: int, height: int) -> dict:
     """(b) One coherent regen frame through Renderer on the card (scene 4,
-    4 spp): K5 and rt_tile_randoms, no lane randoms; against the plain
-    route on the same rays and key."""
+    4 spp): K5, rt_tile_randoms and rt_wave_rays on its rows, no lane
+    randoms; against the plain route on the same rays and key."""
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.ops import integrator as integ
     from raytracer_tpu_torch.ops import rng
@@ -1788,7 +1936,8 @@ def phase_coherent_regen(dev, width: int, height: int) -> dict:
     print(f"phase 14b coherent regen Renderer frame, scene 4 {width}x"
           f"{height} spp 4, vs the plain route:", json.dumps(rec), flush=True)
     check(launches["rt_hit_resolve"] > 0
-          and launches["rt_tile_randoms"] > 0
+          and launches["rt_tile_randoms"] == launches["rt_hit_resolve"]
+          and launches["rt_wave_rays"] == launches["rt_hit_resolve"]
           and launches["rt_lane_randoms"] == 0,
           f"coherent regen frame launched {launches}")
     check_pixels(stats, "coherent regen frame vs the plain route")
@@ -1916,6 +2065,7 @@ def phase_coherent_paths(dev, width: int = 1000, height: int = 800) -> list:
         if sampler == "regen":
             check(coh["rt_hit_resolve_blocked"] > 0
                   and coh["rt_tile_randoms"] > 0
+                  and coh["rt_wave_rays"] == coh["rt_hit_resolve_blocked"]
                   and coh["rt_lane_randoms"] == 0,
                   f"{name}: the coherent runs launched {coh}")
         else:
@@ -1944,15 +2094,14 @@ def segment_tests(dev, scene, width: int, height: int, settings) -> dict:
     from raytracer_tpu_torch.ops import integrator as integ
     from raytracer_tpu_torch.ops import intersect_cuda as ic
     from raytracer_tpu_torch.ops import rng
-    from raytracer_tpu_torch.ops.scatter import antialias_jitter
+    from raytracer_tpu_torch.ops.rays import wave_rays
     ws = ic.WaveScene(scene.to(dev), blocked=False)
     o0, d0 = camera_rays(width, height, dev)
     idx = camera_order(width, height, dev)
     use_rr = settings.russian_roulette > 0
-    # the jitter is applied here, before the count, so not again inside;
-    # the bounces run eagerly (no graph), the counting launch between them
-    route = integ._Route(ws, dataclasses.replace(settings, antialias=False),
-                         "pallas")
+    # the bounces run eagerly (no graph), the counting launch between the
+    # ray set-up and the bounce, on the rays the bounce traces
+    route = integ._Route(ws, settings, "pallas")
     fkey = rng.frame_key(rng.key(0), 0)
     tests = torch.zeros((), dtype=torch.float64, device=dev)
     segs = torch.zeros((), dtype=torch.float64, device=dev)
@@ -1960,14 +2109,12 @@ def segment_tests(dev, scene, width: int, height: int, settings) -> dict:
         keys = rng.per_ray_keys(rng.sample_key(fkey, s), idx)
         st = integ._scan_state(o0, d0)
         for b in range(settings.reflect_limit):
-            drawn = rng.bounce_randoms(keys, b, use_rr)
-            if settings.antialias:
-                st["d"] = antialias_jitter(drawn[0], st["d"])
-            o_u, d_u, _ = ic._unit_rays(st["o"], st["d"])
-            count = ic.hit_resolve_counted(ws.packed, o_u, d_u)[12]
-            tests += count[:o0.shape[1]][st["alive"]].double().sum()
+            rays = wave_rays(st["d"], keys=keys, bounce=b,
+                             antialias=settings.antialias, with_rr=use_rr)
+            count = ic.hit_resolve_counted(ws.packed, st["o"], rays.unit)[12]
+            tests += count[st["alive"]].double().sum()
             segs += st["alive"].sum()
-            integ._bounce(route, st, drawn, regen=False, bounce=b)
+            integ._bounce(route, st, rays, regen=False, bounce=b)
     return {"tests_per_segment": float(tests / segs),
             "segments": float(segs),
             "counted_on": f"estimate: the segments of a {width}x{height} "
@@ -2401,9 +2548,9 @@ def phase_shard_dryrun() -> dict:
 def phase_goldens(dev) -> dict:
     """Phase 17: scenes 0-4 at the goldens' settings (48x32, 24 spp, 5
     bounces, key 0; scene 4 at (0, 0.5, -6), seed 0) through
-    ``render_sample_mean(sampler="regen")``'s kernel route (K5 and the
-    lane randoms), bitwise against the plain route on the same inputs, and
-    each PSNR against tests/goldens/scene{n}.npy, judged on scenes 1-4 by
+    ``render_sample_mean(sampler="regen")``'s kernel route (rt_wave_rays,
+    K5 and rt_wave_bounce), bitwise against the plain route on the same
+    inputs, and each PSNR against tests/goldens/scene{n}.npy, judged on scenes 1-4 by
     tests/test_torch_golden.py's bounds. Returns the kernels' launches,
     counted over the kernel-route renders."""
     import pathlib
@@ -2447,8 +2594,10 @@ def phase_goldens(dev) -> dict:
                                       np.clip(golden, 0, 1)),
                "psnr_min": GOLDEN_PSNR_MIN.get(num), "launches": counts}
         out[f"scene{num}"] = rec
-        check(counts["rt_hit_resolve"] > 0 and counts["rt_lane_randoms"] > 0
-              and counts["rt_wave_bounce"] == counts["rt_hit_resolve"],
+        check(counts["rt_hit_resolve"] > 0
+              and counts["rt_wave_rays"] == counts["rt_hit_resolve"]
+              and counts["rt_wave_bounce"] == counts["rt_hit_resolve"]
+              and counts["rt_lane_randoms"] == 0,
               f"golden scene {num}: the kernel route launched {counts}")
     print(f"phase 17 goldens {w}x{h} {GOLDEN_SPP} spp, kernel route vs "
           "plain and PSNR vs tests/goldens:", json.dumps(out), flush=True)
@@ -2535,7 +2684,7 @@ def phase_profile_frame(width: int = 1000, height: int = 800) -> dict:
 
 def phase_trace(dev, width: int = 1000, height: int = 800) -> dict:
     """Phase 18a: ``trace`` on scene 4 at bench.py's camera, one sample,
-    5 bounces, through the kernel route (K5, the lane randoms and
+    5 bounces, through the kernel route (rt_wave_rays, K5 and
     rt_wave_bounce every bounce, replayed from the graph the WaveScene
     caches: the warm-up call captures it; counts set to 0 just before and
     read just after the timed call) against ``backend="plain"`` on the
@@ -2579,10 +2728,11 @@ def phase_trace(dev, width: int = 1000, height: int = 800) -> dict:
     check(tr["bitwise"] and tr["finite"], "trace: kernel route not bitwise "
           "the plain route")
     check(trace_launches["rt_hit_resolve"] == 5
-          and trace_launches["rt_lane_randoms"] == 5
-          and trace_launches["rt_wave_bounce"] == 5,
-          f"trace launched {trace_launches}, expected K5, the lane "
-          "randoms and rt_wave_bounce once a bounce")
+          and trace_launches["rt_wave_rays"] == 5
+          and trace_launches["rt_wave_bounce"] == 5
+          and trace_launches["rt_lane_randoms"] == 0,
+          f"trace launched {trace_launches}, expected the ray set-up, K5 "
+          "and rt_wave_bounce once a bounce")
     return tr
 
 
@@ -2697,6 +2847,7 @@ def main() -> int:
     slice_rec = phase_path(dev, 2, 1000, 800, 20)
     phase_bench(dev)
     lane_rec = phase_lane_randoms(dev, 1 << 20)
+    rays_recs = phase_wave_rays(dev)
     k5_rec = phase_k5(dev)
     k6_rec = phase_k6(dev, 1 << 16, 1 << 20)
     samplers = phase_samplers(dev, 256, 128)
@@ -2895,8 +3046,28 @@ def main() -> int:
          "launches": total("rt_lane_randoms"),
          "launches_by_path": {k: v["rt_lane_randoms"]
                               for k, v in by_path.items()},
+         "on_paths": "none: the iteration draws inside rt_wave_rays; "
+                     "rng.lane_randoms launches it for callers that want "
+                     "the rows (phase 8)",
          "max_abs_err": lane_rec["max_abs_err"], **timing(lane_rec),
+         "bound_ms_int32_rate": lane_rec["bound_ms_int32_rate"],
          "timed": "1M lanes"},
+        {"name": "rt_wave_rays", "route": "cuda", "source": RAYS_SOURCE,
+         "replaces": "raytracer_tpu/ops/rng.py:75, ops/scatter.py:34 and "
+                     "ops/intersect_pallas.py:737 (XLA's fusion before "
+                     "the hit kernel, not a TPU kernel)",
+         "launches": total("rt_wave_rays"),
+         "launches_by_path": {k: v["rt_wave_rays"]
+                              for k, v in by_path.items()},
+         "max_abs_err": max(r["max_abs_err"] for r in rays_recs.values()),
+         **timing(rays_recs[1000 * 800]),
+         "bound_ms_int32_rate": rays_recs[1000 * 800]["bound_ms_int32_rate"],
+         "ms_1m": rays_recs[1 << 20]["ms"],
+         "bound_ms_1m": rays_recs[1 << 20]["bound_ms"],
+         "device_share_scene4_regen": device_share(
+             "scene4_regen", "wave_rays_kernel"),
+         "timed": "800,000 lanes (the 1000x800 regen frames), regen arm "
+                  "with antialias and russian roulette"},
         {"name": "rt_tile_randoms", "route": "cuda",
          "source": WAVEFRONT_SOURCE,
          "replaces": "raytracer_tpu/ops/rng.py:104 (XLA, not a TPU kernel)",

@@ -1,36 +1,45 @@
 // The wavefront samplers' bounce after the hit, fused (sm_90a).
 //
 // rt_wave_bounce is not a TPU kernel: in the JAX package XLA fuses the
-// elementwise body of a bounce (raytracer_tpu/ops/integrator.py:59-126,
-// and the regeneration bookkeeping of :251-355) around the Pallas hit
-// kernel inside its jitted loop. The port ran that body as ~100 separate
-// torch launches a bounce; this kernel does all of it in one: the sky on a
-// miss, the emission, the material lookup (ops/tables.py), the texture
-// (ops/textures.py, the image atlas gathered here: the wavefront's own
-// layout, not K4's plane), the scatter (ops/scatter.py), russian roulette,
-// and, in its regen arm, the path end, the pixel sum, the sample and bounce
-// counters, the restart on the lane's primary ray and the parking of
-// exhausted lanes. One thread a lane, on the (3, n) SoA state, updated in
-// place. It reads what K5 / K6 and the torch resolve after them give
-// (hit, point, normal, uv, material id, colour, smoothness), the jittered
-// direction the hit was traced along, and the lane's randoms. Both arms
-// (scan: an alive mask, no regeneration; regen) are template arguments.
-// Plain version: ops/bounce.py::wave_bounce_reference.
+// resolve after the Pallas hit kernel (raytracer_tpu/ops/
+// intersect_pallas.py:851-906) and the elementwise body of a bounce
+// (ops/integrator.py:59-126, and the regeneration bookkeeping of
+// :251-355) around that kernel inside its jitted loop. The port ran that
+// body as ~100 separate torch launches a bounce; this kernel does all of
+// it in one. It reads K5's 12 raw outputs (t along the unit direction,
+// code, u, v, centre or normal, material id, colour, smoothness), or K6's
+// 9 (colour30 and smooth|mat decoded here as K5 decodes them), 1 / |d|
+// and the direction traced, and resolves the hit as
+// intersect_cuda.resolve does: t rescaled, the point, the sphere normal
+// and (a template argument) its lat/long UV, the triangle normal flipped
+// against the ray. Then the sky on a miss, the emission, the material
+// lookup (ops/tables.py), the texture (ops/textures.py, the image atlas
+// gathered here: the wavefront's own layout, not K4's plane), the scatter
+// (ops/scatter.py), russian roulette, and, in its regen arm, the path end,
+// the pixel sum, the sample and bounce counters, the restart on the lane's
+// primary ray and the parking of exhausted lanes. One thread a lane, on
+// the (3, n) SoA state, updated in place, with the lane's randoms from
+// rt_wave_rays. Both arms (scan: an alive mask, no regeneration; regen)
+// are template arguments. Plain version: ops/bounce.py::
+// wave_bounce_reference.
 //
 // Numerics. Bitwise with the plain version's torch ops on the card: built
 // with --fmad=false, each product and sum rounds on its own as a torch
 // elementwise op does, in the same order (torch's (a0*b0 + a1*b1) + a2*b2);
-// IEEE division and sqrtf as torch.div and torch.sqrt; rsqrtf as
-// torch.rsqrt; torch.clamp and torch.amax let a NaN through (clamp_max,
-// clamp_min, max_nan); textures._trunc_int sends NaN to 0 and clamps to
-// +-2147483520 before truncating (__float2int_rz alone would saturate at
-// 2^31 - 1, another parity); int32 sums wrap as torch's do (unsigned).
+// IEEE division and sqrtf as torch.div and torch.sqrt, a division by a
+// float scalar as torch's CUDA kernel does it (times the float32
+// reciprocal); rsqrtf as torch.rsqrt, asinf and acosf as torch.asin and
+// torch.acos; torch.clamp and torch.amax let a NaN through (clamp_max,
+// clamp_min, clamp2, max_nan); textures._trunc_int sends NaN to 0 and
+// clamps to +-2147483520 before truncating (__float2int_rz alone would
+// saturate at 2^31 - 1, another parity); int32 sums wrap as torch's do
+// (unsigned).
 //
 // What bounds it on an H100: bytes. Each lane reads its state, the hit
-// kernel's resolved outputs and its randoms once and writes its state
-// once, ~200 bytes a lane on the regen arm; the material rows and texels
-// are few and stay in L1/L2. The design does nothing else about it: a
-// simple kernel, one pass, no staging.
+// kernel's raw outputs and its randoms once and writes its state once,
+// ~250 bytes a lane on the regen arm; the material rows and texels are
+// few and stay in L1/L2. The design does nothing else about it: a simple
+// kernel, one pass, no staging; the resolve costs no bytes of its own.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,15 +60,9 @@ struct RtBounceArgs {
   const float* o0p[3];   // regen arm: the lane's primary ray
   const float* d0p[3];
   // this bounce's inputs
-  const float* dj[3];        // the (jittered) direction traced
-  const unsigned char* hit;  // rec.hit
-  const float* point[3];
-  const float* normal[3];
-  const float* u;
-  const float* v;
-  const int* mat_id;
-  const float* colour[3];
-  const float* smooth;
+  const float* dj[3];     // the (jittered) direction traced
+  const void* raw[12];    // K5's 12 outputs, or K6's 9 (pa, pb last)
+  const float* inv_len;   // 1 / |dj| (t is along dj / |dj|)
   const float* gauss[3];
   const float* fresnel;
   const float* rr;  // the russian-roulette uniform; null when off
@@ -82,7 +85,9 @@ struct RtBounceArgs {
   int rr_start;      // settings.russian_roulette (0: off)
   int limit, spp;
   int fix_exit_ior, has_refractive, emissive_terminates, park;
-  int regen;  // 1: the regen arm, 0: the scan arm
+  int regen;      // 1: the regen arm, 0: the scan arm
+  int blocked;    // 1: raw holds K6's 9 outputs
+  int sphere_uv;  // scene.needs_sphere_uv: resolve the sphere UV
 };
 
 }  // extern "C"
@@ -94,6 +99,11 @@ constexpr int kTexColour = 0, kTexGradient = 1, kTexChecker = 2,
               kTexImage = 3;
 constexpr float kTruncLim = 2147483520.0f;  // largest float32 < 2^31
 constexpr float kParkOrigin = 1e13f;
+constexpr float kInf = 1e30f;  // sweep.INF: a miss
+// torch.pi / 2.0 and the float32 reciprocal torch's CUDA division by the
+// scalar torch.pi multiplies by
+constexpr float kHalfPi = 1.57079632679489661923f;
+constexpr float kInvPi = 1.0f / 3.14159265358979323846f;
 
 struct V3 {
   float x, y, z;
@@ -107,6 +117,11 @@ __device__ __forceinline__ float clamp_max(float x, float hi) {
 }
 __device__ __forceinline__ float clamp_min(float x, float lo) {
   return is_nan(x) ? x : fmaxf(x, lo);
+}
+
+// torch.clamp with both bounds.
+__device__ __forceinline__ float clamp2(float x, float lo, float hi) {
+  return is_nan(x) ? x : fminf(fmaxf(x, lo), hi);
 }
 
 // torch.amax's pairwise rule: a NaN wins.
@@ -144,7 +159,81 @@ __device__ __forceinline__ V3 row3(const float* t, int m) {
   return V3{t[3 * m], t[3 * m + 1], t[3 * m + 2]};
 }
 
-template <bool kRegen>
+// K5's colour30 channel and smoothness decode (megakernel.cu, K6's
+// sweep.decode_colour30 / decode_smooth_mat).
+__device__ __forceinline__ float c30(int pa, int shift) {
+  return static_cast<float>((pa >> shift) & 1023) * (1.0f / 1023.0f);
+}
+
+// The hit as intersect_cuda.resolve gives it, from the raw outputs.
+struct Resolved {
+  bool hit;
+  V3 point, normal;
+  float u, v;
+  int mat_id;
+};
+
+template <bool kBlocked, bool kSphereUV>
+__device__ __forceinline__ Resolved resolve(const RtBounceArgs& a, int i,
+                                            V3 o, V3 dj) {
+  const float t_unit = static_cast<const float*>(a.raw[0])[i];
+  const int code = static_cast<const int*>(a.raw[1])[i];
+  // t along the caller's direction: where(t < INF, t * inv_len, INF)
+  const float t = t_unit < kInf ? t_unit * a.inv_len[i] : kInf;
+  Resolved r;
+  r.hit = t < kInf;
+  const bool is_tri = (code & 1) == 1;
+  const float safe_t = r.hit ? t : 0.0f;
+  r.point = V3{o.x + dj.x * safe_t, o.y + dj.y * safe_t, o.z + dj.z * safe_t};
+  const V3 c{static_cast<const float*>(a.raw[4])[i],
+             static_cast<const float*>(a.raw[5])[i],
+             static_cast<const float*>(a.raw[6])[i]};
+  // sphere: c is the centre; outward normal and lat/long UV
+  // (src/objects.cu:66, 82-97)
+  const V3 rel{r.point.x - c.x, r.point.y - c.y, r.point.z - c.z};
+  const float rmag = rsqrtf(clamp_min(dot3(rel, rel), 1e-24f));
+  const V3 sph_n{rel.x * rmag, rel.y * rmag, rel.z * rmag};
+  float sph_u = 0.0f, sph_v = 0.0f;
+  if (kSphereUV) {
+    const float theta = asinf(clamp2(sph_n.y, -1.0f, 1.0f));
+    const float phi = acosf(clamp2(sph_n.x, -1.0f, 1.0f));
+    sph_u = (theta + kHalfPi) * kInvPi;
+    const float v_ratio = (1.0f - phi * kInvPi) * 0.5f;
+    const float behind = r.point.z > c.z ? 1.0f : 0.0f;
+    sph_v = behind + (1.0f - 2.0f * behind) * v_ratio;
+  }
+  // triangle: c is the geometric normal, flipped against the ray
+  // (src/objects.cu:158)
+  const float flip = 1.0f - 2.0f * (dot3(c, dj) > 0.0f ? 1.0f : 0.0f);
+  r.normal = is_tri ? V3{c.x * flip, c.y * flip, c.z * flip} : sph_n;
+  r.u = is_tri ? static_cast<const float*>(a.raw[2])[i] : sph_u;
+  r.v = is_tri ? static_cast<const float*>(a.raw[3])[i] : sph_v;
+  r.mat_id = kBlocked ? static_cast<const int*>(a.raw[8])[i] & 0xFFFF
+                      : static_cast<const int*>(a.raw[7])[i];
+  return r;
+}
+
+template <bool kBlocked>
+__device__ __forceinline__ V3 hit_colour(const RtBounceArgs& a, int i) {
+  if (kBlocked) {
+    const int pa = static_cast<const int*>(a.raw[7])[i];
+    return V3{c30(pa, 20), c30(pa, 10), c30(pa, 0)};
+  }
+  return V3{static_cast<const float*>(a.raw[8])[i],
+            static_cast<const float*>(a.raw[9])[i],
+            static_cast<const float*>(a.raw[10])[i]};
+}
+
+template <bool kBlocked>
+__device__ __forceinline__ float hit_smooth(const RtBounceArgs& a, int i) {
+  if (kBlocked)
+    return static_cast<float>(
+               (static_cast<const int*>(a.raw[8])[i] >> 16) & 255) *
+           (1.0f / 255.0f);
+  return static_cast<const float*>(a.raw[11])[i];
+}
+
+template <bool kRegen, bool kBlocked, bool kSphereUV>
 __global__ void __launch_bounds__(256)
     wave_bounce_kernel(const RtBounceArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -165,7 +254,8 @@ __global__ void __launch_bounds__(256)
     alive = a.alive[i] != 0;
     bounces_done = a.bounce_const;
   }
-  const bool hit = a.hit[i] != 0;
+  const Resolved res = resolve<kBlocked, kSphereUV>(a, i, o, dj);
+  const bool hit = res.hit;
 
   // a miss adds the sky and ends the path (src/raytracer.cu:76-80)
   const bool miss = alive && !hit;
@@ -175,7 +265,7 @@ __global__ void __launch_bounds__(256)
 
   // emission adds, else the throughput takes the texture colour
   // (src/raytracer.cu:86-90)
-  const int m = a.mat_id[i];
+  const int m = res.mat_id;
   const int mtype = a.mat_type[m];
   const bool is_em = mtype == kMatEmissive;
   const bool live_hit = alive && hit;
@@ -186,13 +276,14 @@ __global__ void __launch_bounds__(256)
   rad.z = rad.z + (em_add ? thru.z * emit.z : 0.0f);
 
   // the texture (textures.py:22-61): all four types, one selected
-  const float u = a.u[i], v = a.v[i];
+  const float u = res.u, v = res.v;
   const int ttype = a.tex_type[m];
   const float nsq = a.tex_nsq[m];
   const int uc = trunc_int(u * nsq), vc = trunc_int(v * nsq);
   const bool light =
       ((static_cast<unsigned>(uc) + static_cast<unsigned>(vc)) & 1u) == 0u;
-  V3 tex = ttype == kTexColour ? load3(a.colour, i) : V3{0.0f, 0.0f, 0.0f};
+  V3 tex = ttype == kTexColour ? hit_colour<kBlocked>(a, i)
+                               : V3{0.0f, 0.0f, 0.0f};
   if (ttype == kTexGradient) tex = V3{u, v, 0.0f};
   if (ttype == kTexChecker)
     tex = light ? row3(a.tex_light, m) : row3(a.tex_dark, m);
@@ -215,7 +306,7 @@ __global__ void __launch_bounds__(256)
   }
 
   // the scatter (scatter.py:68-149): every model, selected by material
-  const V3 nrm = load3(a.normal, i);
+  const V3 nrm = res.normal;
   const V3 g = load3(a.gauss, i);
   const float gflip = dot3(g, nrm) < 0.0f ? -1.0f : 1.0f;
   const V3 ru = normalize(V3{g.x * gflip, g.y * gflip, g.z * gflip});
@@ -223,7 +314,7 @@ __global__ void __launch_bounds__(256)
   const float s2 = 2.0f * dot3(dj, nrm);
   const V3 spec =
       normalize(V3{dj.x - nrm.x * s2, dj.y - nrm.y * s2, dj.z - nrm.z * s2});
-  const float sm = a.smooth[i];
+  const float sm = hit_smooth<kBlocked>(a, i);
   const V3 refl = normalize(V3{diffuse.x + (spec.x - diffuse.x) * sm,
                                diffuse.y + (spec.y - diffuse.y) * sm,
                                diffuse.z + (spec.z - diffuse.z) * sm});
@@ -266,7 +357,7 @@ __global__ void __launch_bounds__(256)
   }
   V3 d = dj;
   if (live_hit) {
-    o = load3(a.point, i);
+    o = res.point;
     d = new_d;
     cur_ior = new_ior;
   }
@@ -329,10 +420,22 @@ int rt_wave_bounce(const RtBounceArgs* args, void* stream) {
   if (args->n <= 0) return 0;
   const int blocks = (args->n + 255) / 256;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (args->regen)
-    wave_bounce_kernel<true><<<blocks, 256, 0, st>>>(*args);
-  else
-    wave_bounce_kernel<false><<<blocks, 256, 0, st>>>(*args);
+  const int arm = (args->regen ? 4 : 0) + (args->blocked ? 2 : 0) +
+                  (args->sphere_uv ? 1 : 0);
+  switch (arm) {
+#define RT_BOUNCE_ARM(k, R, B, U) \
+  case k:                         \
+    wave_bounce_kernel<R, B, U><<<blocks, 256, 0, st>>>(*args); break;
+    RT_BOUNCE_ARM(0, false, false, false)
+    RT_BOUNCE_ARM(1, false, false, true)
+    RT_BOUNCE_ARM(2, false, true, false)
+    RT_BOUNCE_ARM(3, false, true, true)
+    RT_BOUNCE_ARM(4, true, false, false)
+    RT_BOUNCE_ARM(5, true, false, true)
+    RT_BOUNCE_ARM(6, true, true, false)
+    RT_BOUNCE_ARM(7, true, true, true)
+#undef RT_BOUNCE_ARM
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,0 +1,89 @@
+// The wavefront samplers' random draws as device functions: threefry2x32
+// as jax.random uses it, its uniforms and normals (XLA's float32 erfinv,
+// op for op), and one lane's key and draw (raytracer_tpu/ops/rng.py:42-101).
+// rt_lane_randoms and rt_tile_randoms (wavefront.cu) and rt_wave_rays
+// (rays.cu) draw with them. Plain versions: ops/rng.py.
+
+#pragma once
+
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+// threefry2x32, 20 rounds, as jax.random uses it.
+__device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1,
+                                         uint32_t x0, uint32_t x1,
+                                         uint32_t& y0, uint32_t& y1) {
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  uint32_t a = x0 + k0, b = x1 + k1;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      a += b;
+      b = rotl32(b, rot[i % 2][j]) ^ a;
+    }
+    a += ks[(i + 1) % 3];
+    b += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+  }
+  y0 = a;
+  y1 = b;
+}
+
+__device__ __forceinline__ float uniform01(uint32_t bits) {
+  return __int_as_float(static_cast<int>((bits >> 9) | 0x3F800000u)) - 1.0f;
+}
+
+// XLA's float32 erfinv (Giles), op for op as ops/rng.py::erfinv_xla.
+__device__ __forceinline__ float erfinv_xla(float x) {
+  const float lt5[9] = {2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f,
+                        -4.39150654e-06f, 0.00021858087f, -0.00125372503f,
+                        -0.00417768164f, 0.246640727f, 1.50140941f};
+  const float ge5[9] = {-0.000200214257f, 0.000100950558f, 0.00134934322f,
+                        -0.00367342844f, 0.00573950773f, -0.0076224613f,
+                        0.00943887047f, 1.00167406f, 2.83297682f};
+  float w = -log1pf(x * -x);
+  const bool lt = w < 5.0f;
+  w = lt ? w - 2.5f : sqrtf(w) - 3.0f;
+  float p = lt ? lt5[0] : ge5[0];
+#pragma unroll
+  for (int i = 1; i < 9; ++i) p = (lt ? lt5[i] : ge5[i]) + p * w;
+  return fabsf(x) == 1.0f ? x * __int_as_float(0x7F800000) : p * x;
+}
+
+// jax.random.normal: sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1)).
+__device__ __forceinline__ float normal01(uint32_t bits) {
+  const float lo = __int_as_float(0xBF7FFFFF);  // nextafter(-1, 0)
+  const float u = fmaxf(uniform01(bits) * 2.0f + lo, lo);
+  return 1.41421356f * erfinv_xla(u);
+}
+
+// The lane's key for this bounce: fold_in(fold_in(k, sample), bounce), or
+// fold_in(k, bounce) without a sample (the key already holds it).
+__device__ __forceinline__ void lane_key(const long long* keys, int n, int i,
+                                         const int* sample, uint32_t bounce,
+                                         uint32_t& k0, uint32_t& k1) {
+  k0 = static_cast<uint32_t>(keys[i]);
+  k1 = static_cast<uint32_t>(keys[n + i]);
+  if (sample != nullptr)
+    threefry(k0, k1, 0u, static_cast<uint32_t>(sample[i]), k0, k1);
+  threefry(k0, k1, 0u, bounce, k0, k1);
+}
+
+// Row `row` of the lane's draw: split(key)[row], then its bits: a uniform,
+// or a normal for the Gaussian rows 3-5.
+__device__ __forceinline__ float lane_draw(uint32_t k0, uint32_t k1,
+                                           int row) {
+  uint32_t s0, s1, b0, b1;
+  threefry(k0, k1, 0u, static_cast<uint32_t>(row), s0, s1);  // split
+  threefry(s0, s1, 0u, 0u, b0, b1);                          // bits
+  const uint32_t bits = b0 ^ b1;
+  return (row >= 3 && row < 6) ? normal01(bits) : uniform01(bits);
+}
+
+}  // namespace

@@ -43,9 +43,11 @@
 // randoms in XLA (raytracer_tpu/ops/rng.py:42-101). Per lane it folds the
 // lane's key with its sample and bounce, splits it into 7 or 8 subkeys
 // (split(k, n)[i] == fold_in(k, i) under jax_threefry_partitionable) and
-// draws one uniform or normal from each, all in registers: in plain torch
-// the ~18 threefry passes of ~200 elementwise ops each would dominate a
-// bounce. Plain version: ops/rng.py::lane_randoms_reference.
+// draws one uniform or normal from each, all in registers (draw.cuh's
+// lane_key and lane_draw, which rt_wave_rays shares): in plain torch the ~18 threefry
+// passes of ~200 elementwise ops each would dominate a bounce. It writes
+// the (7|8, n) rows for callers that want them. Plain version:
+// ops/rng.py::lane_randoms_reference.
 //
 // rt_tile_randoms is not a TPU kernel either: coherent sampling's draw
 // (raytracer_tpu/ops/rng.py:104-127), one bundle per 1024 consecutive
@@ -61,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "draw.cuh"
 #include "sweep.cuh"
 
 extern "C" {
@@ -189,78 +192,17 @@ int launch_blocked(const RtBlockedArgs& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// -- the lane randoms --------------------------------------------------------
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// threefry2x32, 20 rounds, as jax.random uses it.
-__device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1,
-                                         uint32_t x0, uint32_t x1,
-                                         uint32_t& y0, uint32_t& y1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  uint32_t a = x0 + k0, b = x1 + k1;
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      a += b;
-      b = rotl32(b, rot[i % 2][j]) ^ a;
-    }
-    a += ks[(i + 1) % 3];
-    b += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
-  y0 = a;
-  y1 = b;
-}
-
-__device__ __forceinline__ float uniform01(uint32_t bits) {
-  return __int_as_float(static_cast<int>((bits >> 9) | 0x3F800000u)) - 1.0f;
-}
-
-// XLA's float32 erfinv (Giles), op for op as ops/rng.py::erfinv_xla.
-__device__ __forceinline__ float erfinv_xla(float x) {
-  const float lt5[9] = {2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f,
-                        -4.39150654e-06f, 0.00021858087f, -0.00125372503f,
-                        -0.00417768164f, 0.246640727f, 1.50140941f};
-  const float ge5[9] = {-0.000200214257f, 0.000100950558f, 0.00134934322f,
-                        -0.00367342844f, 0.00573950773f, -0.0076224613f,
-                        0.00943887047f, 1.00167406f, 2.83297682f};
-  float w = -log1pf(x * -x);
-  const bool lt = w < 5.0f;
-  w = lt ? w - 2.5f : sqrtf(w) - 3.0f;
-  float p = lt ? lt5[0] : ge5[0];
-#pragma unroll
-  for (int i = 1; i < 9; ++i) p = (lt ? lt5[i] : ge5[i]) + p * w;
-  return fabsf(x) == 1.0f ? x * __int_as_float(0x7F800000) : p * x;
-}
-
-// jax.random.normal: sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1)).
-__device__ __forceinline__ float normal01(uint32_t bits) {
-  const float lo = __int_as_float(0xBF7FFFFF);  // nextafter(-1, 0)
-  const float u = fmaxf(uniform01(bits) * 2.0f + lo, lo);
-  return 1.41421356f * erfinv_xla(u);
-}
+// -- the lane randoms (draw.cuh) -------------------------------------------
 
 __global__ void __launch_bounds__(256)
     lane_randoms_kernel(const RtLaneArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
-  uint32_t k0 = static_cast<uint32_t>(a.keys[i]);
-  uint32_t k1 = static_cast<uint32_t>(a.keys[a.n + i]);
-  if (a.sample != nullptr)
-    threefry(k0, k1, 0u, static_cast<uint32_t>(a.sample[i]), k0, k1);
-  threefry(k0, k1, 0u, static_cast<uint32_t>(a.bounce[i]), k0, k1);
-  for (int row = 0; row < a.rows; ++row) {
-    uint32_t s0, s1, b0, b1;
-    threefry(k0, k1, 0u, static_cast<uint32_t>(row), s0, s1);  // split
-    threefry(s0, s1, 0u, 0u, b0, b1);                          // bits
-    const uint32_t bits = b0 ^ b1;
-    a.out[static_cast<size_t>(row) * a.n + i] =
-        (row >= 3 && row < 6) ? normal01(bits) : uniform01(bits);
-  }
+  uint32_t k0, k1;
+  lane_key(a.keys, a.n, i, a.sample, static_cast<uint32_t>(a.bounce[i]), k0,
+           k1);
+  for (int row = 0; row < a.rows; ++row)
+    a.out[static_cast<size_t>(row) * a.n + i] = lane_draw(k0, k1, row);
 }
 
 // Subkey s = split(key)[s] draws a block of bits whose element j is

@@ -27,7 +27,8 @@ import time
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("megakernel.cu", "wavefront.cu", "warp.cu", "bounce.cu")
+SOURCES = ("megakernel.cu", "wavefront.cu", "warp.cu", "bounce.cu",
+           "rays.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
@@ -141,6 +142,20 @@ class LaneArgs(ctypes.Structure):
                 ("n", ctypes.c_int), ("rows", ctypes.c_int)]
 
 
+_P3 = ctypes.c_void_p * 3
+
+
+class RaysArgs(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "keys", "sample", "bounce", "drawn")]
+        + [(n, _P3) for n in ("d", "dj", "unit")]
+        + [(n, ctypes.c_void_p) for n in (
+            "inv_len", "draws", "alive", "segs")]
+        + [(n, ctypes.c_int) for n in (
+            "n", "rows", "bounce_const", "spp", "antialias")]
+        + [("jitter_scale", ctypes.c_float)])
+
+
 class TileArgs(ctypes.Structure):
     _fields_ = [("key0", ctypes.c_uint), ("key1", ctypes.c_uint),
                 ("out", ctypes.c_void_p), ("n", ctypes.c_int),
@@ -188,18 +203,13 @@ class HistoryArgs(ctypes.Structure):
         + [("width", ctypes.c_int), ("height", ctypes.c_int)])
 
 
-_P3 = ctypes.c_void_p * 3
-
-
 class BounceArgs(ctypes.Structure):
     _fields_ = ([(n, _P3) for n in ("o", "d", "thru", "rad")]
                 + [("ior", ctypes.c_void_p), ("alive", ctypes.c_void_p),
                    ("pixel_sum", _P3), ("sample", ctypes.c_void_p),
                    ("bounce", ctypes.c_void_p), ("o0p", _P3), ("d0p", _P3),
-                   ("dj", _P3), ("hit", ctypes.c_void_p), ("point", _P3),
-                   ("normal", _P3), ("u", ctypes.c_void_p),
-                   ("v", ctypes.c_void_p), ("mat_id", ctypes.c_void_p),
-                   ("colour", _P3), ("smooth", ctypes.c_void_p),
+                   ("dj", _P3), ("raw", ctypes.c_void_p * 12),
+                   ("inv_len", ctypes.c_void_p),
                    ("gauss", _P3), ("fresnel", ctypes.c_void_p),
                    ("rr", ctypes.c_void_p)]
                 + [(n, ctypes.c_void_p) for n in (
@@ -211,7 +221,7 @@ class BounceArgs(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in (
                     "n", "bounce_const", "rr_start", "limit", "spp",
                     "fix_exit_ior", "has_refractive", "emissive_terminates",
-                    "park", "regen")])
+                    "park", "regen", "blocked", "sphere_uv")])
 
 
 def scene_args(ps) -> SceneArgs:
@@ -250,7 +260,8 @@ def load() -> ctypes.CDLL:
                            ("rt_tile_randoms", TileArgs),
                            ("rt_warp_gather", WarpGatherArgs),
                            ("rt_gather_history", HistoryArgs),
-                           ("rt_wave_bounce", BounceArgs)):
+                           ("rt_wave_bounce", BounceArgs),
+                           ("rt_wave_rays", RaysArgs)):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
             fn.restype = ctypes.c_int

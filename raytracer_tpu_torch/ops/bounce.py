@@ -1,16 +1,17 @@
 """The wavefront samplers' bounce after the hit: ``rt_wave_bounce``.
 
-Everything one bounce of a wavefront lane does once K5 / K6 and the
-resolve (``intersect_cuda.hit_and_resolve``) have given its hit: the sky
-on a miss, the emission, the material lookup (ops/tables.py), the texture
-(ops/textures.py), the scatter (ops/scatter.py) and russian roulette
-(raytracer_tpu/ops/integrator.py:59-126); in the regen arm also the
-regeneration bookkeeping (:251-355): the path end, the pixel sum, the
+Everything one bounce of a wavefront lane does once K5 / K6 have found
+its hit: the resolve (``intersect_cuda.resolve``: the t rescale, the
+point, the normal and the sphere UV, on the hit kernel's raw outputs),
+the sky on a miss, the emission, the material lookup (ops/tables.py), the
+texture (ops/textures.py), the scatter (ops/scatter.py) and russian
+roulette (raytracer_tpu/ops/integrator.py:59-126); in the regen arm also
+the regeneration bookkeeping (:251-355): the path end, the pixel sum, the
 sample and bounce counters, the restart on the lane's primary ray and,
 for the samplers that regroup lanes, the parking of exhausted lanes. The
-scan arm keeps an alive mask and does no regeneration. The antialias
-jitter comes before the hit, so it stays a torch pass (inside the
-replayed graph on the card) and the bounce reads its result.
+scan arm keeps an alive mask and does no regeneration. The draws and the
+antialias jitter come before the hit, from the ray set-up
+(ops/rays.py), and the bounce reads their result.
 
 The lane state is a dict of tensors: ``o``, ``d``, ``thru``, ``rad``
 ((3, N) float32) and ``cur_ior`` ((N,) float32); the scan arm adds
@@ -18,13 +19,14 @@ The lane state is a dict of tensors: ``o``, ``d``, ``thru``, ``rad``
 ``sample_i`` and ``bounce_i`` ((N,) int32) and the primary rays ``o0p``
 and ``d0p`` ((3, N)).
 
-``wave_bounce_reference`` is the plain version, the port's torch ops in
-their order before the kernel existed; the ``"plain"`` route and CPU
-tensors take it. On a CUDA tensor ``wave_bounce`` launches the CUDA
-kernel ``rt_wave_bounce`` (csrc/bounce.cu), one thread a lane, which
-updates the state in place (``inplace=True``, how a replayed graph keeps
-its state in its static buffers) or in copies; it raises rather than
-fall back.
+``wave_bounce_reference`` is the plain version: ``intersect_cuda.resolve``
+then ``shade_bounce_reference``, the port's torch ops in their order
+before the kernel existed (the JAX oracles' route, which resolves its own
+hits, calls the latter alone); the ``"plain"`` route and CPU tensors take
+it. On a CUDA tensor ``wave_bounce`` launches the CUDA kernel
+``rt_wave_bounce`` (csrc/bounce.cu), one thread a lane, which updates the
+state in place (``inplace=True``, how a replayed graph keeps its state in
+its static buffers) or in copies; it raises rather than fall back.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from ..models.materials import MAT_EMISSIVE
+from .intersect_cuda import _K5_DTYPES, _K6_DTYPES, resolve
 from .scatter import scatter
 from .tables import lookup_material
 from .textures import sample_texture
@@ -48,17 +51,17 @@ _WRITES = {False: ("o", "d", "thru", "rad", "cur_ior", "alive"),
                   "sample_i", "bounce_i")}
 
 
-def wave_bounce_reference(scene, settings, st: dict, dj: torch.Tensor,
-                          hit: torch.Tensor, shade, gauss: torch.Tensor,
-                          fresnel_u: torch.Tensor, rr_u=None, *,
-                          regen: bool = False, bounce: int = 0,
-                          park: bool = False) -> dict:
-    """Plain version of ``rt_wave_bounce``: the new lane state (a dict of
-    new tensors holding the keys the arm writes).
+def shade_bounce_reference(scene, settings, st: dict, dj: torch.Tensor,
+                           hit: torch.Tensor, shade, gauss: torch.Tensor,
+                           fresnel_u: torch.Tensor, rr_u=None, *,
+                           regen: bool = False, bounce: int = 0,
+                           park: bool = False) -> dict:
+    """The bounce on a resolved hit: the new lane state (a dict of new
+    tensors holding the keys the arm writes).
 
     ``dj``: the (3, N) directions the hit was traced along (the state's
     ``d`` after the antialias jitter); ``hit``, ``shade``: the
-    HitRecord's hit mask and the ShadeData of ``hit_and_resolve``;
+    HitRecord's hit mask and the ShadeData of the resolve;
     ``gauss`` (3, N), ``fresnel_u`` (N,) and ``rr_u`` (N,) or None: the
     lane randoms. ``regen``: the regen arm, whose lanes are active while
     ``sample_i < rays_per_pixel``; else the scan arm, whose ``bounce`` is
@@ -141,6 +144,23 @@ def wave_bounce_reference(scene, settings, st: dict, dj: torch.Tensor,
             "bounce_i": bounce_i}
 
 
+def wave_bounce_reference(scene, settings, st: dict, dj: torch.Tensor,
+                          raw, inv_len: torch.Tensor, gauss: torch.Tensor,
+                          fresnel_u: torch.Tensor, rr_u=None, *,
+                          regen: bool = False, bounce: int = 0,
+                          park: bool = False) -> dict:
+    """Plain version of ``rt_wave_bounce``: ``intersect_cuda.resolve`` of
+    the hit kernel's raw outputs ``raw`` (K5's 12 or K6's 9, from the
+    state's ``o`` along ``dj``'s unit direction, ``inv_len`` = 1 / |dj|,
+    the sphere UV when ``scene.needs_sphere_uv``), then
+    ``shade_bounce_reference`` (the other arguments and the result)."""
+    rec, shade = resolve(raw, st["o"], dj, inv_len,
+                         bool(scene.needs_sphere_uv))
+    return shade_bounce_reference(scene, settings, st, dj, rec.hit, shade,
+                                  gauss, fresnel_u, rr_u, regen=regen,
+                                  bounce=bounce, park=park)
+
+
 def _rows(x: torch.Tensor, rows: int, what: str):
     """Row pointers of a (rows, N) float32 tensor whose rows are
     contiguous."""
@@ -157,7 +177,11 @@ def _ptr(x: torch.Tensor, dtype, what: str) -> int:
     return x.data_ptr()
 
 
-def bounce_args(scene, settings, st, dj, hit, shade, gauss, fresnel_u,
+# the raw outputs' dtypes by count: K5's 12, K6's 9
+_RAW_DTYPES = {12: _K5_DTYPES, 9: _K6_DTYPES}
+
+
+def bounce_args(scene, settings, st, dj, raw, inv_len, gauss, fresnel_u,
                 rr_u=None, *, regen: bool = False, bounce: int = 0,
                 park: bool = False):
     """``rt_wave_bounce``'s argument struct over the state ``st`` (updated
@@ -166,8 +190,15 @@ def bounce_args(scene, settings, st, dj, hit, shade, gauss, fresnel_u,
     from ..kernels import build
     f32, i32 = torch.float32, torch.int32
     n = st["o"].shape[1]
-    for name, x in (("hit", hit), ("fresnel_u", fresnel_u),
-                    ("mat_id", shade.mat_id)):
+    if len(raw) not in _RAW_DTYPES:
+        raise ValueError(f"raw must hold K5's 12 or K6's 9 outputs, got "
+                         f"{len(raw)}")
+    for k, (x, dtype) in enumerate(zip(raw, _RAW_DTYPES[len(raw)])):
+        if x.shape != (n,) or x.device != st["o"].device:
+            raise ValueError(f"raw output {k} must be ({n},) on "
+                             f"{st['o'].device}")
+        _ptr(x, dtype, f"raw output {k}")
+    for name, x in (("inv_len", inv_len), ("fresnel_u", fresnel_u)):
         if x.shape != (n,) or x.device != st["o"].device:
             raise ValueError(f"{name} must be ({n},) on {st['o'].device}")
     args = build.BounceArgs()
@@ -183,14 +214,8 @@ def bounce_args(scene, settings, st, dj, hit, shade, gauss, fresnel_u,
     else:
         args.alive = _ptr(st["alive"], torch.bool, "alive")
     args.dj[:] = _rows(dj, 3, "dj")
-    args.hit = _ptr(hit, torch.bool, "hit")
-    args.point[:] = _rows(shade.point, 3, "point")
-    args.normal[:] = _rows(shade.normal, 3, "normal")
-    args.u = _ptr(shade.u, f32, "u")
-    args.v = _ptr(shade.v, f32, "v")
-    args.mat_id = _ptr(shade.mat_id, i32, "mat_id")
-    args.colour[:] = _rows(shade.colour, 3, "colour")
-    args.smooth = _ptr(shade.smooth, f32, "smooth")
+    args.raw[:len(raw)] = [x.data_ptr() for x in raw]
+    args.inv_len = _ptr(inv_len, f32, "inv_len")
     args.gauss[:] = _rows(gauss, 3, "gauss")
     args.fresnel = _ptr(fresnel_u, f32, "fresnel_u")
     args.rr = None if rr_u is None else _ptr(rr_u, f32, "rr_u")
@@ -216,6 +241,8 @@ def bounce_args(scene, settings, st, dj, hit, shade, gauss, fresnel_u,
     args.emissive_terminates = int(settings.emissive_terminates)
     args.park = int(park)
     args.regen = int(regen)
+    args.blocked = int(len(raw) == 9)
+    args.sphere_uv = int(bool(scene.needs_sphere_uv))
     return args
 
 
@@ -231,9 +258,9 @@ def _wave_bounce_cuda(scene, settings, st, *args, **kw) -> None:
     LAUNCHES += 1
 
 
-def wave_bounce(scene, settings, st: dict, dj, hit, shade, gauss, fresnel_u,
-                rr_u=None, *, regen: bool = False, bounce: int = 0,
-                park: bool = False, plain: bool = False,
+def wave_bounce(scene, settings, st: dict, dj, raw, inv_len, gauss,
+                fresnel_u, rr_u=None, *, regen: bool = False,
+                bounce: int = 0, park: bool = False, plain: bool = False,
                 inplace: bool = False) -> dict:
     """One bounce after the hit (arguments as ``wave_bounce_reference``):
     the new lane state, the keys the arm writes. CPU tensors, or
@@ -243,7 +270,7 @@ def wave_bounce(scene, settings, st: dict, dj, hit, shade, gauss, fresnel_u,
     of a captured graph), else new ones."""
     dev = st["o"].device
     if dev.type == "cpu" or plain:
-        out = wave_bounce_reference(scene, settings, st, dj, hit, shade,
+        out = wave_bounce_reference(scene, settings, st, dj, raw, inv_len,
                                     gauss, fresnel_u, rr_u, regen=regen,
                                     bounce=bounce, park=park)
         if not inplace:
@@ -254,6 +281,7 @@ def wave_bounce(scene, settings, st: dict, dj, hit, shade, gauss, fresnel_u,
     if dev.type != "cuda":
         raise ValueError(f"no bounce kernel for device {dev}")
     out = {k: st[k] if inplace else st[k].clone() for k in _WRITES[regen]}
-    _wave_bounce_cuda(scene, settings, {**st, **out}, dj, hit, shade, gauss,
-                      fresnel_u, rr_u, regen=regen, bounce=bounce, park=park)
+    _wave_bounce_cuda(scene, settings, {**st, **out}, dj, raw, inv_len,
+                      gauss, fresnel_u, rr_u, regen=regen, bounce=bounce,
+                      park=park)
     return out

@@ -19,13 +19,16 @@ rays as (3, N) tensors and run one bounce of every lane per step:
 
 Randomness is keyed by the global pixel index ``ray_idx`` (the Renderer
 passes its Morton order), sample and bounce (ops/rng.py). ``backend``
-takes the JAX names: ``"pallas"`` (default) is the kernel route, K5 or K6
-(ops/intersect_cuda.py), ``rt_lane_randoms`` (coherent:
-``rt_tile_randoms``) and ``rt_wave_bounce`` (ops/bounce.py) on a CUDA
-tensor, their plain versions on a CPU tensor; ``"xla"`` and ``"woop"``
-are the JAX package's CPU oracles (ops/intersect.py). ``"plain"`` is the
-kernel route with every kernel replaced by its plain version, on any
-device: the card holds the kernel route against it.
+takes the JAX names: ``"pallas"`` (default) is the kernel route, on a
+CUDA tensor three kernels an iteration: the ray set-up ``rt_wave_rays``
+(ops/rays.py: the draw, the antialias jitter, the unit directions, the
+segment count; coherent sampling draws with ``rt_tile_randoms`` before
+it), K5 or K6 (ops/intersect_cuda.py) and ``rt_wave_bounce``
+(ops/bounce.py: the resolve and the bounce), their plain versions on a
+CPU tensor; ``"xla"`` and ``"woop"`` are the JAX package's CPU oracles
+(ops/intersect.py). ``"plain"`` is the kernel route with every kernel
+replaced by its plain version, on any device: the card holds the kernel
+route against it.
 
 On a CUDA tensor the kernel route runs as the JAX package's compiled
 loop does, without the host between iterations: the iterations are
@@ -46,13 +49,13 @@ import torch
 
 from ..config import RenderSettings
 from . import film, intersect, rng, wave_graph
-from .bounce import wave_bounce
-from .intersect_cuda import WaveScene, hit_and_resolve
+from .bounce import shade_bounce_reference, wave_bounce
+from .intersect_cuda import WaveScene, hit_raw
 from .megakernel import MegaScene, render_sample_mean_mega
+from .rays import wave_rays
 from .rebin import (LANES, apply_lane_permutation, bucket_permutation,
                     lane_buckets, lane_destinations, permute_rows,
                     row_buckets)
-from .scatter import antialias_jitter
 
 BACKENDS = ("pallas", "plain", "xla", "woop")
 # The regen loop looks for its end every this many iterations: each look
@@ -94,28 +97,38 @@ def _replays(backend: str, o: torch.Tensor) -> bool:
     return backend == "pallas" and o.device.type == "cuda"
 
 
-def _bounce(route: _Route, st: dict, drawn, *, regen: bool,
+def _rays(route: _Route, st: dict, **kw):
+    """The iteration's ray set-up (``wave_rays``) on the state's
+    directions, counting its segments into ``st["segs"]``."""
+    s = route.settings
+    return wave_rays(st["d"], antialias=s.antialias, with_rr=route.use_rr,
+                     segs=st["segs"], spp=s.rays_per_pixel, plain=route.plain,
+                     **kw)
+
+
+def _bounce(route: _Route, st: dict, rays, *, regen: bool,
             bounce: int = 0, park: bool = False) -> None:
-    """One bounce of every lane of ``st`` (integrator.py:59-126): the
-    antialias jitter, the nearest hit and its resolve (K5 / K6 on the
-    kernel route), then ``wave_bounce`` (``rt_wave_bounce``). ``drawn``:
-    the lane randoms (jitter, gauss, Fresnel[, russian roulette])."""
+    """One bounce of every lane of ``st`` (integrator.py:59-126) on the
+    iteration's ``rays`` (``wave_rays``): the nearest hit (K5 / K6 on the
+    kernel route, their raw outputs), then ``wave_bounce``
+    (``rt_wave_bounce``: the resolve and the bounce). The oracles resolve
+    their own hits (ops/intersect.py) and take ``shade_bounce_reference``."""
     settings, ws = route.settings, route.ws
     scene = ws.scene
-    o = st["o"]
-    dj = antialias_jitter(drawn[0], st["d"]) if settings.antialias \
-        else st["d"]
+    kw = dict(regen=regen, bounce=bounce, park=park)
     if route.backend in ("pallas", "plain"):
-        rec, shade = hit_and_resolve(ws, o, dj,
-                                     need_sphere_uv=scene.needs_sphere_uv,
-                                     plain=route.plain)
-    else:
-        rec = intersect.nearest_hit(o, dj, scene, backend=route.backend)
-        shade = intersect.resolve_hit(o, dj, scene, rec)
-    st.update(wave_bounce(
-        scene, settings, st, dj, rec.hit, shade, drawn[1], drawn[2],
-        drawn[3] if route.use_rr else None, regen=regen, bounce=bounce,
-        park=park, plain=route.backend != "pallas", inplace=route.graph))
+        raw = hit_raw(ws, st["o"], rays.unit, plain=route.plain)
+        st.update(wave_bounce(
+            scene, settings, st, rays.dj, raw, rays.inv_len, rays.gauss,
+            rays.fresnel, rays.rr, plain=route.plain, inplace=route.graph,
+            **kw))
+        return
+    rec = intersect.nearest_hit(st["o"], rays.dj, scene,
+                                backend=route.backend)
+    shade = intersect.resolve_hit(st["o"], rays.dj, scene, rec)
+    st.update(shade_bounce_reference(scene, settings, st, rays.dj, rec.hit,
+                                     shade, rays.gauss, rays.fresnel,
+                                     rays.rr, **kw))
 
 
 def _trace_iterations(route: _Route, st: dict, keys: torch.Tensor) -> None:
@@ -123,9 +136,8 @@ def _trace_iterations(route: _Route, st: dict, keys: torch.Tensor) -> None:
     lane state ``st`` (integrator.py:148-187), counting live segments into
     ``st["segs"]``; ``keys``: the per-ray keys of the sample."""
     for b in range(route.settings.reflect_limit):
-        st["segs"].add_(st["alive"].sum())
-        drawn = rng.bounce_randoms(keys, b, route.use_rr, plain=route.plain)
-        _bounce(route, st, drawn, regen=False, bounce=b)
+        rays = _rays(route, st, keys=keys, bounce=b, alive=st["alive"])
+        _bounce(route, st, rays, regen=False, bounce=b)
 
 
 def _scan_state(o: torch.Tensor, d: torch.Tensor) -> dict:
@@ -223,7 +235,7 @@ def trace(scene, settings: RenderSettings, o: torch.Tensor,
     (``rng.key``, ``rng.fold_in``; ``jax.random.key_data`` of JAX's key),
     ``ray_idx`` the (N,) global pixel indices that key the per-ray streams
     (default 0..N-1), and ``backend`` defaults to the kernel route: on a
-    CUDA tensor every bounce launches ``rt_lane_randoms``, K5
+    CUDA tensor every bounce launches ``rt_wave_rays``, K5
     (``rt_hit_resolve``, or K6 for a scene over the resident budget) and
     ``rt_wave_bounce``, replayed from a CUDA graph that the WaveScene
     caches per shape and settings; ``"plain"`` runs their plain versions
@@ -264,19 +276,20 @@ def _regen_iteration(route: _Route, st: dict, it: int, rebin: bool,
     settings = route.settings
     spp = settings.rays_per_pixel
     n = st["o"].shape[1]
-    st["segs"].add_((st["sample_i"] < spp).sum())
     if settings.coherent and route.graph:
-        drawn = rng.tile_randoms_at(st["key"], st["it"], n,
-                                    with_rr=route.use_rr)
+        drawn = rng.tile_rows_at(st["key"], st["it"], n,
+                                 with_rr=route.use_rr)
         st["it"].add_(1)
+        rays = _rays(route, st, drawn=drawn, sample_i=st["sample_i"])
     elif settings.coherent:
-        drawn = rng.tile_randoms(rng.fold_in(route.tile_key, it), n,
-                                 with_rr=route.use_rr, device=st["o"].device,
-                                 plain=route.plain)
+        drawn = rng.tile_rows(rng.fold_in(route.tile_key, it), n,
+                              with_rr=route.use_rr, device=st["o"].device,
+                              plain=route.plain)
+        rays = _rays(route, st, drawn=drawn, sample_i=st["sample_i"])
     else:
-        drawn = rng.lane_randoms(st["kd"], st["sample_i"], st["bounce_i"],
-                                 route.use_rr, plain=route.plain)
-    _bounce(route, st, drawn, regen=True, park=rebin or lane_sort)
+        rays = _rays(route, st, keys=st["kd"], sample_i=st["sample_i"],
+                     bounce=st["bounce_i"])
+    _bounce(route, st, rays, regen=True, park=rebin or lane_sort)
     if not (rebin or lane_sort):
         return
     done = st["sample_i"] >= spp

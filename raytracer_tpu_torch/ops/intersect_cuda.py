@@ -40,12 +40,16 @@ what JAX hands its pallas_call. JAX's per-cell static block order
 (``border``/``bgrid``) feeds only its ``RAYTRACER_BLOCK_NEARFIRST=0``
 arm; the port walks blocks in index order and builds neither.
 
-Both routes share the torch ops around the kernels (padding, direction
-rsqrt, t rescale, the resolve), so a kernel and its plain version see the
-same inputs. A CUDA tensor launches the kernel or raises; the plain
-versions run on CPU tensors, or on any device when ``plain=True`` (how the
-card holds the kernels against them). ``_group`` forces G, for the tests
-and the sweeps.
+Both routes share the torch ops around the kernels (``unit_rays``: the
+direction rsqrt; ``resolve``: the t rescale and the shading resolve), so a
+kernel and its plain version see the same inputs. The kernels take any
+number of rays: nothing is padded to the JAX kernel's 4096-ray tiles. On
+the wavefront samplers' iteration ``rt_wave_rays`` (ops/rays.py) does
+``unit_rays``' work and ``rt_wave_bounce`` (ops/bounce.py) ``resolve``'s,
+on K5's and K6's raw outputs (``hit_raw``). A CUDA tensor launches the
+kernel or raises; the plain versions run on CPU tensors, or on any device
+when ``plain=True`` (how the card holds the kernels against them).
+``_group`` forces G, for the tests and the sweeps.
 """
 
 from __future__ import annotations
@@ -57,13 +61,12 @@ import math
 import torch
 
 from .intersect import HitRecord, ShadeData
-from .sweep import (INF, LANES, S_F32_ROWS, S_I32_ROWS, T_F32_ROWS,
+from .sweep import (INF, S_F32_ROWS, S_I32_ROWS, T_F32_ROWS,
                     T_I32_ROWS, T_NRM, T_UV, PackedScene, _check_rays,
                     _sweep_chunk, check_group, decode_colour30,
                     decode_smooth_mat, gate_depth, nearest_hit_reference,
                     pack, pack_scene, rule_group, sphere_t, triangle_tuv)
 
-RAY_TILE = 32 * LANES    # rays are padded to whole 4096-ray tiles
 SPH_BLOCK = 4096         # spheres per block of the blocked layout
 TRI_BLOCK = 1024         # triangles per block
 SUP_GROUP = 16           # leaf clusters per in-block super
@@ -536,22 +539,35 @@ def _hit_resolve_blocked_cuda(bt: BlockedTables, o, d, group=None):
     return outs
 
 
-def hit_resolve_unit(ws: WaveScene, o: torch.Tensor, d: torch.Tensor,
-                     plain: bool = False, *, _group=None):
-    """K5 or K6 (by ``ws.blocked``) on rays with unit directions; the 12
-    outputs of K5 (K6's pa/pb decoded after it). CPU tensors, or
-    ``plain=True``, take the plain versions; CUDA tensors launch, at the
-    rule's G (``_group`` forces it, for the tests and the sweeps)."""
+def hit_raw(ws: WaveScene, o: torch.Tensor, d: torch.Tensor,
+            plain: bool = False, *, _group=None):
+    """K5 or K6 (by ``ws.blocked``) on rays with unit directions, their
+    raw outputs: K5's 12, K6's 9 (t, code, u, v, n0-2, colour30,
+    smooth|mat). CPU tensors, or ``plain=True``, take the plain versions;
+    CUDA tensors launch, at the rule's G (``_group`` forces it, for the
+    tests and the sweeps)."""
     check_group(_group)
     if o.device.type == "cpu" or plain:
         if ws.blocked:
-            return _decode(hit_resolve_blocked_reference(ws.tables, o, d))
+            return list(hit_resolve_blocked_reference(ws.tables, o, d))
         return hit_resolve_reference(ws.packed, o, d)
     if o.device.type != "cuda":
         raise ValueError(f"no hit kernel for device {o.device}")
     if ws.blocked:
-        return _decode(_hit_resolve_blocked_cuda(ws.tables, o, d, _group))
+        return _hit_resolve_blocked_cuda(ws.tables, o, d, _group)
     return _hit_resolve_cuda(ws.packed, o, d, group=_group)
+
+
+def decoded(raw):
+    """K5's 12 outputs from either kernel's raw outputs (K6's pa / pb
+    decoded as K5 decodes them)."""
+    return _decode(raw) if len(raw) == 9 else list(raw)
+
+
+def hit_resolve_unit(ws: WaveScene, o: torch.Tensor, d: torch.Tensor,
+                     plain: bool = False, *, _group=None):
+    """``hit_raw`` with K6's pa / pb decoded: the 12 outputs of K5."""
+    return decoded(hit_raw(ws, o, d, plain, _group=_group))
 
 
 def hit_resolve_counted(ps: PackedScene, o: torch.Tensor, d: torch.Tensor,
@@ -571,18 +587,11 @@ def hit_resolve_counted(ps: PackedScene, o: torch.Tensor, d: torch.Tensor,
     return _hit_resolve_cuda(ps, o, d, with_stats=True, group=_group)
 
 
-def _unit_rays(o: torch.Tensor, d: torch.Tensor):
-    """Pad to whole 4096-ray tiles with o = 0, d = (1, 0, 0) and normalise
-    d with rsqrt (intersect_pallas.py:728-741): (o, unit d, 1 / |d|)."""
-    n = o.shape[1]
-    n_pad = max(RAY_TILE, -(-n // RAY_TILE) * RAY_TILE)
-    if n_pad != n:
-        pad_d = torch.zeros((3, n_pad - n), dtype=d.dtype, device=d.device)
-        pad_d[0] = 1.0
-        o = torch.cat([o, torch.zeros_like(pad_d)], dim=1)
-        d = torch.cat([d, pad_d], dim=1)
+def unit_rays(d: torch.Tensor):
+    """The hit kernels' unit directions (intersect_pallas.py:737-741,
+    without its padding): (d / |d| by rsqrt, 1 / |d|)."""
     inv_len = torch.rsqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
-    return o.contiguous(), (d * inv_len[None, :]).contiguous(), inv_len
+    return (d * inv_len[None, :]).contiguous(), inv_len
 
 
 def intersection_stats(o: torch.Tensor, d: torch.Tensor, scene):
@@ -601,42 +610,46 @@ def intersection_stats(o: torch.Tensor, d: torch.Tensor, scene):
         scene.packed is not None else pack(sa)
     if o.device != ps.device:
         raise ValueError(f"rays on {o.device}, scene on {ps.device}")
-    o_u, d_u, _ = _unit_rays(o, d)
-    tests = hit_resolve_counted(ps, o_u, d_u)[12][:o.shape[1]]
+    d_u, _ = unit_rays(d)
+    tests = hit_resolve_counted(ps, o.contiguous(), d_u)[12]
     boxes = int(sa.sph_clusters.shape[0]) + int(sa.tri_clusters.shape[0])
     return tests, boxes
 
 
+def _rescale_t(t: torch.Tensor, inv_len: torch.Tensor) -> torch.Tensor:
+    """t along the unit direction -> along the caller's direction."""
+    return torch.where(t < INF, t * inv_len, INF)
+
+
 def _run(ws: WaveScene, o: torch.Tensor, d: torch.Tensor, plain: bool):
-    """``_run_kernel`` (intersect_pallas.py:728-837): pad, normalise d
-    (``_unit_rays``), run K5 / K6, cut the padding and rescale t to the
-    caller's directions."""
+    """``_run_kernel`` (intersect_pallas.py:728-837) without its padding:
+    normalise d (``unit_rays``), run K5 / K6; the raw outputs and 1 / |d|."""
     _check_rays(o, d)
     if o.device != ws.device:
         raise ValueError(f"rays on {o.device}, scene on {ws.device}")
-    n = o.shape[1]
-    o, d, inv_len = _unit_rays(o, d)
-    outs = [x[:n] for x in hit_resolve_unit(ws, o, d, plain)]
-    t = outs[0]
-    outs[0] = torch.where(t < INF, t * inv_len[:n], INF)
-    return outs
+    d_u, inv_len = unit_rays(d)
+    return hit_raw(ws, o.contiguous(), d_u, plain), inv_len
 
 
 def nearest_hit(ws: WaveScene, o: torch.Tensor, d: torch.Tensor,
                 plain: bool = False) -> HitRecord:
     """Nearest hit through K5 / K6 (``nearest_hit_pallas``); (3, N) rays."""
-    t, code = _run(ws, o, d, plain)[:2]
+    raw, inv_len = _run(ws, o, d, plain)
+    t, code = _rescale_t(raw[0], inv_len), raw[1]
     return HitRecord(t=t, hit=t < INF, is_tri=(code & 1) == 1,
                      idx=code >> 1)
 
 
-def hit_and_resolve(ws: WaveScene, o: torch.Tensor, d: torch.Tensor,
-                    need_sphere_uv: bool = True, plain: bool = False):
-    """Fused nearest hit + shading resolve (``hit_and_resolve_pallas``,
-    intersect_pallas.py:851-906): (HitRecord, ShadeData). The resolve is
-    torch ops shared by the kernel and plain routes."""
+def resolve(raw, o: torch.Tensor, d: torch.Tensor, inv_len: torch.Tensor,
+            need_sphere_uv: bool = True):
+    """The shading resolve of ``hit_and_resolve_pallas``
+    (intersect_pallas.py:851-906) on K5's or K6's raw outputs for rays
+    (o, d) whose unit directions were traced (``inv_len`` = 1 / |d|):
+    (HitRecord, ShadeData). The plain version of what ``rt_wave_bounce``
+    resolves in its kernel."""
     (t, code, u, v, n0, n1, n2, mat_id,
-     colr, colg, colb, smooth) = _run(ws, o, d, plain)
+     colr, colg, colb, smooth) = decoded(raw)
+    t = _rescale_t(t, inv_len)
     hit = t < INF
     is_tri = (code & 1) == 1
     rec = HitRecord(t=t, hit=hit, is_tri=is_tri, idx=code >> 1)
@@ -671,3 +684,12 @@ def hit_and_resolve(ws: WaveScene, o: torch.Tensor, d: torch.Tensor,
                       v=torch.where(is_tri, v, sph_v), mat_id=mat_id,
                       colour=torch.stack([colr, colg, colb]), smooth=smooth)
     return rec, shade
+
+
+def hit_and_resolve(ws: WaveScene, o: torch.Tensor, d: torch.Tensor,
+                    need_sphere_uv: bool = True, plain: bool = False):
+    """Fused nearest hit + shading resolve (``hit_and_resolve_pallas``,
+    intersect_pallas.py:851-906): (HitRecord, ShadeData). The resolve is
+    torch ops (``resolve``) shared by the kernel and plain routes."""
+    raw, inv_len = _run(ws, o, d, plain)
+    return resolve(raw, o, d, inv_len, need_sphere_uv)

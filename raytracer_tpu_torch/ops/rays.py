@@ -1,0 +1,194 @@
+"""The wavefront iteration's ray set-up before K5 / K6: ``rt_wave_rays``.
+
+In the JAX package XLA fuses, around the Pallas hit kernel inside the
+jitted loop, what a wavefront iteration does before the hit: the lane's
+draw (raytracer_tpu/ops/rng.py:75-101, or coherent sampling's tile draw,
+:104-127), the antialias jitter (ops/scatter.py:34) and the normalisation
+of the traced direction (ops/intersect_pallas.py:728-741). Here that is
+one CUDA kernel, ``rt_wave_rays`` (csrc/rays.cu): per lane it draws in
+registers (or reads the tile draw's rows), jitters and renormalises the
+direction, normalises it again for the hit kernel and writes what K5 / K6
+and ``rt_wave_bounce`` read: the traced direction ``dj``, its unit
+direction and 1 / |dj|, and the Gaussian, Fresnel and russian-roulette
+draws. The jitter rows stay in registers. It also adds the iteration's
+traced segments to a counter in device memory.
+
+``wave_rays_reference`` is its plain version, the composition it replaced:
+``rng.lane_randoms_reference`` (or the tile draw's rows), then
+``scatter.antialias_jitter``, then ``intersect_cuda.unit_rays``. CPU
+tensors, or ``plain=True`` on any device, take it; on a CUDA tensor
+``wave_rays`` launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..config import ANTIALIAS_OFFSET_RANGE
+from .intersect_cuda import unit_rays
+from .rng import lane_randoms_reference
+from .scatter import antialias_jitter
+
+# Launches of rt_wave_rays.
+LAUNCHES = 0
+# the jitter's scale as the float32 scalar torch multiplies by
+JITTER_SCALE = float(np.float32(2.0 * ANTIALIAS_OFFSET_RANGE))
+
+
+@dataclasses.dataclass
+class WaveRays:
+    """One iteration's rays and draws, (3, N) or (N,) float32: ``dj`` the
+    direction traced (jittered, or the lanes' own with antialias off),
+    ``unit`` its unit direction and ``inv_len`` 1 / |dj| (what K5 / K6
+    trace, and what turns their t back into ``dj``'s), ``gauss``,
+    ``fresnel`` and ``rr`` (None without russian roulette) the draws the
+    bounce reads."""
+
+    dj: torch.Tensor
+    unit: torch.Tensor
+    inv_len: torch.Tensor
+    gauss: torch.Tensor
+    fresnel: torch.Tensor
+    rr: torch.Tensor = None
+
+
+def _count(segs, alive, sample_i, spp) -> None:
+    """Add the lanes that trace a segment to ``segs``: ``alive``'s, else
+    those with ``sample_i < spp``."""
+    if segs is not None:
+        segs.add_((alive if alive is not None else sample_i < spp).sum())
+
+
+def wave_rays_reference(d: torch.Tensor, *, keys=None, sample_i=None,
+                        bounce=0, drawn=None, antialias: bool = True,
+                        with_rr: bool = False, segs=None, alive=None,
+                        spp: int = 0) -> WaveRays:
+    """Plain version of ``rt_wave_rays`` (arguments as ``wave_rays``)."""
+    _count(segs, alive, sample_i, spp)
+    if drawn is None:
+        if not isinstance(bounce, torch.Tensor):
+            bounce = torch.full((d.shape[1],), int(bounce),
+                                dtype=torch.int32, device=d.device)
+        drawn = lane_randoms_reference(keys, sample_i, bounce, with_rr)
+    dj = antialias_jitter(drawn[0:3], d) if antialias else d
+    unit, inv_len = unit_rays(dj)
+    return WaveRays(dj, unit, inv_len, drawn[3:6], drawn[6],
+                    drawn[7] if with_rr else None)
+
+
+def _ptr(x, dtype, shape, what: str) -> int:
+    if x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous {shape} {dtype} "
+                         f"tensor, got {tuple(x.shape)} {x.dtype}")
+    return x.data_ptr()
+
+
+def _rows3(x: torch.Tensor) -> list:
+    """Row pointers of a contiguous (3, N) tensor."""
+    return [x[i].data_ptr() for i in range(3)]
+
+
+def rays_args(d, out: WaveRays, draws, *, keys=None, sample_i=None,
+              bounce=0, drawn=None, antialias=True, with_rr=False,
+              segs=None, alive=None, spp=0):
+    """``rt_wave_rays``' argument struct: inputs as ``wave_rays``, outputs
+    ``out``'s tensors and ``draws`` (the (rows - 3, N) buffer ``out``'s
+    draws view, or None when ``drawn`` is given). Checks what the kernel
+    reads; the caller keeps the tensors alive across the launch."""
+    from ..kernels import build
+    n = d.shape[1]
+    rows = 8 if with_rr else 7
+    a = build.RaysArgs()
+    if keys is not None:
+        a.keys = _ptr(keys, torch.int64, (2, n), "keys")
+        a.draws = _ptr(draws, torch.float32, (rows - 3, n), "draws")
+    else:
+        a.drawn = _ptr(drawn, torch.float32, (rows, n), "drawn")
+    if sample_i is not None:
+        a.sample = _ptr(sample_i, torch.int32, (n,), "sample_i")
+    if isinstance(bounce, torch.Tensor):
+        a.bounce = _ptr(bounce, torch.int32, (n,), "bounce")
+    else:
+        a.bounce_const = int(bounce)
+    _ptr(d, torch.float32, (3, n), "d")
+    a.d[:] = _rows3(d)
+    if antialias:
+        a.dj[:] = _rows3(out.dj)
+    a.unit[:] = _rows3(out.unit)
+    a.inv_len = _ptr(out.inv_len, torch.float32, (n,), "inv_len")
+    if segs is not None:
+        a.segs = _ptr(segs, torch.int64, (), "segs")
+        if alive is not None:
+            a.alive = _ptr(alive, torch.bool, (n,), "alive")
+        elif sample_i is None:
+            raise ValueError("counting segments needs alive or sample_i")
+    a.n, a.rows, a.spp, a.antialias = n, rows, int(spp), int(antialias)
+    a.jitter_scale = JITTER_SCALE
+    return a
+
+
+def _wave_rays_cuda(d, **kw) -> WaveRays:
+    """Launch rt_wave_rays (``wave_rays``' arguments) into new tensors."""
+    from ..kernels import build
+    n, dev = d.shape[1], d.device
+    rows = 8 if kw["with_rr"] else 7
+    kw = {k: x.contiguous() if isinstance(x, torch.Tensor) else x
+          for k, x in kw.items()}
+    d = d.contiguous()
+    draws = None
+    if kw["keys"] is not None:
+        draws = torch.empty((rows - 3, n), dtype=torch.float32, device=dev)
+        gauss, rest = draws[0:3], draws[3:]
+    else:
+        gauss, rest = kw["drawn"][3:6], kw["drawn"][6:]
+    out = WaveRays(
+        torch.empty_like(d) if kw["antialias"] else d, torch.empty_like(d),
+        torch.empty(n, dtype=torch.float32, device=dev), gauss, rest[0],
+        rest[1] if rows == 8 else None)
+    a = rays_args(d, out, draws, **kw)
+    lib = build.load()
+    rc = lib.rt_wave_rays(ctypes.byref(a),
+                          ctypes.c_void_p(build.stream(dev)))
+    build.check(lib, rc, "rt_wave_rays")
+    global LAUNCHES
+    LAUNCHES += 1
+    return out
+
+
+def wave_rays(d: torch.Tensor, *, keys=None, sample_i=None, bounce=0,
+              drawn=None, antialias: bool = True, with_rr: bool = False,
+              segs=None, alive=None, spp: int = 0,
+              plain: bool = False) -> WaveRays:
+    """One wavefront iteration's ray set-up for the lanes' directions
+    ``d`` ((3, N) float32, rows contiguous).
+
+    The draw: ``keys`` ((2, N) int64, ``rng.per_ray_keys``) folded with
+    ``sample_i`` ((N,) int32, or None: the key holds the sample, as
+    ``rng.bounce_randoms``) and ``bounce`` ((N,) int32, or one int for
+    every lane), as ``rng.lane_randoms``; or, with ``keys`` None, the
+    (7|8, N) rows ``drawn`` (``rng.tile_rows``: coherent sampling).
+    ``antialias``: jitter ``d`` (else it is traced as it is); ``with_rr``:
+    draw the russian-roulette row. ``segs`` (a 0-dim int64 tensor, or
+    None) gets the lanes that trace a segment added: those of ``alive``
+    ((N,) bool), else those with ``sample_i < spp``.
+
+    CPU tensors, or ``plain=True`` on any device, take
+    ``wave_rays_reference``; CUDA tensors launch ``rt_wave_rays`` (or
+    raise)."""
+    if (keys is None) == (drawn is None):
+        raise ValueError("give one of keys and drawn")
+    if d.dtype != torch.float32 or d.dim() != 2 or d.shape[0] != 3:
+        raise ValueError(f"d must be (3, N) float32, got {tuple(d.shape)} "
+                         f"{d.dtype}")
+    kw = dict(keys=keys, sample_i=sample_i, bounce=bounce, drawn=drawn,
+              antialias=antialias, with_rr=with_rr, segs=segs, alive=alive,
+              spp=spp)
+    if d.device.type == "cpu" or plain:
+        return wave_rays_reference(d, **kw)
+    if d.device.type != "cuda":
+        raise ValueError(f"no ray set-up for device {d.device}")
+    return _wave_rays_cuda(d, **kw)

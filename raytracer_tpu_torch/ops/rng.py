@@ -18,12 +18,16 @@ is ``fold_in(k, i)`` and a scalar ``random.bits(k)`` is ``x0 ^ x1`` of
 ``threefry2x32(k, (0, 0))``; uniforms take the top 23 bits as a mantissa,
 normals go through XLA's float32 erfinv polynomial (hazard H8: not
 ``torch.erfinv``). ``lane_randoms`` launches the fused CUDA kernel
-``rt_lane_randoms`` (csrc/wavefront.cu) on a CUDA tensor; its plain
-version is ``lane_randoms_reference``, int64 torch arithmetic. Coherent
-sampling's per-tile draw ``tile_randoms`` launches ``rt_tile_randoms``
-(same file) on the card; its plain version is ``tile_randoms_reference``.
+``rt_lane_randoms`` (csrc/wavefront.cu) on a CUDA tensor and returns the
+rows; its plain version is ``lane_randoms_reference``, int64 torch
+arithmetic. The wavefront iteration itself draws inside its ray set-up,
+``rt_wave_rays`` (ops/rays.py), with the same device functions
+(csrc/draw.cuh), so its rows never pass through device memory. Coherent
+sampling's per-tile draw ``tile_randoms`` (``tile_rows``: the rows as one
+tensor) launches ``rt_tile_randoms`` (csrc/wavefront.cu) on the card; its
+plain version is ``tile_randoms_reference``.
 A replayed CUDA graph (ops/wave_graph.py) cannot take a key from the
-host: there ``tile_randoms_at`` has ``rt_tile_randoms`` fold the tile key
+host: there ``tile_rows_at`` has ``rt_tile_randoms`` fold the tile key
 held in device memory with the iteration counter held there
 (``fold_in_tensor`` is that fold in torch), and ``per_ray_keys`` takes its
 key as a device tensor.
@@ -362,26 +366,33 @@ def _tile_randoms_cuda(it_key, n, tile, with_rr, device,
     return out
 
 
-def tile_randoms(it_key: np.ndarray, n: int, tile: int = 1024,
-                 with_rr: bool = False, device="cuda", plain: bool = False):
+def tile_rows(it_key: np.ndarray, n: int, tile: int = 1024,
+              with_rr: bool = False, device="cuda",
+              plain: bool = False) -> torch.Tensor:
     """Coherent sampling's draw (rng.py:104-127): one bundle per ``tile``
-    consecutive lanes, keyed by the caller's per-iteration key. Same
-    return contract as ``lane_randoms``, each row repeated over ``tile``
-    lanes and cut at ``n``. ``device`` defaults to the card
-    (utils/device.py) and raises without one. On a CUDA ``device`` it
-    launches ``rt_tile_randoms`` (or raises); on the CPU, or with
-    ``plain=True`` on any device, it takes ``tile_randoms_reference``."""
+    consecutive lanes, keyed by the caller's per-iteration key, as one
+    (7|8, n) float32 tensor (the rows of ``lane_randoms_reference``), each
+    row repeated over ``tile`` lanes and cut at ``n``. ``device`` defaults
+    to the card (utils/device.py) and raises without one. On a CUDA
+    ``device`` it launches ``rt_tile_randoms`` (or raises); on the CPU, or
+    with ``plain=True`` on any device, it takes
+    ``tile_randoms_reference``."""
     device = resolve_device(device)
     if device.type == "cpu" or plain:
-        out = tile_randoms_reference(it_key, n, tile, with_rr, device)
-    else:
-        out = _tile_randoms_cuda(it_key, n, tile, with_rr, device)
-    return _split_rows(out, with_rr)
+        return tile_randoms_reference(it_key, n, tile, with_rr, device)
+    return _tile_randoms_cuda(it_key, n, tile, with_rr, device)
 
 
-def tile_randoms_at(key_dev: torch.Tensor, iter_dev: torch.Tensor, n: int,
-                    tile: int = 1024, with_rr: bool = False):
-    """``tile_randoms`` under ``fold_in(key, it)`` with the key words
+def tile_randoms(it_key: np.ndarray, n: int, tile: int = 1024,
+                 with_rr: bool = False, device="cuda", plain: bool = False):
+    """``tile_rows`` split as ``lane_randoms`` returns its rows."""
+    return _split_rows(tile_rows(it_key, n, tile, with_rr, device, plain),
+                       with_rr)
+
+
+def tile_rows_at(key_dev: torch.Tensor, iter_dev: torch.Tensor, n: int,
+                 tile: int = 1024, with_rr: bool = False) -> torch.Tensor:
+    """``tile_rows`` under ``fold_in(key, it)`` with the key words
     (``key_dev``, (2,) int64) and ``it`` (``iter_dev``, (1,) int64) on the
     device: on a CUDA tensor ``rt_tile_randoms`` reads and folds them when
     it runs, so that a replayed CUDA graph draws each iteration under its
@@ -397,13 +408,11 @@ def tile_randoms_at(key_dev: torch.Tensor, iter_dev: torch.Tensor, n: int,
     if dev.type == "cpu":
         it_key = np.array(fold_in_tensor(key_dev, iter_dev).tolist(),
                           np.uint32)
-        out = tile_randoms_reference(it_key, n, tile, with_rr, dev)
-    elif dev.type == "cuda":
-        out = _tile_randoms_cuda(None, n, tile, with_rr, dev,
-                                 key_dev=key_dev, iter_dev=iter_dev)
-    else:
-        raise ValueError(f"no tile randoms for device {dev}")
-    return _split_rows(out, with_rr)
+        return tile_randoms_reference(it_key, n, tile, with_rr, dev)
+    if dev.type == "cuda":
+        return _tile_randoms_cuda(None, n, tile, with_rr, dev,
+                                  key_dev=key_dev, iter_dev=iter_dev)
+    raise ValueError(f"no tile randoms for device {dev}")
 
 
 def bounce_randoms(ray_keys: torch.Tensor, bounce_idx: int,

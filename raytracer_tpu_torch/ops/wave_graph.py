@@ -4,11 +4,12 @@ The JAX package runs a wavefront frame inside one jitted step: the regen
 loop is a ``lax.while_loop`` and the scan sampler a ``lax.scan`` over
 bounces (raytracer_tpu/ops/integrator.py:186, 246-356, 431), so the
 device runs the frame without the host. The port's loop is Python, and
-on the card each iteration is a few dozen launches (the lane randoms, the
-jitter, K5 or K6 and the resolve's torch ops, ``rt_wave_bounce``). Here
-those iterations are captured once into a ``torch.cuda.CUDAGraph`` on
-static tensors and replayed: one launch from the host per block of
-iterations (ops/integrator.py decides what a block holds).
+on the card each iteration is three kernel launches (``rt_wave_rays``,
+K5 or K6, ``rt_wave_bounce``; coherent sampling adds ``rt_tile_randoms``
+and rebin / lanesort their regrouping). Here those iterations are
+captured once into a ``torch.cuda.CUDAGraph`` on static tensors and
+replayed: one launch from the host per block of iterations
+(ops/integrator.py decides what a block holds).
 
 - ``capture(ws, n, body)`` loads the kernel library and fills the group
   rules' occupancy cache (no launch), then captures ``body``'s launches.
@@ -30,12 +31,13 @@ from __future__ import annotations
 
 import torch
 
-from . import bounce, intersect_cuda, rng
+from . import bounce, intersect_cuda, rays, rng
 
 # The kernels' launch counters a graph holds launches of.
 COUNTERS = ((intersect_cuda, "LAUNCHES"), (intersect_cuda, "STATS_LAUNCHES"),
             (intersect_cuda, "BLOCKED_LAUNCHES"), (rng, "LAUNCHES"),
-            (rng, "TILE_LAUNCHES"), (bounce, "LAUNCHES"))
+            (rng, "TILE_LAUNCHES"), (bounce, "LAUNCHES"),
+            (rays, "LAUNCHES"))
 REPLAYS = 0
 CAPTURES = 0
 
@@ -70,12 +72,10 @@ def warm_up(ws, n: int) -> None:
     reads (cached per group and device). Launches nothing."""
     from ..kernels import build
     build.load()
-    n_pad = max(intersect_cuda.RAY_TILE,
-                -(-n // intersect_cuda.RAY_TILE) * intersect_cuda.RAY_TILE)
     if ws.blocked:
-        intersect_cuda.blocked_group(n_pad)
+        intersect_cuda.blocked_group(n)
     else:
-        intersect_cuda.resolve_group(n_pad, ws.packed)
+        intersect_cuda.resolve_group(n, ws.packed)
 
 
 def capture(ws, n: int, body) -> Graph:

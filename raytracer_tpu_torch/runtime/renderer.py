@@ -6,10 +6,10 @@ the render device and is updated in place every frame; frames are
 enqueued without a host sync until a caller asks for one (``block=True``
 or ``render_frames``). A renderer runs on the card
 (``device="cuda"``, the default) unless the caller asks for the CPU; on
-the card it runs the CUDA kernels (the megakernel; K5/K6 and
-``rt_wave_bounce`` for the wavefront samplers, replayed as CUDA graphs
-that ``packed_scene`` caches; the history gather in temporal mode) and
-never moves to the CPU. The Renderer always takes the kernel route; the plain
+the card it runs the CUDA kernels (the megakernel; ``rt_wave_rays``,
+K5/K6 and ``rt_wave_bounce`` for the wavefront samplers, replayed as CUDA
+graphs that ``packed_scene`` caches; the history gather in temporal mode)
+and never moves to the CPU. The Renderer always takes the kernel route; the plain
 versions and the oracles are reached only through
 ``ops.integrator.render_sample_mean(backend=...)`` and the ``*_reference``
 functions.

@@ -449,18 +449,21 @@ def test_hit_resolve_blocked_kernel_exact_ties(dev, group):
 @pytest.mark.parametrize("sampler", ["regen", "scan", "rebin", "lanesort"])
 def test_wavefront_frame_matches_plain_route(dev, sampler):
     """One small frame of each wavefront sampler through a Renderer on the
-    card (K5 and the lane randoms launched) against the plain route (every
-    kernel replaced by its plain version) on the same rays and key."""
+    card (the ray set-up and K5 launched, not the lane randoms) against
+    the plain route (every kernel replaced by its plain version) on the
+    same rays and key."""
     from raytracer_tpu_torch.ops import intersect_cuda as ic
     from raytracer_tpu_torch.ops import integrator as tint
+    from raytracer_tpu_torch.ops import rays as trays
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
     s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=5,
                            sampler=sampler).with_sky(sky)
     cam = rtt.CameraConfig(width=64, height=32, position=(0.0, 0.5, -6.0))
     r = rtt.Renderer(scene, cam, s, device=dev)
-    before = (ic.LAUNCHES, trng.LAUNCHES)
+    before = (ic.LAUNCHES, trays.LAUNCHES, trng.LAUNCHES)
     r.render_frame(block=True)
-    assert ic.LAUNCHES > before[0] and trng.LAUNCHES > before[1]
+    assert ic.LAUNCHES - before[0] == trays.LAUNCHES - before[1] > 0
+    assert trng.LAUNCHES == before[2]
     assert r.accum.device.type == "cuda"
     ref, ref_segs = tint.render_sample_mean(
         r.packed_scene, s, r._o, r._d, trng.frame_key(r.base_key, 0),
@@ -472,18 +475,22 @@ def test_wavefront_frame_matches_plain_route(dev, sampler):
 
 
 def test_coherent_regen_frame_matches_plain_route(dev):
-    """A coherent regen Renderer frame on the card (K5, the tile draws;
-    no lane randoms) against the plain route on the same rays and key."""
+    """A coherent regen Renderer frame on the card (K5, the tile draws and
+    the ray set-up on their rows; no lane randoms) against the plain route
+    on the same rays and key."""
     from raytracer_tpu_torch.ops import intersect_cuda as ic
     from raytracer_tpu_torch.ops import integrator as tint
+    from raytracer_tpu_torch.ops import rays as trays
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
     s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=5,
                            sampler="regen", coherent=True).with_sky(sky)
     cam = rtt.CameraConfig(width=64, height=32, position=(0.0, 0.5, -6.0))
     r = rtt.Renderer(scene, cam, s, device=dev)
-    before = (ic.LAUNCHES, trng.LAUNCHES)
+    before = (ic.LAUNCHES, trng.LAUNCHES, trng.TILE_LAUNCHES, trays.LAUNCHES)
     r.render_frame(block=True)
     assert ic.LAUNCHES > before[0] and trng.LAUNCHES == before[1]
+    assert trng.TILE_LAUNCHES - before[2] == trays.LAUNCHES - before[3] == \
+        ic.LAUNCHES - before[0]
     ref, ref_segs = tint.render_sample_mean(
         r.packed_scene, s, r._o, r._d, trng.frame_key(r.base_key, 0),
         ray_idx=r._ray_idx, backend="plain")
@@ -688,9 +695,11 @@ def test_one_rank_nccl_renderer_matches_unsharded(dev, nccl_group,
 
 
 def test_trace_kernel_route_matches_plain(dev):
-    """``trace`` through K5 and the lane randoms (one launch of each a
-    bounce) against its plain route on the same rays and key, bitwise."""
+    """``trace`` through the ray set-up and K5 (one launch of each a
+    bounce, no lane randoms) against its plain route on the same rays and
+    key, bitwise."""
     from raytracer_tpu_torch.ops import intersect_cuda as ic
+    from raytracer_tpu_torch.ops import rays as trays
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
     s = rtt.RenderSettings(rays_per_pixel=1, reflect_limit=5).with_sky(sky)
     w, h = 256, 128
@@ -699,9 +708,10 @@ def test_trace_kernel_route_matches_plain(dev):
         width=w, height=h, position=(0.0, 0.5, -6.0))), w, h,
         pixel_order=order, device=dev)
     idx = torch.as_tensor(order, device=dev)
-    before = (ic.LAUNCHES, trng.LAUNCHES)
+    before = (ic.LAUNCHES, trays.LAUNCHES, trng.LAUNCHES)
     rad, segs = rtt.trace(scene, s, o, d, trng.key(5), ray_idx=idx)
-    assert (ic.LAUNCHES - before[0], trng.LAUNCHES - before[1]) == (5, 5)
+    assert (ic.LAUNCHES - before[0], trays.LAUNCHES - before[1],
+            trng.LAUNCHES - before[2]) == (5, 5, 0)
     ref, ref_segs = rtt.trace(scene, s, o, d, trng.key(5), ray_idx=idx,
                               backend="plain")
     assert rad.device.type == "cuda" and torch.equal(rad, ref)
@@ -766,27 +776,18 @@ BOUNCE_VARIANTS = {"base": {}, "rr": {"russian_roulette": 1},
                                     "emissive_terminates": True}}
 
 
-@pytest.mark.parametrize("variant", sorted(BOUNCE_VARIANTS))
-@pytest.mark.parametrize("arm", ["scan", "regen"])
-@pytest.mark.parametrize("num", [1, 2, 3, 4, "earth", "gradient"])
-def test_wave_bounce_kernel_matches_plain(dev, num, arm, variant):
-    """rt_wave_bounce bitwise with wave_bounce_reference on the card, four
-    bounces of 128x64 lanes fed the same hits and randoms, in both arms
-    (regen with parking)."""
+def _bounce_vs_plain(dev, scene, s, pos, regen, blocked=None, bounces=4):
+    """``bounces`` bounces of 128x64 lanes: rt_wave_bounce bitwise with
+    wave_bounce_reference on the same raw hit outputs, ray set-up and
+    state, the state advancing with the kernel's."""
     from raytracer_tpu_torch.ops import bounce as tb
-    from raytracer_tpu_torch.ops.intersect_cuda import (WaveScene,
-                                                        hit_and_resolve)
-    from raytracer_tpu_torch.ops.scatter import antialias_jitter
-    scene, sky = _bounce_scene(dev, num)
-    s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=3,
-                           **BOUNCE_VARIANTS[variant]).with_sky(sky)
-    ws = WaveScene(scene)
-    pos = (0.0, 0.5, -6.0) if num == 4 else (0.0, 0.0, 0.0)
+    from raytracer_tpu_torch.ops.intersect_cuda import WaveScene, hit_raw
+    from raytracer_tpu_torch.ops.rays import wave_rays
+    ws = WaveScene(scene, blocked=blocked)
     o, d = _rays(dev, 128, 64, position=pos)
     n = o.shape[1]
     keys = trng.per_ray_keys(trng.key(7), torch.arange(n, device=dev))
     use_rr = s.russian_roulette > 0
-    regen = arm == "regen"
     st = {"o": o, "d": d, "thru": torch.ones_like(o),
           "rad": torch.zeros_like(o),
           "cur_ior": torch.ones(n, dtype=torch.float32, device=dev)}
@@ -796,15 +797,16 @@ def test_wave_bounce_kernel_matches_plain(dev, num, arm, variant):
                   bounce_i=torch.zeros(n, dtype=torch.int32, device=dev))
     else:
         st["alive"] = torch.ones(n, dtype=torch.bool, device=dev)
-    for b in range(4):
-        drawn = (trng.lane_randoms(keys, st["sample_i"], st["bounce_i"],
-                                   use_rr) if regen
-                 else trng.bounce_randoms(keys, b, use_rr))
-        dj = antialias_jitter(drawn[0], st["d"])
-        rec, shade = hit_and_resolve(ws, st["o"], dj,
-                                     need_sphere_uv=scene.needs_sphere_uv)
-        args = (scene, s, st, dj, rec.hit, shade, drawn[1], drawn[2],
-                drawn[3] if use_rr else None)
+    for b in range(bounces):
+        if regen:
+            rays = wave_rays(st["d"], keys=keys, sample_i=st["sample_i"],
+                             bounce=st["bounce_i"], with_rr=use_rr)
+        else:
+            rays = wave_rays(st["d"], keys=keys, bounce=b, with_rr=use_rr)
+        raw = hit_raw(ws, st["o"], rays.unit)
+        assert len(raw) == (9 if ws.blocked else 12)
+        args = (scene, s, st, rays.dj, raw, rays.inv_len, rays.gauss,
+                rays.fresnel, rays.rr)
         before = tb.LAUNCHES
         got = tb.wave_bounce(*args, regen=regen, bounce=b, park=regen)
         torch.cuda.synchronize()
@@ -815,6 +817,79 @@ def test_wave_bounce_kernel_matches_plain(dev, num, arm, variant):
         for k in want:
             assert torch.equal(got[k], want[k]), k
         st.update(got)
+
+
+@pytest.mark.parametrize("variant", sorted(BOUNCE_VARIANTS))
+@pytest.mark.parametrize("arm", ["scan", "regen"])
+@pytest.mark.parametrize("num", [1, 2, 3, 4, "earth", "gradient"])
+def test_wave_bounce_kernel_matches_plain(dev, num, arm, variant):
+    """rt_wave_bounce bitwise with wave_bounce_reference on the card, four
+    bounces of 128x64 lanes fed the same raw K5 outputs and randoms, in
+    both arms (regen with parking); the resolve (sphere UV on the earth
+    and scene 2) inside the kernel."""
+    scene, sky = _bounce_scene(dev, num)
+    s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=3,
+                           **BOUNCE_VARIANTS[variant]).with_sky(sky)
+    pos = (0.0, 0.5, -6.0) if num == 4 else (0.0, 0.0, 0.0)
+    _bounce_vs_plain(dev, scene, s, pos, arm == "regen")
+
+
+@pytest.mark.parametrize("arm", ["scan", "regen"])
+@pytest.mark.parametrize("num", [1, 2, 3, "earth", "gradient"])
+def test_wave_bounce_kernel_on_k6_raw(dev, num, arm):
+    """rt_wave_bounce on K6's 9 raw outputs (colour30 and smooth|mat
+    decoded in the kernel), the scene forced onto the blocked layout,
+    bitwise with wave_bounce_reference."""
+    scene, sky = _bounce_scene(dev, num)
+    s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=3,
+                           russian_roulette=1).with_sky(sky)
+    _bounce_vs_plain(dev, scene, s, (0.0, 0.0, 0.0), arm == "regen",
+                     blocked=True)
+
+
+@pytest.mark.parametrize("coherent", [False, True])
+@pytest.mark.parametrize("with_rr", [False, True])
+@pytest.mark.parametrize("antialias", [True, False])
+def test_wave_rays_kernel_matches_plain(dev, antialias, with_rr, coherent):
+    """rt_wave_rays bitwise with wave_rays_reference on 200,000 lanes
+    (not a whole number of 4096-ray tiles): the regen arm (sample fold,
+    per-lane bounces, count of sample_i < spp), the scan arm (one bounce,
+    the alive mask counted) and the coherent arm (the tile draw's rows);
+    one launch each, every output and the segment count equal."""
+    from raytracer_tpu_torch.ops import rays as trays
+    n = 200_000
+    g = np.random.default_rng(12)
+    keys = trng.per_ray_keys(trng.key(5), torch.arange(n, device=dev))
+    s = torch.as_tensor(g.integers(0, 30, n).astype(np.int32), device=dev)
+    b = torch.as_tensor(g.integers(0, 6, n).astype(np.int32), device=dev)
+    d = torch.as_tensor(g.standard_normal((3, n)).astype(np.float32) * 2,
+                        device=dev)
+    alive = s < 12
+    if coherent:
+        rows = trng.tile_rows(trng.fold_in(trng.key(3), 4), n,
+                              with_rr=with_rr, device=dev)
+        arms = [dict(drawn=rows, sample_i=s, spp=20)]
+    else:
+        arms = [dict(keys=keys, sample_i=s, bounce=b, spp=20),
+                dict(keys=keys, bounce=3, alive=alive)]
+    for kw in arms:
+        segs = [torch.zeros((), dtype=torch.int64, device=dev)
+                for _ in range(2)]
+        before = trays.LAUNCHES
+        got = trays.wave_rays(d, antialias=antialias, with_rr=with_rr,
+                              segs=segs[0], **kw)
+        torch.cuda.synchronize()
+        assert trays.LAUNCHES == before + 1
+        want = trays.wave_rays(d, antialias=antialias, with_rr=with_rr,
+                               segs=segs[1], plain=True, **kw)
+        assert trays.LAUNCHES == before + 1
+        for k in ("dj", "unit", "inv_len", "gauss", "fresnel", "rr"):
+            a, w = getattr(got, k), getattr(want, k)
+            if w is None:
+                assert a is None, k
+            else:
+                assert a.shape == w.shape and torch.equal(a, w), k
+        assert int(segs[0]) == int(segs[1]) > 0
 
 
 GRAPH_CASES = [("regen", False), ("regen", True), ("scan", False),
@@ -877,11 +952,13 @@ def test_camera_change_replays_without_recapture(dev):
 
 def test_graph_launch_counts_add_up(dev):
     """The counters stay truthful under replay: a regen frame of 8
-    iterations (one replay) counts 8 launches of K5, the lane randoms and
-    rt_wave_bounce; a trace of 5 bounces 5 of each in one replay."""
+    iterations (one replay) counts 8 launches of K5, the ray set-up and
+    rt_wave_bounce and none of the lane randoms; a trace of 5 bounces 5
+    of each in one replay."""
     from raytracer_tpu_torch.ops import bounce as tb
     from raytracer_tpu_torch.ops import integrator as tint
     from raytracer_tpu_torch.ops import intersect_cuda as ic
+    from raytracer_tpu_torch.ops import rays as trays
     from raytracer_tpu_torch.ops import wave_graph as twg
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
     ws = ic.WaveScene(scene)
@@ -892,8 +969,43 @@ def test_graph_launch_counts_add_up(dev):
                     (rtt.RenderSettings(rays_per_pixel=1, reflect_limit=5,
                                         sampler="scan").with_sky(sky), 5)):
         for _ in range(2):      # the first call captures, both replay
-            before = (ic.LAUNCHES, trng.LAUNCHES, tb.LAUNCHES, twg.REPLAYS)
+            before = (ic.LAUNCHES, trays.LAUNCHES, tb.LAUNCHES,
+                      twg.REPLAYS, trng.LAUNCHES)
             tint.render_sample_mean(ws, s, o, d, trng.key(1))
             torch.cuda.synchronize()
-            after = (ic.LAUNCHES, trng.LAUNCHES, tb.LAUNCHES, twg.REPLAYS)
-            assert [a - b for a, b in zip(after, before)] == [want] * 3 + [1]
+            after = (ic.LAUNCHES, trays.LAUNCHES, tb.LAUNCHES, twg.REPLAYS,
+                     trng.LAUNCHES)
+            assert [a - b for a, b in zip(after, before)] == \
+                [want] * 3 + [1, 0]
+
+
+@pytest.mark.parametrize("num", [4, "stress"])
+def test_regen_frame_launches_three_kernels_an_iteration(dev, num):
+    """A regen Renderer frame at 128x64, 2 spp, 4 bounces (8 iterations,
+    one replay after the capture): the ray set-up, the hit kernel (K5 on
+    scene 4, K6 on a scene past the resident budget) and rt_wave_bounce
+    once an iteration each, no lane randoms, no tile draws."""
+    from raytracer_tpu_torch.models import bench_scenes
+    from raytracer_tpu_torch.ops import bounce as tb
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    from raytracer_tpu_torch.ops import rays as trays
+    if num == "stress":
+        scene, sky = bench_scenes.stress_10k_scene(num=100000, seed=1)
+        scene = scene.to(dev)
+        pos = (0.0, 1.0, -4.0)
+    else:
+        scene, sky = rtt.build_scene(4, seed=0, device=dev)
+        pos = (0.0, 0.5, -6.0)
+    s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=4,
+                           sampler="regen").with_sky(sky)
+    r = rtt.Renderer(scene, rtt.CameraConfig(width=128, height=64,
+                                             position=pos), s, device=dev)
+    r.render_frame(block=True)       # captures
+    names = ("BLOCKED_LAUNCHES" if r.packed_scene.blocked else "LAUNCHES")
+    before = (getattr(ic, names), trays.LAUNCHES, tb.LAUNCHES,
+              trng.LAUNCHES, trng.TILE_LAUNCHES)
+    r.render_frame(block=True)
+    after = (getattr(ic, names), trays.LAUNCHES, tb.LAUNCHES,
+             trng.LAUNCHES, trng.TILE_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [8, 8, 8, 0, 0]
+    assert r.packed_scene.blocked == (num == "stress")

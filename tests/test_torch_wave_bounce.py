@@ -2,11 +2,13 @@
 wavefront loop as the card replays it (ops/integrator.py,
 ops/wave_graph.py), on the CPU.
 
-- ``wave_bounce_reference`` against the port's bounce as the integrator
-  composed it before ``rt_wave_bounce`` existed (``_todays_*`` below, kept
-  as they were, the oracle): bitwise, on scenes 1-4 and a gradient scene,
-  in the scan and the regen arm, with russian roulette on and off and with
-  ``fix_exit_ior`` and ``emissive_terminates``.
+- ``wave_bounce_reference`` on K5's raw outputs against the port's
+  resolve and bounce as the integrator composed them before
+  ``rt_wave_bounce`` and ``rt_wave_rays`` existed (``_todays_*`` below,
+  kept as they were, the oracle): bitwise, on scenes 1-4, the 256x512
+  earth (sphere UV on) and a gradient scene, in the scan and the regen
+  arm, with russian roulette on and off and with ``fix_exit_ior`` and
+  ``emissive_terminates`` (K6's raw outputs: test_torch_wave_rays.py).
 - The samplers as refactored against that composition's renders, bitwise,
   and against JAX's ``render_sample_mean`` with its Pallas kernel in
   interpret mode within test_torch_wavefront.py's bounds (scene 1).
@@ -37,12 +39,16 @@ from raytracer_tpu_torch.models import camera as tcam
 from raytracer_tpu_torch.models.materials import MAT_EMISSIVE, Material, \
     Texture
 from raytracer_tpu_torch.models.scene import SceneBuilder
+from raytracer_tpu_torch.models.scenes import procedural_earth_texture
 from raytracer_tpu_torch.ops import bounce as tb
 from raytracer_tpu_torch.ops import integrator as tint
 from raytracer_tpu_torch.ops import intersect as tisect
 from raytracer_tpu_torch.ops import rng as trng
 from raytracer_tpu_torch.ops import wave_graph as twg
-from raytracer_tpu_torch.ops.intersect_cuda import WaveScene, hit_and_resolve
+from raytracer_tpu_torch.ops import intersect_cuda as tic
+from raytracer_tpu_torch.ops.intersect import HitRecord, ShadeData
+from raytracer_tpu_torch.ops.intersect_cuda import WaveScene
+from raytracer_tpu_torch.ops.sweep import INF
 from raytracer_tpu_torch.ops.rebin import (LANES, apply_lane_permutation,
                                            bucket_permutation, lane_buckets,
                                            lane_destinations, permute_rows,
@@ -57,13 +63,64 @@ torch.set_num_threads(2)
 # camera position per scene (scenes 1-3 and the gradient scene sit in
 # front of the origin, scene 4's camera is moved back)
 POS = {1: (0.0, 0.0, 0.0), 2: (0.0, 0.0, 0.0), 3: (0.0, 0.0, 0.0),
-       4: (0.0, 0.5, -6.0), "gradient": (0.0, 0.0, 0.0)}
+       4: (0.0, 0.5, -6.0), "gradient": (0.0, 0.0, 0.0),
+       "earth": (0.0, 0.0, 0.0)}
 VARIANTS = {"base": {}, "rr": {"russian_roulette": 1},
             "fix_emissive": {"fix_exit_ior": True,
                              "emissive_terminates": True}}
 
 
 # -- the port's bounce and samplers as they were composed before -------------
+
+def _todays_unit_rays(o, d):
+    n = o.shape[1]
+    n_pad = max(4096, -(-n // 4096) * 4096)
+    if n_pad != n:
+        pad_d = torch.zeros((3, n_pad - n), dtype=d.dtype, device=d.device)
+        pad_d[0] = 1.0
+        o = torch.cat([o, torch.zeros_like(pad_d)], dim=1)
+        d = torch.cat([d, pad_d], dim=1)
+    inv_len = torch.rsqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    return o.contiguous(), (d * inv_len[None, :]).contiguous(), inv_len
+
+
+def _todays_hit_and_resolve(ws, o, d, need_sphere_uv=True, plain=False):
+    n = o.shape[1]
+    o_p, d_u, inv_len = _todays_unit_rays(o, d)
+    outs = [x[:n] for x in tic.hit_resolve_unit(ws, o_p, d_u, plain)]
+    t = outs[0]
+    outs[0] = torch.where(t < INF, t * inv_len[:n], INF)
+    (t, code, u, v, n0, n1, n2, mat_id, colr, colg, colb, smooth) = outs
+    hit = t < INF
+    is_tri = (code & 1) == 1
+    rec = HitRecord(t=t, hit=hit, is_tri=is_tri, idx=code >> 1)
+    safe_t = torch.where(hit, t, 0.0)
+    point = o + d * safe_t[None, :]
+    relx, rely, relz = point[0] - n0, point[1] - n1, point[2] - n2
+    rmag = torch.rsqrt(torch.clamp(relx * relx + rely * rely + relz * relz,
+                                   min=1e-24))
+    sph_n = (relx * rmag, rely * rmag, relz * rmag)
+    if need_sphere_uv:
+        theta = torch.asin(torch.clamp(sph_n[1], -1.0, 1.0))
+        phi = torch.acos(torch.clamp(sph_n[0], -1.0, 1.0))
+        sph_u = (theta + torch.pi / 2.0) / torch.pi
+        v_ratio = (1.0 - phi / torch.pi) / 2.0
+        behind = (point[2] > n2).to(torch.float32)
+        sph_v = behind + (1.0 - 2.0 * behind) * v_ratio
+    else:
+        sph_u = torch.zeros_like(u)
+        sph_v = torch.zeros_like(v)
+    n_dot_d = n0 * d[0] + n1 * d[1] + n2 * d[2]
+    flip = 1.0 - 2.0 * (n_dot_d > 0.0).to(torch.float32)
+    normal = torch.stack([torch.where(is_tri, n0 * flip, sph_n[0]),
+                          torch.where(is_tri, n1 * flip, sph_n[1]),
+                          torch.where(is_tri, n2 * flip, sph_n[2])])
+    shade = ShadeData(point=point, normal=normal,
+                      u=torch.where(is_tri, u, sph_u),
+                      v=torch.where(is_tri, v, sph_v), mat_id=mat_id,
+                      colour=torch.stack([colr, colg, colb]), smooth=smooth)
+    return rec, shade
+
 
 def _todays_bounce(ws, settings, backend, sky, o, d, thru, rad, alive,
                    cur_ior, jitter_u3, gauss, fresnel_u, rr_u=None,
@@ -72,9 +129,9 @@ def _todays_bounce(ws, settings, backend, sky, o, d, thru, rad, alive,
     if settings.antialias:
         d = antialias_jitter(jitter_u3, d)
     if backend in ("pallas", "plain"):
-        rec, shade = hit_and_resolve(ws, o, d,
-                                     need_sphere_uv=scene.needs_sphere_uv,
-                                     plain=backend == "plain")
+        rec, shade = _todays_hit_and_resolve(
+            ws, o, d, need_sphere_uv=scene.needs_sphere_uv,
+            plain=backend == "plain")
     else:
         rec = tisect.nearest_hit(o, d, scene, backend=backend)
         shade = tisect.resolve_hit(o, d, scene, rec)
@@ -250,6 +307,9 @@ def _gradient_scene():
 def _scene(num):
     if num == "gradient":
         return _gradient_scene()
+    if num == "earth":
+        return rtt.build_scene(2, device="cpu",
+                               earth_image=procedural_earth_texture(256))
     return rtt.build_scene(num, device="cpu",
                            **({"seed": 0} if num == 4 else {}))
 
@@ -270,17 +330,17 @@ def _equal(got: dict, want: dict):
 
 # -- wave_bounce_reference against today's composition -----------------------
 
-@pytest.mark.parametrize("variant", sorted(VARIANTS))
-@pytest.mark.parametrize("arm", ["scan", "regen"])
-@pytest.mark.parametrize("num", [1, 2, 3, 4, "gradient"])
-def test_wave_bounce_reference_is_todays_bounce(num, arm, variant):
-    """Four bounces of 512 lanes, each held bitwise: the scan arm against
-    today's ``_bounce_physics``, the regen arm against it plus today's
-    regeneration bookkeeping (parking on: the rebin / lanesort arm)."""
+def todays_bounce_vs_reference(num, arm, variant, blocked=False):
+    """Four bounces of 512 lanes, each held bitwise: ``wave_bounce_reference``
+    on the raw outputs of K5 (K6 with ``blocked``), from the new ray set-up,
+    against today's composition on today's draws: the scan arm against
+    ``_todays_bounce``, the regen arm against it plus today's regeneration
+    bookkeeping (parking on: the rebin / lanesort arm)."""
+    from raytracer_tpu_torch.ops.rays import wave_rays
     scene, sky = _scene(num)
     settings = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=3,
                                   **VARIANTS[variant]).with_sky(sky)
-    ws = WaveScene(scene)
+    ws = WaveScene(scene, blocked=blocked)
     o, d, idx = _rays(num)
     o, d = o.T.contiguous(), d.T.contiguous()
     n = o.shape[1]
@@ -300,17 +360,19 @@ def test_wave_bounce_reference_is_todays_bounce(num, arm, variant):
         if regen:
             drawn = trng.lane_randoms(keys, st["sample_i"], st["bounce_i"],
                                       use_rr)
+            rays = wave_rays(st["d"], keys=keys, sample_i=st["sample_i"],
+                             bounce=st["bounce_i"], with_rr=use_rr)
             alive = st["sample_i"] < settings.rays_per_pixel
         else:
             drawn = trng.bounce_randoms(keys, b, use_rr)
+            rays = wave_rays(st["d"], keys=keys, bounce=b, with_rr=use_rr)
             alive = st["alive"]
         rr_u = drawn[3] if use_rr else None
-        dj = antialias_jitter(drawn[0], st["d"])
-        rec, shade = hit_and_resolve(ws, st["o"], dj,
-                                     need_sphere_uv=scene.needs_sphere_uv)
+        raw = tic.hit_raw(ws, st["o"], rays.unit)
+        assert len(raw) == (9 if blocked else 12)
         got = tb.wave_bounce_reference(
-            scene, settings, st, dj, rec.hit, shade, drawn[1], drawn[2],
-            rr_u, regen=regen, bounce=b, park=regen)
+            scene, settings, st, rays.dj, raw, rays.inv_len, rays.gauss,
+            rays.fresnel, rays.rr, regen=regen, bounce=b, park=regen)
         o2, d2, thru, rad, ior, cont = _todays_bounce(
             ws, settings, "pallas", _sky(settings), st["o"], st["d"],
             st["thru"], st["rad"], alive, st["cur_ior"], *drawn[:3],
@@ -339,6 +401,15 @@ def test_wave_bounce_reference_is_todays_bounce(num, arm, variant):
             want["alive"] = cont
         _equal(got, want)
         st.update(got)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("arm", ["scan", "regen"])
+@pytest.mark.parametrize("num", [1, 2, 3, 4, "gradient", "earth"])
+def test_wave_bounce_reference_is_todays_bounce(num, arm, variant):
+    """``wave_bounce_reference`` on K5's raw outputs is today's resolve
+    and bounce (``todays_bounce_vs_reference``)."""
+    todays_bounce_vs_reference(num, arm, variant)
 
 
 # -- the samplers: today's renders, and JAX's --------------------------------
@@ -409,19 +480,19 @@ def test_fold_in_tensor_is_fold_in(seed):
 
 
 def test_device_key_draws_are_the_host_key_draws():
-    """``tile_randoms_at`` (key and iteration in tensors) is bitwise
-    ``tile_randoms`` under the host's fold; ``per_ray_keys`` from a key
+    """``tile_rows_at`` (key and iteration in tensors) is bitwise
+    ``tile_rows`` under the host's fold; ``per_ray_keys`` from a key
     tensor is bitwise the numpy key's; ``set_key`` writes the words."""
     k = trng.fold_in(trng.key(3), 9)
     buf = torch.zeros(2, dtype=torch.int64)
     trng.set_key(buf, k)
     assert buf.tolist() == [int(w) for w in k]
     for it, rr in ((0, False), (5, True)):
-        got = trng.tile_randoms_at(buf, torch.tensor([it]), 2100,
-                                   with_rr=rr)
-        want = trng.tile_randoms(trng.fold_in(k, it), 2100, with_rr=rr,
-                                 device="cpu")
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        got = trng.tile_rows_at(buf, torch.tensor([it]), 2100, with_rr=rr)
+        want = trng.tile_rows(trng.fold_in(k, it), 2100, with_rr=rr,
+                              device="cpu")
+        assert got.shape == (8 if rr else 7, 2100)
+        assert torch.equal(got, want)
     idx = torch.arange(300, dtype=torch.int32) * 7919
     assert torch.equal(trng.per_ray_keys(buf, idx),
                        trng.per_ray_keys(k, idx))

@@ -36,13 +36,26 @@ the card the wavefront samplers replay their iterations as CUDA graphs
 (ops/wave_graph.py), so the launch counts come from each graph's
 captured launches times its replays.
 
-Then the temporal fly-through (phase 13): ``rt_warp_gather`` (K7) and
-``rt_gather_history`` against their plain versions, bitwise, on the 4K
-move's real projection and a full-range pattern; the first warp frame of
-a 256x128 temporal ``Renderer`` against the same steps composed from the
-plain versions; and benchmarks/suite.py's fly-through, scene 4 at
-3840x2160, 1 spp, 5 bounces, 16 camera moves each followed by a frame,
-timed with one final sync.
+Then the temporal fly-through (phase 13). A temporal frame on the card is
+``rt_camera_rays`` (the padded primary rays from the camera basis, at a
+camera's first frame), ``rt_megakernel`` and ``rt_temporal_frame`` (the
+blend, and after a move the history gather before it). A 256x128 temporal
+``Renderer`` through a frame, a move, a frame, two moves and a frame,
+bitwise against the same steps composed from the plain versions, with its
+launches; ``rt_camera_rays`` against its plain version, bitwise, on the
+4K fly camera, bench.py's camera and a 130x70 film (pixpack 1 and 8);
+``rt_gather_history``, ``rt_warp_gather`` (K7) and both arms of
+``rt_temporal_frame`` against their plain versions, bitwise, on the 4K
+move's real projection (K7 also on a full-range pattern), each new kernel
+timed as a bare launch, by the profiler and through its wrapper beside
+its bound; benchmarks/suite.py's fly-through, scene 4 at 3840x2160, 1
+spp, 5 bounces, 16 camera moves each followed by a frame, timed with one
+final sync, with its launches (16 of each of the three kernels, 0 history
+gathers or K7), then a static and a warp frame in CUDA events; and, in a
+fresh process, a static frame, a warp frame and the 16-frame fly window
+under torch.profiler: device ms by kernel, device ops, the busy share,
+and no kernel but the three and the segment count's sum (no torch.cat,
+rsqrt, norm, mul, add, div or fill) in the fly window.
 
 Then coherent sampling and K5's counters (phase 14): (a) the coherent arm
 of ``rt_megakernel`` against ``mega_reference``'s on scenes 4, 2 and 0 at
@@ -154,6 +167,7 @@ WAVEFRONT_SOURCE = "raytracer_tpu_torch/csrc/wavefront.cu"
 WARP_SOURCE = "raytracer_tpu_torch/csrc/warp.cu"
 BOUNCE_SOURCE = "raytracer_tpu_torch/csrc/bounce.cu"
 RAYS_SOURCE = "raytracer_tpu_torch/csrc/rays.cu"
+CAMERA_SOURCE = "raytracer_tpu_torch/csrc/camera.cu"
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
 # device-memory bandwidth and non-tensor FP32 rate. Integer operations are
@@ -175,6 +189,9 @@ OPS_LANE = 1500      # 18 threefry evaluations (~77 ops) + 3 erfinv
 OPS_RAYS = OPS_LANE + 30  # rt_wave_rays: the draw, jitter, 2 normalisations
 OPS_TILE_VALUE = 190  # one tile draw value: 2 threefry evaluations + erfinv
 OPS_HISTORY = 80     # rt_gather_history: projection, floor, pack, weight
+OPS_CAMERA = 40      # rt_camera_rays: the screen point, two normalisations
+OPS_FRAME = 120      # rt_temporal_frame's warp arm: the ray, the gather, blend
+OPS_BLEND = 5        # its static arm: the blend of a pixel
 FLY_W, FLY_H, FLY_MOVES = 3840, 2160, 16
 HIST_SCALE = float(np.float32(8.0 / (511.0 * 511.0)))  # ops/warp.py _SCALE
 W_KEPT_MIN = 0.5     # (w > 1) share among hit pixels after the last move
@@ -209,10 +226,13 @@ def kernel_name(mangled: str) -> str:
         return "wave_bounce_kernel<" + ", ".join(
             a[int(b)] for a, b in zip(arms[:2], m.groups()[:2])) + \
             arms[2][int(m.group(3))] + ">"
+    m = re.search(r"temporal_frame_kernelILb([01])E", mangled)
+    if m:
+        return f"temporal_frame_kernel<{('static', 'warp')[int(m.group(1))]}>"
     return next((k for k in (
         "fetch_image_kernel", "lane_randoms_kernel", "tile_randoms_kernel",
-        "gather_history_kernel", "warp_gather_kernel", "wave_rays_kernel")
-        if k in mangled), mangled)
+        "gather_history_kernel", "warp_gather_kernel", "wave_rays_kernel",
+        "camera_rays_kernel") if k in mangled), mangled)
 
 
 def ptxas_summary(log: str) -> list:
@@ -628,7 +648,7 @@ def renderer_vs_mega_reference(dev, r, first, tiles=None) -> dict:
 def sweep_group(r) -> int:
     """The G that the rule picks for a megakernel Renderer's frame."""
     from raytracer_tpu_torch.ops import megakernel as mk
-    slots = lane_slots(r._o.shape[0], 1, r.settings.pixpack)
+    slots = lane_slots(r._n_local, 1, r.settings.pixpack)
     return mk.mega_group(slots, r._mega.packed)
 
 
@@ -1162,6 +1182,7 @@ def _wave_counts():
 
 
 def _zero_counts() -> None:
+    from raytracer_tpu_torch.models import camera
     from raytracer_tpu_torch.ops import bounce
     from raytracer_tpu_torch.ops import intersect_cuda as ic
     from raytracer_tpu_torch.ops import megakernel as mk
@@ -1171,18 +1192,22 @@ def _zero_counts() -> None:
     ic.LAUNCHES = ic.STATS_LAUNCHES = ic.BLOCKED_LAUNCHES = rng.LAUNCHES = 0
     rng.TILE_LAUNCHES = bounce.LAUNCHES = rays.LAUNCHES = 0
     mk.LAUNCHES = mk.IMAGE_LAUNCHES = mk.FETCH_LAUNCHES = 0
-    mk.COHERENT_LAUNCHES = 0
+    mk.COHERENT_LAUNCHES = camera.LAUNCHES = warp.FRAME_LAUNCHES = 0
     warp.GATHER_LAUNCHES = warp.HISTORY_LAUNCHES = 0
 
 
-def device_shares(fn, names, absent=()) -> dict:
+def device_shares(fn, names, absent=(), all_ops=False) -> dict:
     """One call of ``fn()`` under torch.profiler, ending in a synchronise:
-    the window's host ms, the device time (the profiler's self CUDA time,
-    summed), the device's busy share of the window, and for each kernel
+    the window's host ms, the device time (the self device time of the
+    device's own events, summed: the host ops that launched kernels carry
+    their kernels' time too, ``host_ops_device_ms``, and counted with them
+    it was counted twice), the device's busy share of the window, and for
+    each kernel
     named in ``names`` its device ms and its share of the device time and
     of the window. Shares are null where the profiler saw no device
     time. ``absent_seen``: the device kernels whose names hold one of
-    ``absent``, with their counts."""
+    ``absent``, with their counts; with ``all_ops``, ``device_kernels``:
+    every device op, [name, ms, count]."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1197,14 +1222,16 @@ def device_shares(fn, names, absent=()) -> dict:
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    total = sum(dev_us(e) for e in events) / 1e3
 
     def calls(name):
         return sum(e.count for e in events if e.key == name)
     kernels = sorted(((dev_us(e) / 1e3, e.key, e.count) for e in events
                       if dev_us(e) and str(e.device_type).endswith("CUDA")),
                      reverse=True)
+    total = sum(ms for ms, _, _ in kernels)
     rec = {"window_ms": window_ms, "device_ms": total,
+           "host_ops_device_ms": sum(dev_us(e) for e in events) / 1e3
+           - total,
            "busy_share": total / window_ms if total else None,
            # what the host issued: kernel launches and graph launches
            "host_kernel_launches": calls("cudaLaunchKernel"),
@@ -1214,9 +1241,13 @@ def device_shares(fn, names, absent=()) -> dict:
                              for ms, name, c in kernels[:8]],
            "absent_seen": [[name[:80], c] for _, name, c in kernels
                            if any(a in name for a in absent)]}
+    if all_ops:
+        rec["device_kernels"] = [[name[:160], ms, c]
+                                 for ms, name, c in kernels]
     for name in names:
-        ms = sum(dev_us(e) for e in events if name in e.key) / 1e3
+        ms = sum(t for t, key, _ in kernels if name in key)
         rec[name] = {"device_ms": ms,
+                     "count": sum(c for _, key, c in kernels if name in key),
                      "share_of_device": ms / total if total else None,
                      "share_of_window": ms / window_ms if total else None}
     return rec
@@ -1574,18 +1605,18 @@ def fly_settings():
 def history_inputs(dev, r, cam):
     """The inputs of the next warp frame if ``r`` moved to ``cam``: its
     rays, the kernel's primary-hit depth there, the old accumulation and
-    weights with the history cap, and the old pinhole."""
+    weights with the history cap, and the old pinhole; and the
+    megakernel's (5, n_pad) output of that frame."""
     from raytracer_tpu_torch.models.camera import build_camera, primary_rays
     from raytracer_tpu_torch.ops import megakernel as mk
     from raytracer_tpu_torch.ops import rng
     o, d = primary_rays(build_camera(cam), cam.width, cam.height, device=dev)
-    _, _, depth = mk.render_sample_mean_mega(
-        r._mega, r.settings, o.T, d.T, rng.frame_key(r.base_key, 99),
-        want_depth=True)
+    out, n = mk.mega_frame(r._mega, r.settings, o.T, d.T,
+                           rng.frame_key(r.base_key, 99))
     old = build_camera(r.camera_cfg)
-    return (o.contiguous(), d.contiguous(), depth.contiguous(),
-            r.accum.clone(), r._wpix.clone(), 8.0, old.position,
-            old.tl_pixel, old.delta_u, old.delta_v)
+    return (o.contiguous(), d.contiguous(), out[4, :n], r.accum.clone(),
+            r._wpix.clone(), 8.0, old.position, old.tl_pixel, old.delta_u,
+            old.delta_v), out
 
 
 def index_history(n: int, dev):
@@ -1609,9 +1640,9 @@ def source_pixels(hist, w):
     return torch.where(w > 0, j, -1)
 
 
-def launch_ms(name: str, args, dev, repeats: int = 20) -> float:
-    """CUDA-event milliseconds of the bare kernel launch ``name`` on
-    prebuilt arguments: no wrapper, checks or allocation in front of it."""
+def launch_once(name: str, args, dev):
+    """One bare launch of the kernel ``name`` on prebuilt arguments,
+    checked; returns a function that launches it again unchecked."""
     import ctypes
 
     from raytracer_tpu_torch.kernels import build
@@ -1619,16 +1650,23 @@ def launch_ms(name: str, args, dev, repeats: int = 20) -> float:
     fn = getattr(lib, name)
     stream = ctypes.c_void_p(build.stream(dev))
     build.check(lib, fn(ctypes.byref(args), stream), name)
-    return cuda_ms(lambda: fn(ctypes.byref(args), stream), repeats)
+    return lambda: fn(ctypes.byref(args), stream)
+
+
+def launch_ms(name: str, args, dev, repeats: int = 20) -> float:
+    """CUDA-event milliseconds of the bare kernel launch ``name`` on
+    prebuilt arguments: no wrapper, checks or allocation in front of it."""
+    return cuda_ms(launch_once(name, args, dev), repeats)
 
 
 def profiled_launch_ms(name: str, args, dev, kernel: str,
                        repeats: int = 20):
     """Device milliseconds per bare launch of ``name`` on prebuilt
     arguments: torch.profiler's device time of ``kernel`` over
-    ``repeats`` launches. Back-to-back CUDA events measure the kernel only
-    where it outlasts the host's issue of the next launch; this does not
-    depend on that. None where the profiler saw no device time."""
+    ``repeats`` launches, over the launches it recorded. Back-to-back CUDA
+    events measure the kernel only where it outlasts the host's issue of
+    the next launch; this does not depend on that. None where the profiler
+    saw no device time."""
     import ctypes
 
     from raytracer_tpu_torch.kernels import build
@@ -1636,15 +1674,16 @@ def profiled_launch_ms(name: str, args, dev, kernel: str,
     stream = ctypes.c_void_p(build.stream(dev))
     rec = device_shares(lambda: [fn(ctypes.byref(args), stream)
                                  for _ in range(repeats)], (kernel,))
-    ms = rec[kernel]["device_ms"]
-    return ms / repeats if ms else None
+    ms, count = rec[kernel]["device_ms"], rec[kernel]["count"]
+    return ms / count if ms else None, count
 
 
 def bare_times(name: str, args, dev, kernel: str) -> dict:
     """``ms``: CUDA events over bare launches (``launch_ms``);
     ``profiled_ms``: the profiler's device time a launch."""
-    return {"ms": launch_ms(name, args, dev),
-            "profiled_ms": profiled_launch_ms(name, args, dev, kernel)}
+    profiled, count = profiled_launch_ms(name, args, dev, kernel)
+    return {"ms": launch_ms(name, args, dev), "profiled_ms": profiled,
+            "profiled_launches": count}
 
 
 def phase_history(dev, args, width, height) -> tuple:
@@ -1736,78 +1775,301 @@ def phase_history(dev, args, width, height) -> tuple:
     return hrec, grec
 
 
-def phase_temporal_vs_plain(dev, width, height) -> dict:
-    """A temporal Renderer frame, a move and the first warp frame on the
-    card against the same steps composed from the plain versions on the
-    same rays and keys."""
+def phase_camera_rays(dev) -> dict:
+    """rt_camera_rays against camera_rays_reference on the card, bitwise
+    on every padded lane (pad lanes o = 0, d = (1, 0, 0)): the
+    fly-through's camera at 3840x2160, pixpack 8 (its shape on the path),
+    bench.py's camera at 1000x800 (pixpack 8 and 1) and a 130x70 film
+    (pixpack 1 and 8: not whole tiles, and smaller than one). Timed on the
+    4K camera: bare launch (``ms``), profiler, wrapper and plain version."""
     import torch
 
     import raytracer_tpu_torch as rtt
-    from raytracer_tpu_torch.models.camera import build_camera, primary_rays
-    from raytracer_tpu_torch.ops import film
+    from raytracer_tpu_torch.models import camera
+    cases = {"fly_3840x2160_pixpack8": (fly_camera(1, FLY_W, FLY_H), 8),
+             "bench_1000x800_pixpack8": (rtt.CameraConfig(1000, 800), 8),
+             "bench_1000x800_pixpack1": (rtt.CameraConfig(1000, 800), 1),
+             "odd_130x70_pixpack1": (fly_camera(3, 130, 70), 1),
+             "odd_130x70_pixpack8": (fly_camera(3, 130, 70), 8)}
+    rec = {}
+    for name, (cfg, k) in cases.items():
+        cam = camera.build_camera(cfg)
+        w, h = cfg.width, cfg.height
+        got = camera.camera_rays(cam, w, h, k, dev)
+        want = camera.camera_rays_reference(cam, w, h, k, dev)
+        n = w * h
+        pad_d = torch.tensor([[1.0], [0.0], [0.0]], device=dev)
+        rec[name] = {
+            "pixels": n, "lanes": got.o.shape[1],
+            "bitwise": bool(torch.equal(got.o, want.o)
+                            and torch.equal(got.d, want.d)
+                            and (got.n, got.pixpack) == (want.n, k)),
+            "pad_lanes": bool(not got.o[:, n:].any() and torch.equal(
+                got.d[:, n:], pad_d.expand(3, got.o.shape[1] - n))),
+            "max_abs_err": float((got.d - want.d).abs().max()),
+            "d_equal_share": float((got.d == want.d).all(0).float().mean())}
+    top = rec["fly_3840x2160_pixpack8"]
+    cam = camera.build_camera(cases["fly_3840x2160_pixpack8"][0])
+    o = torch.empty((3, top["lanes"]), device=dev)
+    d = torch.empty_like(o)
+    args = camera._camera_args(cam, o, d, FLY_W * FLY_H, FLY_W)
+    top.update(bare_times("rt_camera_rays", args, dev, "camera_rays_kernel"))
+    ref = camera.camera_rays_reference(cam, FLY_W, FLY_H, 8, dev)
+    top.update(
+        wrapper_ms=cuda_ms(lambda: camera.camera_rays(cam, FLY_W, FLY_H, 8,
+                                                      dev), 20),
+        plain_ms=cuda_ms(lambda: camera.camera_rays_reference(
+            cam, FLY_W, FLY_H, 8, dev), 3),
+        library_ms=None,
+        bare_launch_bitwise=bool(torch.equal(o, ref.o)
+                                 and torch.equal(d, ref.d)))
+    # o and d written once; nothing read but the basis
+    top.update(bound(24 * top["lanes"], OPS_CAMERA * top["lanes"]))
+    print("phase 13 rt_camera_rays vs camera_rays_reference:",
+          json.dumps(rec), flush=True)
+    for name, r in rec.items():
+        check(r["bitwise"] and r["pad_lanes"],
+              f"rt_camera_rays differs from its plain version on {name}")
+    check(top["bare_launch_bitwise"], "rt_camera_rays' bare launch differs")
+    return top
+
+
+def phase_temporal_frame(dev, out, accum, wpix, old, new, width, height,
+                         sources: int) -> dict:
+    """rt_temporal_frame against temporal_frame_reference on the card on
+    the fly-through's 4K frame (the megakernel's output ``out``), bitwise
+    with the segment count: the static arm over the accumulation and
+    weights, and the warp arm gathering them from the old camera ``old``
+    into ``new`` (the move phase_history checks, whose ``sources`` old
+    pixels it reads). Each arm timed as a bare launch on
+    prebuilt arguments (``ms``), by the profiler and through the wrapper;
+    the plain version beside it."""
+    import torch
+
+    from raytracer_tpu_torch.ops import warp
+    n = width * height
+    src = warp.history_source(accum, wpix, 8.0, old)
+    rec = {}
+    for arm in ("static", "warp"):
+        extra = () if arm == "static" else (src, new, width, height)
+        got = warp.temporal_frame(out, n, accum.clone(), wpix.clone(),
+                                  *extra)
+        want = warp.temporal_frame_reference(out, n, accum.clone(),
+                                             wpix.clone(), *extra)
+        a, w = accum.clone(), wpix.clone()
+        if arm == "static":
+            planes = (a, w)                 # in place
+            # mean and segments read; the accumulation and weights read
+            # and written
+            moved = n * (16 + 2 * 16)
+        else:
+            planes = (torch.empty_like(a), torch.empty_like(w))
+            # mean, segments and depth read, the outputs written once; the
+            # old accumulation and weight only at the source pixels read
+            moved = n * (16 + 4 + 16) + sources * 16
+        segs = torch.empty((), dtype=torch.float64, device=dev)
+        args = warp._frame_args(out, n, a, w, *planes, segs,
+                                *(extra or (None, None, width, height)))
+        launch_once("rt_temporal_frame", args, dev)
+        bare_bitwise = bool(torch.equal(planes[0], want[0])
+                            and torch.equal(planes[1], want[1])
+                            and float(segs) == float(want[2]))
+        rec[arm] = {
+            "pixels": n, "segments": float(want[2]),
+            "bitwise": bool(torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1])
+                            and float(got[2]) == float(want[2])),
+            "bare_launch_bitwise": bare_bitwise,
+            "max_abs_err": max(float((got[0] - want[0]).abs().max()),
+                               float((got[1] - want[1]).abs().max())),
+            **bare_times("rt_temporal_frame", args, dev,
+                         "temporal_frame_kernel"),
+            "wrapper_ms": cuda_ms(lambda: warp.temporal_frame(
+                out, n, a, w, *extra), 20),
+            "plain_ms": cuda_ms(lambda: warp.temporal_frame_reference(
+                out, n, a, w, *extra), 3),
+            "library_ms": None,
+            **bound(moved, n * (OPS_FRAME if extra else OPS_BLEND))}
+    rec["warp"]["kept_share"] = float((want[1] > 1).float().mean())
+    print(f"phase 13 rt_temporal_frame vs temporal_frame_reference, "
+          f"{width}x{height}, static and warp arms:", json.dumps(rec),
+          flush=True)
+    for arm, r in rec.items():
+        check(r["bitwise"], f"rt_temporal_frame's {arm} arm differs")
+        check(r["bare_launch_bitwise"],
+              f"rt_temporal_frame's {arm} bare launch differs")
+    return rec
+
+
+def phase_temporal_vs_plain(dev, width, height) -> dict:
+    """A temporal Renderer frame, a move and the first warp frame on the
+    card, then two moves and a frame, against the same steps composed from
+    the plain versions (camera_rays_reference, mega_reference,
+    temporal_frame_reference) on the same keys, bitwise; each frame is
+    rt_camera_rays (at a camera's first frame), rt_megakernel and
+    rt_temporal_frame, and no rt_gather_history."""
+    import torch
+
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.models import camera
     from raytracer_tpu_torch.ops import megakernel as mk
     from raytracer_tpu_torch.ops import rng, warp
     scene, settings = fly_settings()
-    cams = (fly_camera(0, width, height), fly_camera(1, width, height))
+    cams = [fly_camera(i, width, height) for i in range(4)]
     r = rtt.Renderer(scene, cams[0], settings, seed=0, device=dev,
                      temporal=True)
     _zero_counts()
     r.render_frame(block=True)
     r.move_camera(cams[1])
     r.render_frame(block=True)
-    launches = {"rt_megakernel": mk.LAUNCHES,
-                "rt_gather_history": warp.HISTORY_LAUNCHES}
+    r.move_camera(cams[2])
+    r.move_camera(cams[3])
+    r.render_frame(block=True)
+    launches = _temporal_counts()
     n = width * height
     accum = torch.zeros((n, 3), device=dev)
     wpix = torch.zeros(n, device=dev)
-    for k, cam in enumerate(cams):
-        o, d = primary_rays(build_camera(cam), width, height, device=dev)
-        o_p, d_p, seed, kw = mk.mega_inputs(r._mega, r.settings, o.T, d.T,
+    stash = None
+    for k, cfg in enumerate((cams[0], cams[1], cams[3])):
+        cam = camera.build_camera(cfg)
+        rays = camera.camera_rays_reference(cam, width, height,
+                                            r.settings.pixpack, dev)
+        o_p, d_p, seed, kw = mk.mega_inputs(r._mega, r.settings, rays, None,
                                             rng.frame_key(r.base_key, k))
         out = mk.mega_reference(r._mega.packed, r._mega.mat, o_p, d_p, seed,
                                 **kw)
-        mean, depth = out[:3, :n], out[4, :n]
-        if k:
-            old = build_camera(cams[0])
-            hist, w = warp.gather_history_reference(
-                width, height, o, d, depth, accum, wpix, 8.0, old.position,
-                old.tl_pixel, old.delta_u, old.delta_v)
-        else:
-            hist, w = accum, wpix
-        accum, wpix = film.temporal_update(hist, mean.T, w)
+        accum, wpix, segs = warp.temporal_frame_reference(
+            out, n, accum, wpix, stash, cam, width, height)
+        # the next move keeps this view
+        stash = warp.history_source(accum, wpix, 8.0, cam)
     stats = pixel_diff(r.accum, accum)
+    stats["bitwise"] = bool(torch.equal(r.accum, accum)
+                            and torch.equal(r._wpix, wpix)
+                            and float(r._last_segs) == float(segs))
     stats["weights_equal_share"] = float((r._wpix == wpix).float().mean())
-    rec = {"launches": launches, "vs_plain": stats}
-    print(f"phase 13 temporal Renderer frame, move, warp frame, {width}x"
-          f"{height}, vs the plain steps:", json.dumps(rec), flush=True)
-    check(launches == {"rt_megakernel": 2, "rt_gather_history": 1},
+    rec = {"launches": launches, "vs_plain": stats,
+           "kept_share": float((wpix > 1).float().mean())}
+    print(f"phase 13 temporal Renderer frame, move, warp frame, two moves, "
+          f"warp frame, {width}x{height}, vs the plain steps:",
+          json.dumps(rec), flush=True)
+    check(launches == {"rt_megakernel": 3, "rt_camera_rays": 3,
+                       "rt_temporal_frame": 3, "rt_gather_history": 0,
+                       "rt_warp_gather": 0},
           f"temporal frames launched {launches}")
-    check_pixels(stats, "temporal warp frame vs the plain steps")
-    check(stats["weights_equal_share"] >= PIXEL_SHARE_MIN,
-          f"temporal weights equal on {stats['weights_equal_share']}")
+    check(stats["bitwise"], "temporal frames differ from the plain steps")
     return rec
 
 
-def phase_flythrough(dev) -> dict:
-    """benchmarks/suite.py:66-109 on the port: scene 4 at 4K, 1 spp, 5
-    bounces, a temporal Renderer; a warm frame and a warm move, then
-    FLY_MOVES moves each followed by a frame, one final sync, counts set
-    to 0 just before and read just after. The kernel checks of K7 run on
-    this run's first real move, before the timed loop."""
+def _temporal_counts() -> dict:
+    from raytracer_tpu_torch.models import camera
+    from raytracer_tpu_torch.ops import megakernel as mk
+    from raytracer_tpu_torch.ops import warp
+    return {"rt_megakernel": mk.LAUNCHES, "rt_camera_rays": camera.LAUNCHES,
+            "rt_temporal_frame": warp.FRAME_LAUNCHES,
+            "rt_gather_history": warp.HISTORY_LAUNCHES,
+            "rt_warp_gather": warp.GATHER_LAUNCHES}
+
+
+# device ops a temporal frame may run on the card: the camera rays (at a
+# camera's first frame), the megakernel and the epilogue (the segment
+# count's sum is inside it); anything else (torch.cat, rsqrt, the norm, a
+# mul, add or div, a fill, the sum's cast) would be a torch pass over the
+# frame
+TEMPORAL_KERNELS = ("camera_rays_kernel", "megakernel",
+                    "temporal_frame_kernel")
+# the kernels whose device time phase 13 reads, the parent's too
+TEMPORAL_NAMES = TEMPORAL_KERNELS + ("gather_history_kernel", "sum_functor")
+
+
+def fly_profile_leg() -> dict:
+    """Phase 13's profile: the fly-through's Renderer after a warm frame
+    and move; one static frame, one warp frame (a move and its frame) and
+    the fly window (FLY_MOVES moves, each followed by a frame) under
+    torch.profiler, each with its device ms by kernel, device ops, busy
+    share and every device op. Runs on whichever raytracer_tpu_torch is
+    imported (scripts/k1_groups.py times the parent tree with it)."""
     import torch
 
     import raytracer_tpu_torch as rtt
-    from raytracer_tpu_torch.ops import megakernel as mk
-    from raytracer_tpu_torch.ops import warp
+    dev = torch.device("cuda", 0)
     scene, settings = fly_settings()
     r = rtt.Renderer(scene, fly_camera(0, FLY_W, FLY_H), settings, seed=0,
                      device=dev, temporal=True)
     r.render_frame(block=True)
     r.move_camera(fly_camera(0, FLY_W, FLY_H))
     r.render_frame(block=True)
-    hrec, grec = phase_history(
-        dev, history_inputs(dev, r, fly_camera(1, FLY_W, FLY_H)), FLY_W,
-        FLY_H)
+
+    def fly():
+        for i in range(FLY_MOVES):
+            r.move_camera(fly_camera(i, FLY_W, FLY_H))
+            r.render_frame()
+    out = {"static": device_shares(r.render_frame, TEMPORAL_NAMES,
+                                   all_ops=True),
+           "warp": device_shares(
+               lambda: (r.move_camera(fly_camera(1, FLY_W, FLY_H)),
+                        r.render_frame()), TEMPORAL_NAMES, all_ops=True),
+           "fly": device_shares(fly, TEMPORAL_NAMES, all_ops=True)}
+    out["fly"]["device_ops_per_frame"] = out["fly"]["device_ops"] / FLY_MOVES
+    out["fly"]["others"] = [k for k in out["fly"]["device_kernels"]
+                            if not any(t in k[0] for t in TEMPORAL_KERNELS)]
+    out["finite"] = bool(torch.isfinite(r.accum).all())
+    return out
+
+
+def phase_fly_profile() -> dict:
+    """``fly_profile_leg`` in a fresh process (a late profiler session in
+    this long process once recorded no device events; phase 18b)."""
+    import pathlib
+    here = pathlib.Path(__file__).resolve().parent
+    code = ("import json, chip_smoke; print(json.dumps("
+            "chip_smoke.fly_profile_leg()))")
+    run = subprocess.run([sys.executable, "-c", code], cwd=here,
+                         capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, "fly-through profile process failed: "
+          + run.stderr[-2000:])
+    prof = json.loads(run.stdout.strip().splitlines()[-1])
+    print(f"phase 13 fly-through scene 4 {FLY_W}x{FLY_H} under "
+          "torch.profiler: a static frame, a warp frame and the fly window",
+          json.dumps(prof), flush=True)
+    for leg in ("static", "warp", "fly"):
+        check(prof[leg]["megakernel"]["device_ms"] > 0,
+              f"the profiled {leg} frame recorded no megakernel")
+    check(prof["finite"], "profiled fly-through not finite")
+    check(not prof["fly"]["others"], "kernels other than the temporal "
+          f"frame's ran in the fly window: {prof['fly']['others']}")
+    counts = {k: sum(c for name, _, c in prof["fly"]["device_kernels"]
+                     if k in name) for k in TEMPORAL_KERNELS}
+    check(all(c == FLY_MOVES for c in counts.values()),
+          f"the fly window ran {counts}, not one of each a frame")
+    return prof
+
+
+def phase_flythrough(dev) -> dict:
+    """benchmarks/suite.py:66-109 on the port: scene 4 at 4K, 1 spp, 5
+    bounces, a temporal Renderer; a warm frame and a warm move, then
+    FLY_MOVES moves each followed by a frame, one final sync, counts set
+    to 0 just before and read just after. The kernel checks of the new
+    kernels, rt_gather_history and K7 run on this run's first real move,
+    before the timed loop; the profiled frames after it."""
+    import torch
+
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.models.camera import build_camera
+    from raytracer_tpu_torch.ops import megakernel as mk
+    scene, settings = fly_settings()
+    r = rtt.Renderer(scene, fly_camera(0, FLY_W, FLY_H), settings, seed=0,
+                     device=dev, temporal=True)
+    r.render_frame(block=True)
+    r.move_camera(fly_camera(0, FLY_W, FLY_H))
+    r.render_frame(block=True)
+    rays_rec = phase_camera_rays(dev)
+    args, out = history_inputs(dev, r, fly_camera(1, FLY_W, FLY_H))
+    hrec, grec = phase_history(dev, args, FLY_W, FLY_H)
+    frec = phase_temporal_frame(
+        dev, out, args[3], args[4], build_camera(r.camera_cfg),
+        build_camera(fly_camera(1, FLY_W, FLY_H)), FLY_W, FLY_H,
+        hrec["source_pixels"])
+    del args, out
 
     _zero_counts()
     t0 = time.perf_counter()
@@ -1817,9 +2079,7 @@ def phase_flythrough(dev) -> dict:
         r.render_frame(block=(i == FLY_MOVES - 1))
         segs.append(r._last_segs)
     dt = time.perf_counter() - t0
-    launches = {"rt_megakernel": mk.LAUNCHES,
-                "rt_gather_history": warp.HISTORY_LAUNCHES,
-                "rt_warp_gather": warp.GATHER_LAUNCHES}
+    launches = _temporal_counts()
     hits = r._depth < mk.INF
     kept = float((r._wpix[hits] > 1).float().mean())
     r.check_health()
@@ -1843,13 +2103,17 @@ def phase_flythrough(dev) -> dict:
     print(f"phase 13 fly-through scene 4 {FLY_W}x{FLY_H} 1 spp:",
           json.dumps(rec), flush=True)
     check(launches == {"rt_megakernel": FLY_MOVES,
-                       "rt_gather_history": FLY_MOVES,
-                       "rt_warp_gather": 0},
+                       "rt_camera_rays": FLY_MOVES,
+                       "rt_temporal_frame": FLY_MOVES,
+                       "rt_gather_history": 0, "rt_warp_gather": 0},
           f"fly-through launched {launches}")
     check(kept > W_KEPT_MIN, f"(w > 1) on {kept} of the hit pixels after "
           f"the last move (need > {W_KEPT_MIN})")
     check(rec["finite"], "fly-through accumulation not finite")
-    return {"fly": rec, "history": hrec, "gather": grec}
+    del r
+    prof = phase_fly_profile()
+    return {"fly": rec, "history": hrec, "gather": grec, "rays": rays_rec,
+            "frame": frec, "profile": prof}
 
 
 # -- phase 14: coherent sampling, K5's counters, elastic recovery ------------
@@ -2853,7 +3117,7 @@ def main() -> int:
     samplers = phase_samplers(dev, 256, 128)
     bounce_rec = phase_wave_bounce(dev)
     paths = phase_wave_paths(dev)
-    phase_temporal_vs_plain(dev, 256, 128)
+    temporal = phase_temporal_vs_plain(dev, 256, 128)
     fly = phase_flythrough(dev)
     for num in (4, 2, 0):
         phase_mega_small(dev, num, 256, 128, coherent=True)
@@ -2932,6 +3196,8 @@ def main() -> int:
                 for k in ("per_lane", "coherent")}
 
     fly_launches = fly["fly"]["launches"]
+    temporal_paths = {"flythrough_4k": fly_launches,
+                      "temporal_256x128": temporal["launches"]}
     band = fly["gather"]["coherent_band"]
     kernels = [{
         "name": "rt_megakernel", "route": "cuda", "source": KERNEL_SOURCE,
@@ -3089,20 +3355,49 @@ def main() -> int:
              "scene4_regen", "wave_bounce_kernel"),
          "timed": f"{bounce_rec['lanes']} regen lanes of scene 4, their "
                   "third bounce"},
+        {"name": "rt_camera_rays", "route": "cuda", "source": CAMERA_SOURCE,
+         "replaces": "raytracer_tpu/models/camera.py:83 with "
+                     "raytracer_tpu/ops/megakernel.py:1189-1202 (XLA's "
+                     "fusion in the temporal step, renderer.py:362, not a "
+                     "TPU kernel)",
+         "launches": fly_launches["rt_camera_rays"],
+         "launches_by_path": {k: v["rt_camera_rays"]
+                              for k, v in temporal_paths.items()},
+         "max_abs_err": fly["rays"]["max_abs_err"], **timing(fly["rays"]),
+         "timed": f"the fly-through's {FLY_W}x{FLY_H} camera, pixpack 8, "
+                  f"{fly['rays']['lanes']} padded lanes"},
+        {"name": "rt_temporal_frame", "route": "cuda", "source": WARP_SOURCE,
+         "replaces": "raytracer_tpu/runtime/renderer.py:365 and :369-388 "
+                     "(XLA's fusion after K1 in _tstep / _tstep_warp, not a "
+                     "TPU kernel; K7's load, warp.py:52, inside its warp "
+                     "arm)",
+         "launches": fly_launches["rt_temporal_frame"],
+         "launches_by_path": {k: v["rt_temporal_frame"]
+                              for k, v in temporal_paths.items()},
+         "max_abs_err": max(r["max_abs_err"]
+                            for r in fly["frame"].values()),
+         **timing(fly["frame"]["warp"]),
+         "static_arm": timing(fly["frame"]["static"]),
+         "timed": f"one {FLY_W}x{FLY_H} frame of the fly-through: the warp "
+                  "arm (a move's first frame; static_arm: the others)"},
         {"name": "rt_gather_history", "route": "cuda", "source": WARP_SOURCE,
          "replaces": "raytracer_tpu/ops/warp.py:52 (with "
                      "raytracer_tpu/runtime/renderer.py:53 and :71 fused)",
          "launches": fly_launches["rt_gather_history"],
-         "launches_by_path": {"flythrough_4k":
-                              fly_launches["rt_gather_history"]},
+         "launches_by_path": {k: v["rt_gather_history"]
+                              for k, v in temporal_paths.items()},
+         "on_paths": "none: its per-pixel body (csrc/warp.cuh) runs inside "
+                     "rt_temporal_frame's warp arm; warp.gather_history "
+                     "launches it for callers that want the history "
+                     "(phase 13)",
          "max_abs_err": fly["history"]["max_abs_err"],
          **timing(fly["history"]),
          "timed": f"one {FLY_W}x{FLY_H} move of the fly-through"},
         {"name": "rt_warp_gather", "route": "cuda", "source": WARP_SOURCE,
          "replaces": "raytracer_tpu/ops/warp.py:52",
          "launches": fly_launches["rt_warp_gather"],
-         "fused_into": "rt_gather_history",
-         "fused_launches": fly_launches["rt_gather_history"],
+         "fused_into": "rt_temporal_frame (and rt_gather_history)",
+         "fused_launches": fly_launches["rt_temporal_frame"],
          "max_abs_err": max(r["max_abs_err"]
                             for r in fly["gather"].values()),
          **timing(band, band["library_ms"]),

@@ -28,7 +28,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("megakernel.cu", "wavefront.cu", "warp.cu", "bounce.cu",
-           "rays.cu")
+           "rays.cu", "camera.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v")
@@ -203,6 +203,23 @@ class HistoryArgs(ctypes.Structure):
         + [("width", ctypes.c_int), ("height", ctypes.c_int)])
 
 
+class TemporalArgs(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "out", "accum", "wpix", "accum_out", "w_out", "seg_acc", "segs")]
+        + [(n, ctypes.c_float * 3) for n in (
+            "cpos", "ctl", "cdu", "cdv", "pos", "tl", "du", "dv", "nrm")]
+        + [(n, ctypes.c_float) for n in ("focal", "dudu", "dvdv", "history",
+                                         "scale")]
+        + [("stride", ctypes.c_longlong)]
+        + [(n, ctypes.c_int) for n in ("width", "height", "warp")])
+
+
+class CameraRaysArgs(ctypes.Structure):
+    _fields_ = ([("o", ctypes.c_void_p), ("d", ctypes.c_void_p)]
+                + [(n, ctypes.c_float * 3) for n in ("pos", "tl", "du", "dv")]
+                + [(n, ctypes.c_int) for n in ("n", "n_pad", "width")])
+
+
 class BounceArgs(ctypes.Structure):
     _fields_ = ([(n, _P3) for n in ("o", "d", "thru", "rad")]
                 + [("ior", ctypes.c_void_p), ("alive", ctypes.c_void_p),
@@ -237,9 +254,12 @@ def scene_args(ps) -> SceneArgs:
         int(ps.has_one_way), int(ps.needs_tri_uv))
 
 
-def ptrs3(x: torch.Tensor):
-    """Row pointers of a contiguous (3, N) tensor."""
-    return (ctypes.c_void_p * 3)(*[x[i].data_ptr() for i in range(3)])
+def row_ptrs(x: torch.Tensor):
+    """Row pointers of an (R, N) tensor with contiguous rows, from its
+    stride (indexing the rows would make R views, ~10 us each)."""
+    base, step = x.data_ptr(), x.stride(0) * x.element_size()
+    return (ctypes.c_void_p * x.shape[0])(*[base + i * step
+                                            for i in range(x.shape[0])])
 
 
 def stream(device: torch.device) -> int:
@@ -260,6 +280,8 @@ def load() -> ctypes.CDLL:
                            ("rt_tile_randoms", TileArgs),
                            ("rt_warp_gather", WarpGatherArgs),
                            ("rt_gather_history", HistoryArgs),
+                           ("rt_temporal_frame", TemporalArgs),
+                           ("rt_camera_rays", CameraRaysArgs),
                            ("rt_wave_bounce", BounceArgs),
                            ("rt_wave_rays", RaysArgs)):
             fn = getattr(lib, name)

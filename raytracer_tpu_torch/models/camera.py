@@ -3,10 +3,17 @@
 The host computes the viewport basis once (src/camera.cu:46-60); primary
 rays are then one tensor expression over the whole pixel grid
 (src/camera.cu:24-29, src/ray.cu:147-155).
+
+``camera_rays`` builds the temporal frame's megakernel input from the
+basis in one CUDA kernel, ``rt_camera_rays`` (csrc/camera.cu): the
+scanline primary rays, padded to whole tiles and normalised again, as
+JAX builds them inside its temporal step (raytracer_tpu/runtime/
+renderer.py:355-362). ``camera_rays_reference`` is its plain version.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
@@ -14,8 +21,12 @@ import numpy as np
 import torch
 
 from ..config import CameraConfig
+from ..ops.megakernel import MEGA_TILE, PaddedRays, pad_rays
 from ..utils import matrix as hm
 from ..utils.device import resolve_device
+
+# Launches of rt_camera_rays by ``camera_rays``.
+LAUNCHES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +106,64 @@ def primary_rays(cam: CameraArrays, width: int, height: int,
     d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
     o = torch.as_tensor(cam.position, device=device).expand_as(d)
     return o.contiguous(), d
+
+
+def camera_rays_reference(cam: CameraArrays, width: int, height: int,
+                          pixpack: int, device="cuda") -> PaddedRays:
+    """Plain version of ``rt_camera_rays``: ``pad_rays`` over the
+    scanline ``primary_rays`` (raytracer_tpu/ops/megakernel.py:1189-1202
+    over raytracer_tpu/models/camera.py:83-107)."""
+    o, d = primary_rays(cam, width, height, device=device)
+    o_p, d_p = pad_rays(o.T, d.T, pixpack)
+    return PaddedRays(o_p, d_p, width * height, pixpack)
+
+
+def camera_rays(cam: CameraArrays, width: int, height: int, pixpack: int,
+                device="cuda") -> PaddedRays:
+    """The megakernel's input for the scanline primary rays of ``cam``:
+    (3, n_pad) origins and unit directions, n_pad whole tiles of
+    4096 * ``pixpack`` lanes, pad lanes o = 0 and d = (1, 0, 0), every
+    direction normalised twice as ``camera_rays_reference`` does. On the
+    CPU the plain version; on the card one launch of ``rt_camera_rays``
+    (or an error)."""
+    device = resolve_device(device)
+    if pixpack < 1 or width < 1 or height < 1:
+        raise ValueError(f"bad film {width}x{height} or pixpack {pixpack}")
+    if device.type == "cpu":
+        return camera_rays_reference(cam, width, height, pixpack, device)
+    if device.type != "cuda":
+        raise ValueError(f"no camera rays for device {device}")
+    from ..kernels import build
+    n = width * height
+    tile = MEGA_TILE * pixpack
+    n_pad = max(tile, -(-n // tile) * tile)
+    o = torch.empty((3, n_pad), dtype=torch.float32, device=device)
+    d = torch.empty((3, n_pad), dtype=torch.float32, device=device)
+    args = _camera_args(cam, o, d, n, width)
+    lib = build.load()
+    rc = lib.rt_camera_rays(ctypes.byref(args),
+                            ctypes.c_void_p(build.stream(device)))
+    build.check(lib, rc, "rt_camera_rays")
+    global LAUNCHES
+    LAUNCHES += 1
+    return PaddedRays(o, d, n, pixpack)
+
+
+def _camera_args(cam: CameraArrays, o: torch.Tensor, d: torch.Tensor,
+                n: int, width: int):
+    """rt_camera_rays' arguments over (3, n_pad) contiguous CUDA outputs
+    (the caller keeps them alive across the launch)."""
+    from ..kernels import build
+    return build.CameraRaysArgs(
+        o=o.data_ptr(), d=d.data_ptr(), pos=f3(cam.position),
+        tl=f3(cam.tl_pixel), du=f3(cam.delta_u), dv=f3(cam.delta_v), n=n,
+        n_pad=o.shape[1], width=width)
+
+
+def f3(v):
+    """A float32 3-vector as a ctypes float[3]."""
+    return (ctypes.c_float * 3)(*[float(c) for c in np.asarray(
+        v, np.float32)])
 
 
 def morton_order(width: int, height: int) -> np.ndarray:

@@ -501,7 +501,7 @@ def _hit_resolve_cuda(ps: PackedScene, o, d, with_stats: bool = False,
     n = o.shape[1]
     outs = _outs(n, o.device, _K5_DTYPES + ((_F32,) if with_stats else ()))
     args = build.ResolveArgs(
-        scene=build.scene_args(ps), o=build.ptrs3(o), d=build.ptrs3(d),
+        scene=build.scene_args(ps), o=build.row_ptrs(o), d=build.row_ptrs(d),
         out=(ctypes.c_void_p * 12)(*[x.data_ptr() for x in outs[:12]]),
         stats=outs[12].data_ptr() if with_stats else None, n=n,
         group=resolve_group(n, ps, group))
@@ -527,7 +527,7 @@ def _hit_resolve_blocked_cuda(bt: BlockedTables, o, d, group=None):
         bt.nblocks, bt.sph_blocks, bt.tri_blocks, bt.sph_leaf, bt.tri_leaf,
         bt.sc_rows, bt.tc_rows, bt.ss_rows, bt.ts_rows,
         int(bt.has_one_way), int(bt.needs_tri_uv),
-        build.ptrs3(o), build.ptrs3(d),
+        build.row_ptrs(o), build.row_ptrs(d),
         (ctypes.c_void_p * 9)(*[x.data_ptr() for x in outs]), n,
         blocked_group(n, group))
     lib = build.load()

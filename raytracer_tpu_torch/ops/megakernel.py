@@ -31,6 +31,7 @@ estimator is unchanged. The kernel and ``mega_reference`` both take it.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import numpy as np
@@ -173,6 +174,20 @@ def pad_rays(o: torch.Tensor, d: torch.Tensor, k: int):
         d = torch.cat([d, pad_d], dim=1)
     inv = torch.rsqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
     return o.contiguous(), (d * inv[None, :]).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class PaddedRays:
+    """Primary rays padded and normalised for the megakernel, as
+    ``pad_rays`` leaves them: (3, n_pad) ``o`` and unit ``d`` of ``n``
+    pixels at ``pixpack`` pixels a lane slot (models/camera.py
+    ``camera_rays``). ``mega_inputs`` takes them as they are: no padding,
+    no renormalisation (rsqrt of a length near 1 is not always 1)."""
+
+    o: torch.Tensor
+    d: torch.Tensor
+    n: int
+    pixpack: int
 
 
 def _asin(x: torch.Tensor) -> torch.Tensor:
@@ -497,8 +512,8 @@ def _mega_cuda(ps, mat, o, d, seed, *, tex, img_rows, pixpack, spp, limit,
     out = torch.empty((5, n_pad), dtype=torch.float32, device=o.device)
     w0, w1, tile_offset = seed
     args = build.MegaArgs(
-        scene=build.scene_args(ps), o=build.ptrs3(o), d=build.ptrs3(d),
-        out=(ctypes.c_void_p * 5)(*[out[i].data_ptr() for i in range(5)]),
+        scene=build.scene_args(ps), o=build.row_ptrs(o), d=build.row_ptrs(d),
+        out=build.row_ptrs(out),
         mat=mat.data_ptr(), n_mat=mat.shape[1], tex=tex.data_ptr(),
         img_rows=img_rows, seed_w0=w0, seed_w1=w1,
         tile_offset=tile_offset, n_tiles=n_tiles,
@@ -570,7 +585,7 @@ def fetch_image(ms: MegaScene, u: torch.Tensor, v: torch.Tensor,
         tex=ms.tex.data_ptr(), img_rows=ms.img_rows, mat=ms.mat.data_ptr(),
         n_mat=ms.mat.shape[1], u=u.data_ptr(), v=v.data_ptr(),
         mat_id=mat_id.data_ptr(),
-        out=(ctypes.c_void_p * 3)(*[out[i].data_ptr() for i in range(3)]),
+        out=build.row_ptrs(out),
         n=n)
     lib = build.load()
     rc = lib.rt_fetch_image(ctypes.byref(args),
@@ -581,11 +596,21 @@ def fetch_image(ms: MegaScene, u: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def mega_inputs(ms: MegaScene, settings: RenderSettings, o: torch.Tensor,
-                d: torch.Tensor, frame_key: np.ndarray, tile_offset: int = 0,
-                pixpack=None):
+def mega_inputs(ms: MegaScene, settings: RenderSettings, o, d,
+                frame_key: np.ndarray, tile_offset: int = 0, pixpack=None):
     """Check (3, N) rays and turn them into the arguments that
-    ``mega_reference`` and the kernel take: (o_pad, d_pad, seed, kwargs)."""
+    ``mega_reference`` and the kernel take: (o_pad, d_pad, seed, kwargs).
+    ``o`` may instead be a ``PaddedRays`` (``d`` None), taken as it is."""
+    k = resolve_pixpack(settings, pixpack)
+    padded = isinstance(o, PaddedRays)
+    if padded:
+        if d is not None or o.pixpack != k:
+            raise ValueError(f"padded rays at pixpack {o.pixpack} (and d "
+                             f"None) expected, for pixpack {k}")
+        o, d = o.o, o.d
+        if o.shape[1] % (MEGA_TILE * k):
+            raise ValueError(f"padded rays of {o.shape[1]} lanes: not "
+                             f"whole tiles of {MEGA_TILE * k}")
     for name, x in (("o", o), ("d", d)):
         if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != 3:
             raise ValueError(f"{name} must be (3, N) float32, got "
@@ -593,8 +618,7 @@ def mega_inputs(ms: MegaScene, settings: RenderSettings, o: torch.Tensor,
     if o.shape != d.shape or o.device != d.device or ms.device != o.device:
         raise ValueError(f"rays on {o.device} / {d.device}, scene on "
                          f"{ms.device}: all must share one device")
-    k = resolve_pixpack(settings, pixpack)
-    o_p, d_p = pad_rays(o, d, k)
+    o_p, d_p = (o, d) if padded else pad_rays(o, d, k)
     seed = rng.seed_words(frame_key, tile_offset)
     kw = dict(tex=ms.tex, img_rows=ms.img_rows,
               pixpack=k, spp=int(settings.rays_per_pixel),
@@ -610,11 +634,26 @@ def mega_inputs(ms: MegaScene, settings: RenderSettings, o: torch.Tensor,
     return o_p, d_p, seed, kw
 
 
-def render_sample_mean_mega(scene, settings: RenderSettings,
-                            o: torch.Tensor, d: torch.Tensor,
+def mega_frame(ms: MegaScene, settings: RenderSettings, o, d,
+               frame_key: np.ndarray, tile_offset: int = 0, pixpack=None):
+    """The megakernel's raw (5, n_pad) output over ``o``, ``d`` as
+    ``render_sample_mean_mega`` takes them (``mega_reference`` on the
+    CPU, ``rt_megakernel`` on the card), and N."""
+    o_p, d_p, seed, kw = mega_inputs(ms, settings, o, d, frame_key,
+                                     tile_offset, pixpack)
+    n = o.n if isinstance(o, PaddedRays) else o.shape[1]
+    if o_p.device.type == "cpu":
+        return mega_reference(ms.packed, ms.mat, o_p, d_p, seed, **kw), n
+    if o_p.device.type == "cuda":
+        return _mega_cuda(ms.packed, ms.mat, o_p, d_p, seed, **kw), n
+    raise ValueError(f"no megakernel for device {o_p.device}")
+
+
+def render_sample_mean_mega(scene, settings: RenderSettings, o, d,
                             frame_key: np.ndarray, tile_offset: int = 0,
                             want_depth: bool = False, pixpack=None):
-    """Full-frame megakernel sampler over (3, N) primary rays.
+    """Full-frame megakernel sampler over (3, N) primary rays, or over a
+    ``PaddedRays`` ``o`` with ``d`` None.
 
     ``scene`` is a SceneArrays or a MegaScene built from one. Returns
     ((3, N) mean radiance, segments) or, with ``want_depth``, also the
@@ -623,15 +662,7 @@ def render_sample_mean_mega(scene, settings: RenderSettings,
     pixel lies in [0, N), as a float64 0-dim tensor on the rays' device.
     """
     ms = scene if isinstance(scene, MegaScene) else MegaScene(scene)
-    o_p, d_p, seed, kw = mega_inputs(ms, settings, o, d, frame_key,
-                                     tile_offset, pixpack)
-    n = o.shape[1]
-    if o.device.type == "cpu":
-        out = mega_reference(ms.packed, ms.mat, o_p, d_p, seed, **kw)
-    elif o.device.type == "cuda":
-        out = _mega_cuda(ms.packed, ms.mat, o_p, d_p, seed, **kw)
-    else:
-        raise ValueError(f"no megakernel for device {o.device}")
+    out, n = mega_frame(ms, settings, o, d, frame_key, tile_offset, pixpack)
     mean = out[:3, :n]
     segs = out[3, :n].sum(dtype=torch.float64)
     if want_depth:

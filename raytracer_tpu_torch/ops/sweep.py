@@ -477,7 +477,7 @@ def nearest_hit(ps: PackedScene, o: torch.Tensor, d: torch.Tensor, *,
     lib = build.load()
     args = build.HitArgs(
         scene=build.scene_args(ps),
-        o=build.ptrs3(o), d=build.ptrs3(d),
+        o=build.row_ptrs(o), d=build.row_ptrs(d),
         out=(ctypes.c_void_p * 9)(*[x.data_ptr() for x in outs]), n=n,
         group=nearest_group(n, ps, _group))
     rc = lib.rt_nearest_hit(ctypes.byref(args),

@@ -11,14 +11,21 @@ quantized as JAX packs it into one int32 per pixel (``pack_history``):
 9-bit sqrt-encoded RGB over [0, HIST_MAX) and the capped frame weight in
 the low 5 bits.
 
-Two kernels, both in csrc/warp.cu, load at a clamped index:
+Three kernels, all in csrc/warp.cu, load at a clamped index:
 - ``warp_gather``: K7's contract ``where(valid, values[idx], 0)`` on int32;
 - ``gather_history``: the pack and the whole reprojection of
   ``_gather_history`` fused per pixel (project, floor, validity, the load
   of the old pixel, its pack and decode, the velocity-limited weight); the
-  pack runs only on the pixels read, so no packed plane is made.
+  pack runs only on the pixels read, so no packed plane is made;
+- ``temporal_frame``: the temporal frame's epilogue after the megakernel,
+  as JAX's temporal step fuses it (renderer.py:355-391): the per-pixel
+  weight blend and, on the first frame after a move, the history gather
+  before it, from rays made from the camera basis in the kernel. This is
+  what the temporal ``Renderer`` runs; the other two stay for callers
+  that want their outputs.
 CPU tensors take the plain versions (``warp_gather_reference``,
-``gather_history_reference``); CUDA tensors launch the kernel or raise.
+``gather_history_reference``, ``temporal_frame_reference``); CUDA tensors
+launch the kernel or raise.
 
 Only the scanline (identity) pixel order is served: current pixel i is
 screen pixel (i % width, i // width), and the packed plane is in pixel
@@ -30,9 +37,13 @@ only as ``hist * w`` with ``w = 0`` there, so the blend is the same.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
+
+from ..models.camera import CameraArrays, f3, primary_rays
+from . import film
 
 HIST_MAX = 8.0
 # 8 / 511^2: radiance per squared 9-bit code (renderer.py:117)
@@ -40,10 +51,11 @@ _SCALE = float(np.float32(HIST_MAX / (511.0 * 511.0)))
 _INT_MAX = 2147483647
 _INT_MIN = -2147483648
 
-# Launches of rt_warp_gather by ``warp_gather`` and of rt_gather_history
-# by ``gather_history``.
+# Launches of rt_warp_gather by ``warp_gather``, of rt_gather_history by
+# ``gather_history`` and of rt_temporal_frame by ``temporal_frame``.
 GATHER_LAUNCHES = 0
 HISTORY_LAUNCHES = 0
+FRAME_LAUNCHES = 0
 
 
 def pack_history(accum: torch.Tensor, wpix: torch.Tensor,
@@ -204,10 +216,6 @@ def _history_args(width, height, o, d, depth, accum, wpix, history, hist,
     from ``projection_basis``, as in the plain version."""
     from ..kernels import build
     nrm, focal, dudu, dvdv = projection_basis(pos, tl, du, dv)
-
-    def f3(v):
-        return (ctypes.c_float * 3)(*[float(c) for c in np.asarray(
-            v, np.float32)])
     return build.HistoryArgs(
         o=o.data_ptr(), d=d.data_ptr(), depth=depth.data_ptr(),
         accum=accum.data_ptr(), wpix=wpix.data_ptr(), hist=hist.data_ptr(),
@@ -264,3 +272,161 @@ def gather_history(width: int, height: int, o: torch.Tensor,
     global HISTORY_LAUNCHES
     HISTORY_LAUNCHES += 1
     return hist, w
+
+
+# -- the temporal frame's epilogue --------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HistorySource:
+    """What a camera move keeps for the next frame's warp (renderer.py:
+    430-449): the old view's accumulation (N, 3) and weights (N,), the
+    history cap, the old camera and its ``projection_basis`` scalars,
+    computed once on the host when the move is made."""
+
+    accum: torch.Tensor
+    wpix: torch.Tensor
+    history: float
+    cam: CameraArrays
+    nrm: np.ndarray
+    focal: float
+    dudu: float
+    dvdv: float
+
+
+def history_source(accum: torch.Tensor, wpix: torch.Tensor, history: float,
+                   cam: CameraArrays) -> HistorySource:
+    """The move's stash: the old view's accumulation and weights, the cap
+    and the old camera ``cam``, with its projection scalars."""
+    nrm, focal, dudu, dvdv = projection_basis(
+        cam.position, cam.tl_pixel, cam.delta_u, cam.delta_v)
+    return HistorySource(accum, wpix, float(history), cam, nrm.numpy(),
+                         float(focal), float(dudu), float(dvdv))
+
+
+def temporal_frame_reference(out, n, accum, wpix, src=None, cam=None,
+                             width=0, height=0):
+    """Plain version of ``rt_temporal_frame``: ``film.temporal_update``
+    over this view's accumulation (``src`` None), or, after a move, over
+    ``gather_history_reference``'s history of ``src`` gathered into the
+    scanline primary rays of ``cam``, in JAX's operation order
+    (renderer.py:365-367, :386-388); and the frame's segments,
+    ``out[3, :n].sum(dtype=float64)``."""
+    mean, depth = out[:3, :n], out[4, :n]
+    segs = out[3, :n].sum(dtype=torch.float64)
+    if src is None:
+        return (*film.temporal_update(accum, mean.T, wpix), segs)
+    o, d = primary_rays(cam, width, height, device=out.device)
+    old = src.cam
+    hist, w = gather_history_reference(
+        width, height, o, d, depth, src.accum, src.wpix, src.history,
+        old.position, old.tl_pixel, old.delta_u, old.delta_v)
+    return (*film.temporal_update(hist, mean.T, w), segs)
+
+
+# rt_temporal_frame's segment accumulators, one a (device, stream): two
+# int64 words that every launch leaves zero, so launches on one stream take
+# turns with them
+_SEG_ACC: dict = {}
+
+
+def _seg_acc(device: torch.device) -> torch.Tensor:
+    from ..kernels import build
+    key = (device.index, build.stream(device))
+    if key not in _SEG_ACC:
+        _SEG_ACC[key] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _SEG_ACC[key]
+
+
+def _frame_args(out, n, accum, wpix, accum_out, w_out, segs, src, cam,
+                width, height):
+    """rt_temporal_frame's arguments (the caller keeps the tensors alive
+    across the launch). The static arm (``src`` None) reads ``accum`` and
+    ``wpix`` and writes ``accum_out`` and ``w_out``; the warp arm reads
+    ``src``'s planes and basis and ``cam``'s. Both write the segments to
+    the float64 scalar ``segs``."""
+    from ..kernels import build
+    zero = np.zeros(3, np.float32)
+    cur = (zero,) * 4 if cam is None else (
+        cam.position, cam.tl_pixel, cam.delta_u, cam.delta_v)
+    if src is None:     # the static arm reads pixels [0, n) only
+        accum_in, wpix_in, width, height = accum, wpix, n, 1
+        old, (focal, dudu, dvdv, history) = (zero,) * 5, (0.0,) * 4
+    else:
+        c = src.cam
+        accum_in, wpix_in = src.accum, src.wpix
+        old = (c.position, c.tl_pixel, c.delta_u, c.delta_v, src.nrm)
+        focal, dudu, dvdv, history = (src.focal, src.dudu, src.dvdv,
+                                      src.history)
+    cpos, ctl, cdu, cdv = map(f3, cur)
+    pos, tl, du, dv, nrm = map(f3, old)
+    return build.TemporalArgs(
+        out=out.data_ptr(), accum=accum_in.data_ptr(),
+        wpix=wpix_in.data_ptr(), accum_out=accum_out.data_ptr(),
+        w_out=w_out.data_ptr(), seg_acc=_seg_acc(out.device).data_ptr(),
+        segs=segs.data_ptr(), cpos=cpos, ctl=ctl, cdu=cdu, cdv=cdv, pos=pos,
+        tl=tl, du=du, dv=dv, nrm=nrm, focal=focal, dudu=dudu, dvdv=dvdv,
+        history=history, scale=_SCALE, stride=out.shape[1], width=width,
+        height=height, warp=int(src is not None))
+
+
+def _check_frame(out, n, accum, wpix, src, cam, width, height) -> None:
+    planes = [("accum", accum, (n, 3)), ("wpix", wpix, (n,))]
+    if src is not None:
+        if cam is None or width * height != n:
+            raise ValueError(f"the warp arm needs the camera of a "
+                             f"{width}x{height} film of {n} pixels")
+        planes += [("src.accum", src.accum, (n, 3)),
+                   ("src.wpix", src.wpix, (n,))]
+    for name, x, shape in planes:
+        if (x.shape != shape or x.dtype != torch.float32
+                or not x.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous {shape} float32, "
+                             f"got {tuple(x.shape)} {x.dtype}")
+    if (out.dim() != 2 or out.shape[0] != 5 or out.shape[1] < n
+            or out.dtype != torch.float32 or not out.is_contiguous()):
+        raise ValueError(f"out must be the megakernel's contiguous (5, "
+                         f">= {n}) float32 output, got {tuple(out.shape)} "
+                         f"{out.dtype}")
+    if len({x.device for _, x, _ in planes} | {out.device}) != 1:
+        raise ValueError("out and the planes must share one device")
+
+
+def temporal_frame(out: torch.Tensor, n: int, accum: torch.Tensor,
+                   wpix: torch.Tensor, src: HistorySource = None,
+                   cam: CameraArrays = None, width: int = 0,
+                   height: int = 0):
+    """One temporal frame after the megakernel (renderer.py:355-391), over
+    its (5, n_pad) output ``out`` (``megakernel.mega_frame``) for N = ``n``
+    pixels: mean rows 0-2, the lanes' segment counts row 3, depth row 4.
+    With ``src`` None the per-pixel weight blend
+    ``(mean + accum * w) / (w + 1)`` and ``w + 1`` over ``accum`` (N, 3)
+    and ``wpix`` (N,), both updated in place on the card (``accum`` on the
+    CPU too). After a move, ``src`` (``history_source``) is gathered into
+    the scanline view of ``cam`` (a ``width`` x ``height`` film) as
+    ``gather_history`` gathers it, and blended; ``accum`` and ``wpix`` are
+    not read and new planes are returned. Returns (accumulation, weights,
+    the frame's segments as a float64 0-dim tensor, as
+    ``render_sample_mean_mega`` counts them). CPU tensors take
+    ``temporal_frame_reference``; CUDA tensors launch
+    ``rt_temporal_frame`` (or raise)."""
+    _check_frame(out, n, accum, wpix, src, cam, width, height)
+    if out.device.type == "cpu":
+        return temporal_frame_reference(out, n, accum, wpix, src, cam,
+                                        width, height)
+    if out.device.type != "cuda":
+        raise ValueError(f"no temporal frame for device {out.device}")
+    from ..kernels import build
+    if src is None:
+        accum_out, w_out = accum, wpix
+    else:
+        accum_out, w_out = torch.empty_like(accum), torch.empty_like(wpix)
+    segs = torch.empty((), dtype=torch.float64, device=out.device)
+    args = _frame_args(out, n, accum, wpix, accum_out, w_out, segs, src,
+                       cam, width, height)
+    lib = build.load()
+    rc = lib.rt_temporal_frame(ctypes.byref(args),
+                               ctypes.c_void_p(build.stream(out.device)))
+    build.check(lib, rc, "rt_temporal_frame")
+    global FRAME_LAUNCHES
+    FRAME_LAUNCHES += 1
+    return accum_out, w_out, segs

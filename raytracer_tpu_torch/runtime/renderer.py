@@ -8,8 +8,9 @@ or ``render_frames``). A renderer runs on the card
 (``device="cuda"``, the default) unless the caller asks for the CPU; on
 the card it runs the CUDA kernels (the megakernel; ``rt_wave_rays``,
 K5/K6 and ``rt_wave_bounce`` for the wavefront samplers, replayed as CUDA
-graphs that ``packed_scene`` caches; the history gather in temporal mode)
-and never moves to the CPU. The Renderer always takes the kernel route; the plain
+graphs that ``packed_scene`` caches; in temporal mode the camera rays,
+the megakernel and the temporal frame's epilogue) and never moves to the
+CPU. The Renderer always takes the kernel route; the plain
 versions and the oracles are reached only through
 ``ops.integrator.render_sample_mean(backend=...)`` and the ``*_reference``
 functions.
@@ -19,7 +20,12 @@ per-pixel accumulation weights instead of the frame counter, scanline
 pixel order, the megakernel whatever ``settings.sampler`` says (its
 primary-hit depth drives the reprojection), and ``move_camera`` warps the
 accumulated image into the new view instead of restarting it. The JAX
-package serves it only on a TPU; this port serves it on any device.
+package serves it only on a TPU; this port serves it on any device. As in
+JAX's temporal step, a frame is three launches on the card: the padded
+primary rays, built from the camera basis at the first frame of a camera
+(``camera_rays``; renderer.py:355-362), the megakernel, and the epilogue
+(``warp.temporal_frame``: the blend, and after a move the history gather
+before it, and the frame's segment count; :365-391).
 """
 
 from __future__ import annotations
@@ -34,11 +40,12 @@ import torch
 import torch.distributed as dist
 
 from ..config import CameraConfig, RenderSettings
-from ..models.camera import build_camera, morton_order, primary_rays
+from ..models.camera import (build_camera, camera_rays, morton_order,
+                             primary_rays)
 from ..ops import film, rng, warp
 from ..ops.integrator import render_frame, render_sample_mean
 from ..ops.intersect_cuda import WaveScene
-from ..ops.megakernel import MegaScene, render_sample_mean_mega
+from ..ops.megakernel import MegaScene, mega_frame
 from ..parallel.distributed import gather_image, local_device
 from ..utils.debug import check_finite
 from ..utils.device import resolve_device
@@ -116,6 +123,7 @@ class Renderer:
         self._depth = None
         self._warp_src = None
         self._rng_frame = 0
+        self._zeros = None  # the film shown between a move and its frame
 
     def _sharded_step(self, sharding, shard_mode: str, n: int):
         """(step, this rank's pixel rows, the film's placement) of a
@@ -142,13 +150,17 @@ class Renderer:
 
     def _set_rays(self, camera: CameraConfig) -> None:
         self.camera_cfg = camera
-        # the identity order is built on the device (a host copy of the
-        # order would cross the bus on every camera move); a pixel shard
-        # builds its own slice's rays
-        order = None if self._temporal else self._pixel_order[self._rows]
+        if self._temporal:
+            # the temporal step builds its padded rays from the basis at
+            # the camera's first frame (renderer.py:355-362), so moves
+            # between two frames build nothing
+            self._cam = build_camera(camera)
+            self._rays = None
+            return
+        # a pixel shard builds its own slice's rays
         self._o, self._d = primary_rays(
             build_camera(camera), camera.width, camera.height,
-            pixel_order=order, device=self.device)
+            pixel_order=self._pixel_order[self._rows], device=self.device)
 
     @property
     def packed_scene(self):
@@ -193,36 +205,42 @@ class Renderer:
             self.set_camera(camera)
             return
         if self._warp_src is None:
-            self._warp_src = (self.accum, self._wpix, float(history),
-                              build_camera(self.camera_cfg))
-            self._wpix = torch.zeros_like(self._wpix)
-            self.accum = film.new_accumulator(self.camera_cfg.num_pixels,
-                                              self.device)
+            self._warp_src = warp.history_source(self.accum, self._wpix,
+                                                 history, self._cam)
+            self.accum, self._wpix = self._zero_film()
         self._depth = None
         self._set_rays(camera)
         self.frame_num = 0
 
+    def _zero_film(self):
+        """The zero accumulation and weights shown between a move and the
+        next frame, made once: that frame writes new planes and never
+        these, so a move fills nothing."""
+        if self._zeros is None:
+            n = self.camera_cfg.num_pixels
+            self._zeros = (film.new_accumulator(n, self.device),
+                           torch.zeros(n, dtype=torch.float32,
+                                       device=self.device))
+        return self._zeros
+
     def _temporal_render(self) -> torch.Tensor:
-        """One temporal frame (renderer.py:344-408): render the megakernel
-        with depth; after a move, gather the stashed accumulation, packed
-        as JAX packs it, into this view; then the per-pixel-weight blend."""
+        """One temporal frame (renderer.py:344-408): the padded rays at a
+        camera's first frame, the megakernel with depth, then the epilogue:
+        the per-pixel-weight blend, after a move over the stashed
+        accumulation gathered into this view as JAX packs and gathers it."""
         fkey = rng.frame_key(self.base_key, self._rng_frame)
         self._rng_frame += 1
-        mean, segs, depth = render_sample_mean_mega(
-            self._mega, self.settings, self._o.T, self._d.T, fkey,
-            want_depth=True)
-        if self._warp_src is not None:
-            old_accum, old_wpix, cap, old = self._warp_src
-            self._warp_src = None
-            cam = self.camera_cfg
-            hist, w = warp.gather_history(
-                cam.width, cam.height, self._o, self._d, depth, old_accum,
-                old_wpix, cap, old.position, old.tl_pixel, old.delta_u,
-                old.delta_v)
-        else:
-            hist, w = self.accum, self._wpix
-        self.accum, self._wpix = film.temporal_update(hist, mean.T, w)
-        self._depth = depth
+        cam = self.camera_cfg
+        if self._rays is None:
+            self._rays = camera_rays(self._cam, cam.width, cam.height,
+                                     self.settings.pixpack, self.device)
+        out, n = mega_frame(self._mega, self.settings, self._rays, None,
+                            fkey)
+        self.accum, self._wpix, segs = warp.temporal_frame(
+            out, n, self.accum, self._wpix, self._warp_src, self._cam,
+            cam.width, cam.height)
+        self._warp_src = None
+        self._depth = out[4, :n]
         return segs
 
     def _step(self) -> torch.Tensor:
@@ -351,6 +369,8 @@ class Renderer:
             if accum.shape != want:
                 raise ValueError(f"checkpoint accumulator {accum.shape} != "
                                  f"{want}")
+            if self._zeros is not None and self.accum is self._zeros[0]:
+                self.accum = self.accum.clone()   # the zero film stays zero
             self.accum.copy_(torch.as_tensor(accum[self._rows],
                                              device=self.device))
             self.frame_num = int(data["frame_num"])

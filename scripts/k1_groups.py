@@ -4,7 +4,8 @@ CUDA card.
 
     python scripts/k1_groups.py sweep [--out FILE]
     python scripts/k1_groups.py paths [--tree DIR] [--label NAME]
-                                      [--set all|k1k2|wavefront] [--out FILE]
+                                      [--set all|k1k2|wavefront|temporal]
+                                      [--out FILE]
     python scripts/k1_groups.py pairs --parent DIR [--pairs 10]
                                       [--set wavefront] [--out FILE]
 
@@ -35,7 +36,10 @@ chip_smoke.py's phases 3, 6, 7, 13 and 14c time of K1 and K2 (k1k2):
 ``rt_nearest_hit`` on 1M rays over scene 4; the scene-4 and scene-2
 1000x800, 20 spp paths through ``Renderer`` (5 frames after a warm-up,
 and one kernel frame); one frame of each bench scene; the 4K fly-through
-(16 moves, each followed by a frame, one final sync); the coherent
+(16 moves, each followed by a frame, one final sync: fps; a static and a
+warp frame in CUDA events; the busy share of a static frame, a warp frame
+and the fly window under torch.profiler; ``--set temporal`` times only
+these); the coherent
 scene-4 and stress10k paths; and what phases 9, 10 and 12 time of K5 and
 K6 (wavefront): K5 on phase 9's 1M rays over scene 4, K6 and K5 on phase
 10's 1M stress100k field rays, the scene-4 (20 spp), stress100k (4 spp)
@@ -228,6 +232,9 @@ def paths(dev, label: str, which: str) -> None:
     def emit_path(phase, path, **rec):
         emit({"what": "k1_path", "tree": label, "phase": phase,
               "path": path, **rec, "card": card})
+    if which == "temporal":
+        paths_temporal(dev, emit_path)
+        return
     if which != "wavefront":
         paths_k1k2(dev, emit_path)
     if which != "k1k2":
@@ -350,20 +357,7 @@ def paths_k1k2(dev, emit_path) -> None:
         frame()
         emit_path("7", entry[0], ms=cs.cuda_ms(frame, 2))
 
-    scene, settings = cs.fly_settings()
-    r = rtt.Renderer(scene, cs.fly_camera(0, cs.FLY_W, cs.FLY_H), settings,
-                     seed=0, device=dev, temporal=True)
-    r.render_frame(block=True)
-    r.move_camera(cs.fly_camera(0, cs.FLY_W, cs.FLY_H))
-    r.render_frame(block=True)
-    t0 = time.perf_counter()
-    for i in range(cs.FLY_MOVES):
-        r.move_camera(cs.fly_camera(i, cs.FLY_W, cs.FLY_H))
-        r.render_frame(block=(i == cs.FLY_MOVES - 1))
-    dt = time.perf_counter() - t0
-    emit_path("13", "flythrough_4k", fps=cs.FLY_MOVES / dt,
-              frame_ms=dt / cs.FLY_MOVES * 1e3,
-              finite=bool(torch.isfinite(r.accum).all()))
+    paths_temporal(dev, emit_path)
 
     for name, (scene, sky), pos, frames in (
             ("scene4_mega_coherent", rtt.build_scene(4, seed=0),
@@ -382,6 +376,51 @@ def paths_k1k2(dev, emit_path) -> None:
                   finite=bool(torch.isfinite(r.accum).all()))
 
 
+def paths_temporal(dev, emit_path) -> None:
+    """Phase 13's fly-through: fps over FLY_MOVES moves each followed by a
+    frame (one final sync), a static and a warp frame in CUDA events
+    (three of each, alternating; their mean), and the fly window's busy
+    share, device ops a frame and device ms by kernel under
+    torch.profiler (``chip_smoke.fly_profile_leg``, its own Renderer)."""
+    import torch
+
+    import raytracer_tpu_torch as rtt
+    scene, settings = cs.fly_settings()
+    r = rtt.Renderer(scene, cs.fly_camera(0, cs.FLY_W, cs.FLY_H), settings,
+                     seed=0, device=dev, temporal=True)
+    r.render_frame(block=True)
+    r.move_camera(cs.fly_camera(0, cs.FLY_W, cs.FLY_H))
+    r.render_frame(block=True)
+    t0 = time.perf_counter()
+    for i in range(cs.FLY_MOVES):
+        r.move_camera(cs.fly_camera(i, cs.FLY_W, cs.FLY_H))
+        r.render_frame(block=(i == cs.FLY_MOVES - 1))
+    dt = time.perf_counter() - t0
+    emit_path("13", "flythrough_4k", fps=cs.FLY_MOVES / dt,
+              frame_ms=dt / cs.FLY_MOVES * 1e3,
+              finite=bool(torch.isfinite(r.accum).all()))
+    static, moving = [], []
+    for k in range(3):
+        static.append(cs.cuda_ms(lambda: r.render_frame()))
+        cam = cs.fly_camera(cs.FLY_MOVES + k, cs.FLY_W, cs.FLY_H)
+        moving.append(cs.cuda_ms(lambda: (r.move_camera(cam),
+                                          r.render_frame())))
+    emit_path("13", "flythrough_4k_static_frame", ms=float(np.mean(static)),
+              all_ms=static)
+    emit_path("13", "flythrough_4k_warp_frame", ms=float(np.mean(moving)),
+              all_ms=moving)
+    del r
+    prof = cs.fly_profile_leg()
+    for leg in ("static", "warp", "fly"):
+        p = prof[leg]
+        emit_path("13", f"flythrough_4k_{leg}_busy",
+                  busy_share=p["busy_share"], device_ms=p["device_ms"],
+                  window_ms=p["window_ms"], device_ops=p["device_ops"],
+                  host_kernel_launches=p["host_kernel_launches"],
+                  kernel_ms={k: p[k]["device_ms"] for k in cs.TEMPORAL_NAMES},
+                  device_kernels=p["device_kernels"])
+
+
 def pairs(parent: str, n: int, which: str) -> None:
     turns = cs.phase_parent_turns(parent, pairs=n, which=which)
     for path, row in turns.items():
@@ -396,8 +435,9 @@ def main() -> int:
                    help="checkout to import raytracer_tpu_torch from")
     p.add_argument("--label", default="change")
     p.add_argument("--set", dest="which", default="all",
-                   choices=("all", "k1k2", "wavefront"),
-                   help="which kernels' sweeps or paths")
+                   choices=("all", "k1k2", "wavefront", "temporal"),
+                   help="which kernels' sweeps or paths (temporal: the "
+                        "fly-through's paths only)")
     p.add_argument("--parent", help="pairs: the earlier tree (git archive)")
     p.add_argument("--pairs", type=int, default=10)
     p.add_argument("--out", type=pathlib.Path,
@@ -405,6 +445,8 @@ def main() -> int:
     a = p.parse_args()
     global OUT
     OUT = a.out
+    if a.mode == "sweep" and a.which == "temporal":
+        p.error("the temporal set has paths, no sweep")
     if a.mode == "pairs":
         if a.parent is None:
             p.error("pairs needs --parent")

@@ -567,43 +567,144 @@ def test_gather_history_kernel_matches_plain(dev):
 
 def test_temporal_renderer_matches_plain_steps(dev):
     """A 256x128 temporal Renderer frame, a move and a frame on the card
-    (the megakernel and rt_gather_history launched) against the same steps
-    composed from the plain versions on the same rays and keys."""
-    from raytracer_tpu_torch.ops import film, warp
+    (each frame rt_camera_rays, the megakernel and rt_temporal_frame; no
+    rt_gather_history) against the same steps composed from the plain
+    versions on the same keys, bitwise."""
+    from raytracer_tpu_torch.ops import warp
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
     s = rtt.RenderSettings(rays_per_pixel=1, reflect_limit=5).with_sky(sky)
     cam = rtt.CameraConfig(width=256, height=128, position=(0.0, 0.5, -6.0))
     moved = rtt.CameraConfig(width=256, height=128,
                              position=(0.0, 0.5, -5.75), y_rot=0.02)
     r = rtt.Renderer(scene, cam, s, device=dev, temporal=True)
-    before = (tmk.LAUNCHES, warp.HISTORY_LAUNCHES)
+    before = _temporal_launches()
     r.render_frame(block=True)
     r.move_camera(moved)
     r.render_frame(block=True)
-    assert (tmk.LAUNCHES, warp.HISTORY_LAUNCHES) == (before[0] + 2,
-                                                     before[1] + 1)
+    assert _launched_since(before) == {"rt_megakernel": 2,
+                                       "rt_camera_rays": 2,
+                                       "rt_temporal_frame": 2,
+                                       "rt_gather_history": 0}
 
     accum = torch.zeros((256 * 128, 3), device=dev)
     wpix = torch.zeros(256 * 128, device=dev)
+    src = None
     for k, c in enumerate((cam, moved)):
-        o, d = tcam.primary_rays(tcam.build_camera(c), 256, 128, device=dev)
+        cb = tcam.build_camera(c)
+        rays = tcam.camera_rays_reference(cb, 256, 128, r.settings.pixpack,
+                                          dev)
         o_p, d_p, seed, kw = tmk.mega_inputs(
-            r._mega, r.settings, o.T, d.T, trng.frame_key(r.base_key, k))
+            r._mega, r.settings, rays, None, trng.frame_key(r.base_key, k))
         out = tmk.mega_reference(r._mega.packed, r._mega.mat, o_p, d_p,
                                  seed, **kw)
-        mean, depth = out[:3, :256 * 128], out[4, :256 * 128]
-        if k == 1:
-            ob = tcam.build_camera(cam)
-            hist, w = warp.gather_history_reference(
-                256, 128, o, d, depth, accum, wpix, 8.0, ob.position,
-                ob.tl_pixel, ob.delta_u, ob.delta_v)
-        else:
-            hist, w = accum, wpix
-        accum, wpix = film.temporal_update(hist, mean.T, w)
-    err = (r.accum - accum).abs().amax(dim=1)
-    assert float((err <= PIXEL_ABS).float().mean()) >= PIXEL_SHARE_MIN
-    assert float((r._wpix == wpix).float().mean()) >= PIXEL_SHARE_MIN
+        accum, wpix, segs = warp.temporal_frame_reference(
+            out, 256 * 128, accum, wpix, src, cb, 256, 128)
+        src = warp.history_source(accum, wpix, 8.0, cb)
+    assert torch.equal(r.accum, accum) and torch.equal(r._wpix, wpix)
+    assert float(r._last_segs) == float(segs)
     assert float((r._wpix > 1).float().mean()) > 0.3
+    r.check_health()
+
+
+def _temporal_launches() -> dict:
+    from raytracer_tpu_torch.ops import warp
+    return {"rt_megakernel": tmk.LAUNCHES, "rt_camera_rays": tcam.LAUNCHES,
+            "rt_temporal_frame": warp.FRAME_LAUNCHES,
+            "rt_gather_history": warp.HISTORY_LAUNCHES}
+
+
+def _launched_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _temporal_launches().items()}
+
+
+@pytest.mark.parametrize("width,height,pixpack",
+                         [(3840, 2160, 8), (1000, 800, 1), (130, 70, 1),
+                          (130, 70, 8), (64, 48, 8)])
+def test_camera_rays_kernel_matches_plain(dev, width, height, pixpack):
+    """rt_camera_rays bitwise with camera_rays_reference (pad_rays over
+    primary_rays: torch's vector_norm and rsqrt on the card) on every
+    padded lane, pad lanes o = 0 and d = (1, 0, 0)."""
+    cam = tcam.build_camera(rtt.CameraConfig(
+        width=width, height=height, position=(0.0, 0.5, -5.5), y_rot=0.04,
+        x_rot=-0.02))
+    before = tcam.LAUNCHES
+    got = tcam.camera_rays(cam, width, height, pixpack, dev)
+    torch.cuda.synchronize()
+    assert tcam.LAUNCHES == before + 1
+    want = tcam.camera_rays_reference(cam, width, height, pixpack, dev)
+    assert torch.equal(got.o, want.o) and torch.equal(got.d, want.d)
+    n = width * height
+    assert (got.n, got.pixpack) == (n, pixpack)
+    assert not got.o[:, n:].any() and not got.d[1:, n:].any()
+    assert (got.d[0, n:] == 1).all()
+
+
+@pytest.mark.parametrize("arm", ["static", "warp"])
+def test_temporal_frame_kernel_matches_plain(dev, arm):
+    """rt_temporal_frame bitwise with temporal_frame_reference on a real
+    move (_history_inputs' depth and old view, 512x256) in a wider output
+    with a random mean and segment counts: the static arm's blend in
+    place, the warp arm's gather and blend into new planes, and the
+    segment count equal in both, launch after launch."""
+    from raytracer_tpu_torch.ops import warp
+    width, height = 512, 256
+    n = width * height
+    o, d, depth, accum, wpix, cap, *old = _history_inputs(dev, width,
+                                                          height)
+    g = np.random.default_rng(13)
+    out = torch.as_tensor(g.uniform(0, 2, (5, 32768 * 5)).astype(np.float32),
+                          device=dev)
+    out[3] = torch.as_tensor(g.integers(0, 300, out.shape[1]).astype(
+        np.float32), device=dev)
+    out[4, :n] = depth
+    old_cam = tcam.CameraArrays(*old)
+    new = tcam.build_camera(rtt.CameraConfig(
+        width=width, height=height, position=(0.0, 0.5, -5.75), y_rot=0.02))
+    extra = () if arm == "static" else (
+        warp.history_source(accum, wpix, cap, old_cam), new, width, height)
+    want = warp.temporal_frame_reference(out, n, accum.clone(),
+                                         wpix.clone(), *extra)
+    for _ in range(2):      # the segment accumulator is left zero
+        a, w = accum.clone(), wpix.clone()
+        before = warp.FRAME_LAUNCHES
+        got = warp.temporal_frame(out, n, a, w, *extra)
+        torch.cuda.synchronize()
+        assert warp.FRAME_LAUNCHES == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert float(got[2]) == float(want[2]) > 0
+    assert (got[0] is a) == (arm == "static")
+    if arm == "warp":
+        assert torch.equal(a, accum) and torch.equal(w, wpix)
+        assert 0.2 < float((got[1] > 1).float().mean()) < 1.0
+
+
+def test_warp_frame_launches_three_kernels(dev):
+    """A 4K temporal Renderer's warp frames: each move and frame is one
+    rt_camera_rays, one megakernel and one rt_temporal_frame launch, no
+    rt_gather_history or K7; static frames reuse the rays."""
+    scene, sky = rtt.build_scene(4, seed=0, device=dev)
+    s = rtt.RenderSettings(rays_per_pixel=1, reflect_limit=5,
+                           antialias=True).with_sky(sky)
+    cams = [rtt.CameraConfig(width=3840, height=2160,
+                             position=(0.0, 0.5, -6.0 + 0.25 * i),
+                             y_rot=0.02 * i) for i in range(4)]
+    r = rtt.Renderer(scene, cams[0], s, device=dev, temporal=True)
+    r.render_frame(block=True)
+    before = _temporal_launches()
+    for cam in cams[1:]:
+        r.move_camera(cam)
+        r.render_frame()
+    torch.cuda.synchronize()
+    assert _launched_since(before) == {
+        "rt_megakernel": 3, "rt_camera_rays": 3, "rt_temporal_frame": 3,
+        "rt_gather_history": 0}
+    before = _temporal_launches()
+    r.render_frame(block=True)
+    assert _launched_since(before) == {
+        "rt_megakernel": 1, "rt_camera_rays": 0, "rt_temporal_frame": 1,
+        "rt_gather_history": 0}
+    hits = r._depth < tmk.INF
+    assert float((r._wpix[hits] > 1).float().mean()) > 0.5
     r.check_health()
 
 

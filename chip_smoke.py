@@ -22,11 +22,13 @@ and lanesort bitwise equal to regen, ``rt_wave_bounce`` (the resolve and
 the bounce after the hit, fused) against its plain version on K5's and
 K6's raw outputs, bitwise, in both arms on 256x128 lanes of scenes 1-4,
 stress100k and earth2048 and timed on scene 4's 1000x800 regen lanes
-(phase 19), and three regen paths through ``Renderer`` at 1000x800, 5
-bounces: scene 4 at 20 spp (K5), stress100k at 4 spp (K6) and the
-1024x2048 earth at 20 spp (K5 + the atlas gather), each with its frame
-ms, the graph replays and kernel launches a frame (an iteration: the ray
-set-up, K5 or K6 and the bounce, no lane randoms), one frame under
+(phase 19), and four regen paths through ``Renderer`` at 1000x800, 5
+bounces: scene 4 at 20 spp (K5), per lane and with coherent sampling,
+stress100k at 4 spp (K6) and the 1024x2048 earth at 20 spp (K5 + the
+atlas gather), each with its frame ms, the graph replays and kernel
+launches a frame (an iteration: the ray set-up, K5 or K6 and the bounce,
+no lane randoms or tile draws: the coherent ray set-up draws each tile's
+bundle itself), one frame under
 torch.profiler (the device ms of K5 / K6, the ray set-up and
 ``rt_wave_bounce``, the busy share, the kernel and graph launches the
 host issued against the device ops that ran and their count an
@@ -59,14 +61,18 @@ rsqrt, norm, mul, add, div or fill) in the fly window.
 
 Then coherent sampling and K5's counters (phase 14): (a) the coherent arm
 of ``rt_megakernel`` against ``mega_reference``'s on scenes 4, 2 and 0 at
-256x128, pixpack 1 and 8; (b) ``rt_tile_randoms`` (the coherent regen
-draw) against its plain version on 800,000 lanes, and a coherent 256x128
-regen ``Renderer`` frame against the plain route; (c) coherent against
+256x128, pixpack 1 and 8; (b) ``rt_tile_randoms`` (the coherent tile
+draw, which no path launches since ``rt_wave_rays`` draws the bundles)
+against its plain version on 800,000 lanes and, in both of its arms, at
+every n % 4, timed beside its bound and ``torch.repeat_interleave``'s
+expansion of the drawn table, and a coherent 256x128 regen ``Renderer``
+frame (no tile draws) against the plain route; (c) coherent against
 per-lane sampling through ``Renderer`` at 1000x800, alternating, on the
 scene-4 and stress10k megakernel paths (20 spp, pixpack 8) and the
-stress100k regen path (4 spp, K6), each coherent first frame against the
-plain version (scene 4 whole, two stress10k tiles, a 16-row stress100k
-band); (d) the counting ``rt_hit_resolve`` against its plain version on
+scene-4 (20 spp, K5) and stress100k (4 spp, K6) regen paths, each
+coherent first frame against the plain version (scene 4 whole, two
+stress10k tiles, a 16-row band of each regen path); (d) the counting
+``rt_hit_resolve`` against its plain version on
 65,536 rays over scenes 4 and 2 at every G, and the mean primitive tests
 per ray that the bounds below use (K6's counted by a plain-torch walk over
 its blocked tables); (e) ``render_resilient`` over 3 frames with
@@ -188,6 +194,7 @@ OPS_FETCH = 20       # K4: clamps, the row and lane of one texel, decode
 OPS_LANE = 1500      # 18 threefry evaluations (~77 ops) + 3 erfinv
 OPS_RAYS = OPS_LANE + 30  # rt_wave_rays: the draw, jitter, 2 normalisations
 OPS_TILE_VALUE = 190  # one tile draw value: 2 threefry evaluations + erfinv
+OPS_COHERENT_LANE = 30  # rt_wave_rays' coherent arm a lane: jitter, 2 norms
 OPS_HISTORY = 80     # rt_gather_history: projection, floor, pack, weight
 OPS_CAMERA = 40      # rt_camera_rays: the screen point, two normalisations
 OPS_FRAME = 120      # rt_temporal_frame's warp arm: the ray, the gather, blend
@@ -229,6 +236,9 @@ def kernel_name(mangled: str) -> str:
     m = re.search(r"temporal_frame_kernelILb([01])E", mangled)
     if m:
         return f"temporal_frame_kernel<{('static', 'warp')[int(m.group(1))]}>"
+    m = re.search(r"wave_rays_kernelILb([01])E", mangled)
+    if m:
+        return f"wave_rays_kernel<{('lane', 'coherent')[int(m.group(1))]}>"
     return next((k for k in (
         "fetch_image_kernel", "lane_randoms_kernel", "tile_randoms_kernel",
         "gather_history_kernel", "warp_gather_kernel", "wave_rays_kernel",
@@ -903,19 +913,69 @@ def phase_lane_randoms(dev, n: int) -> dict:
     return rec
 
 
+def coherent_graph_replay(d, s, dev) -> dict:
+    """rt_wave_rays' coherent arm keyed by fold_in(key_dev, iter_dev[0])
+    in device memory, captured in a CUDA graph and replayed twice: each
+    replay against the plain version under the host's fold_in(key, it),
+    and the counter advanced by exactly one (the ticket left zero)."""
+    import torch
+
+    from raytracer_tpu_torch.ops import rays
+    from raytracer_tpu_torch.ops import rng
+    key_dev = torch.zeros(2, dtype=torch.int64, device=dev)
+    rng.set_key(key_dev, rng.key(0))
+    iter_dev = torch.tensor([3, 0], dtype=torch.int64, device=dev)
+    segs = [torch.zeros((), dtype=torch.int64, device=dev)
+            for _ in range(2)]
+    kw = dict(sample_i=s, spp=20, with_rr=True)
+    rays.wave_rays(d, key_dev=key_dev, iter_dev=iter_dev, segs=segs[0],
+                   **kw)  # warm-up: iteration 3
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = rays.wave_rays(d, key_dev=key_dev, iter_dev=iter_dev,
+                             segs=segs[0], **kw)
+    fields = ("dj", "unit", "inv_len", "gauss", "fresnel", "rr")
+    bitwise, counters, err = True, [], 0.0
+    for it in (4, 5):
+        for x in segs:
+            x.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        counters.append(iter_dev.tolist())
+        want = rays.wave_rays(d, tile_key=rng.fold_in(rng.key(0), it),
+                              segs=segs[1], plain=True, **kw)
+        bitwise = bitwise and all(bool(torch.equal(getattr(got, k),
+                                                   getattr(want, k)))
+                                  for k in fields)
+        err = max([err] + [float((getattr(got, k) - getattr(
+            want, k)).abs().max()) for k in fields])
+    del graph
+    return {"bitwise": bitwise and counters == [[5, 0], [6, 0]],
+            "counters": counters, "max_abs_err": err,
+            "segments": int(segs[0]),
+            "segments_equal": int(segs[0]) == int(segs[1])}
+
+
 def phase_wave_rays(dev, sizes=(1 << 20, 1000 * 800)) -> dict:
     """rt_wave_rays (the wavefront iteration's ray set-up) against its
     plain version on each size's lanes: the regen arm (per-pixel keys of
     a frame, random samples and bounces, the sample fold, the count of
     sample_i < spp), the scan arm (one bounce, the alive mask counted) and
-    the coherent arm (rt_tile_randoms' rows in), antialias and russian
-    roulette on; every output bitwise and the counts equal. The regen arm
+    the coherent arm (the 1024-lane tiles' bundles drawn in the kernel
+    under a host tile key, and under the key and iteration counter in
+    device memory, captured in a CUDA graph and replayed twice, each
+    replay against the host-keyed plain version and the counter advanced
+    by one), antialias and russian roulette on; every output bitwise and
+    the counts equal. The regen arm
     timed bare on prebuilt arguments (``ms``, ``profiled_ms``), through
     the wrapper (``wrapper_ms``) and the plain version (``plain_ms``),
     beside its bound: each lane reads its key (16 bytes), sample, bounce
     (8) and direction (12) once and writes its jittered and unit
-    direction, 1 / |d| and 5 draws (48); ~OPS_RAYS operations. Returns
-    the records by size."""
+    direction, 1 / |d| and 5 draws (48); ~OPS_RAYS operations. The
+    coherent arm (1024-lane tiles) timed the same way (``coherent``)
+    beside its bytes: a lane reads its sample and direction (16) and
+    writes the same 48; its draw is 3 threefry calls a value a block.
+    Returns the records by size."""
     import torch
 
     from raytracer_tpu_torch.ops import rays
@@ -930,12 +990,11 @@ def phase_wave_rays(dev, sizes=(1 << 20, 1000 * 800)) -> dict:
         b = torch.as_tensor(g.integers(0, 5, n).astype(np.int32), device=dev)
         d = torch.as_tensor(g.standard_normal((3, n)).astype(np.float32),
                             device=dev)
-        tiles = rng.tile_rows(rng.fold_in(rng.key(0), 3), n, with_rr=True,
-                              device=dev)
+        tile_key = rng.fold_in(rng.key(0), 3)
         arms = {"regen": dict(keys=keys, sample_i=s, bounce=b, spp=20),
                 "scan": dict(keys=keys, bounce=3, alive=s < 12),
-                "coherent": dict(drawn=tiles, sample_i=s, spp=20)}
-        checks, want_regen = {}, None
+                "coherent": dict(tile_key=tile_key, sample_i=s, spp=20)}
+        checks, wants = {}, {}
         for arm, kw in arms.items():
             segs = [torch.zeros((), dtype=torch.int64, device=dev)
                     for _ in range(2)]
@@ -953,38 +1012,52 @@ def phase_wave_rays(dev, sizes=(1 << 20, 1000 * 800)) -> dict:
                     want, k)).abs().max()) for k in fields),
                 "segments": int(segs[0]), "segments_equal":
                     int(segs[0]) == int(segs[1])}
-            if arm == "regen":
-                want_regen = want
+            wants[arm] = want
+        checks["coherent_graph"] = coherent_graph_replay(d, s, dev)
         rec = {"lanes": n, "checks": checks,
                "bitwise": all(c["bitwise"] and c["segments_equal"]
                               for c in checks.values()),
                "max_abs_err": max(c["max_abs_err"] for c in checks.values())}
-        seg = torch.zeros((), dtype=torch.int64, device=dev)
-        out = rays.WaveRays(torch.empty_like(d), torch.empty_like(d),
-                            torch.empty(n, device=dev), None, None)
-        draws = torch.empty((5, n), device=dev)
-        args = rays.rays_args(d, out, draws, keys=keys, sample_i=s, bounce=b,
-                              with_rr=True, segs=seg, spp=20)
-        rec.update(bare_times("rt_wave_rays", args, dev, "wave_rays_kernel"))
-        rec["bare_launch_bitwise"] = bool(
-            torch.equal(out.dj, want_regen.dj)
-            and torch.equal(out.unit, want_regen.unit)
-            and torch.equal(out.inv_len, want_regen.inv_len)
-            and torch.equal(draws[0:3], want_regen.gauss)
-            and torch.equal(draws[3], want_regen.fresnel)
-            and torch.equal(draws[4], want_regen.rr))
-        kw = dict(arms["regen"], with_rr=True)
-        rec.update(wrapper_ms=cuda_ms(lambda: rays.wave_rays(d, **kw), 20),
-                   plain_ms=cuda_ms(lambda: rays.wave_rays(d, plain=True,
-                                                           **kw), 3),
-                   library_ms=None)
+        def timed(arm):
+            """The arm bare (its last launch held against the plain
+            version), through its wrapper and its plain version."""
+            seg = torch.zeros((), dtype=torch.int64, device=dev)
+            out = rays.WaveRays(torch.empty_like(d), torch.empty_like(d),
+                                torch.empty(n, device=dev), None, None)
+            draws = torch.empty((5, n), device=dev)
+            args = rays.rays_args(d, out, draws, with_rr=True, segs=seg,
+                                  **arms[arm])
+            t = bare_times("rt_wave_rays", args, dev, "wave_rays_kernel")
+            want = wants[arm]
+            t["bare_launch_bitwise"] = bool(
+                torch.equal(out.dj, want.dj)
+                and torch.equal(out.unit, want.unit)
+                and torch.equal(out.inv_len, want.inv_len)
+                and torch.equal(draws[0:3], want.gauss)
+                and torch.equal(draws[3], want.fresnel)
+                and torch.equal(draws[4], want.rr))
+            kw = dict(arms[arm], with_rr=True)
+            t.update(wrapper_ms=cuda_ms(lambda: rays.wave_rays(d, **kw), 20),
+                     plain_ms=cuda_ms(lambda: rays.wave_rays(
+                         d, plain=True, **kw), 3), library_ms=None)
+            return t
+
+        rec.update(timed("regen"))
         rec.update(bound(n * (16 + 8 + 12 + 48), n * OPS_RAYS))
         rec["bound_ms_int32_rate"] = n * OPS_RAYS / (PEAK_OPS_PER_S / 2) * 1e3
+        nt = -(-n // 1024)
+        coh = timed("coherent")
+        coh.update(bound(n * (4 + 12 + 48),
+                         n * OPS_COHERENT_LANE + 8 * nt * OPS_TILE_VALUE))
+        coh["bound_share"] = coh["bound_ms"] / coh["ms"]
+        rec["coherent"] = coh
         print(f"phase 8 rt_wave_rays vs plain, {n} lanes (regen, scan and "
               "coherent arms):", json.dumps(rec), flush=True)
         check(rec["bitwise"], f"rt_wave_rays differs from its plain version "
               f"on {n} lanes: {json.dumps(checks)}")
-        check(rec["bare_launch_bitwise"], "rt_wave_rays' bare launch differs")
+        check(rec["bare_launch_bitwise"]
+              and coh["bare_launch_bitwise"],
+              "rt_wave_rays' bare launch differs")
         recs[n] = rec
     return recs
 
@@ -1260,12 +1333,15 @@ RESOLVE_OPS = ("CatArrayBatchedCopy", "rsqrt", "asin", "acos")
 
 
 def phase_wave_path(dev, name: str, scene, sky, spp: int, pos,
-                    width=1000, height=800, check_size=(256, 128)) -> dict:
-    """One regen path through Renderer: a warm-up frame (it captures the
-    graphs) and 5 frames, counts set to 0 just before and read just
-    after, with the graph replays the host issued: an iteration launches
-    rt_wave_rays, K5 / K6 and rt_wave_bounce once each and no lane
-    randoms. One more frame under torch.profiler: the device ms of K5 /
+                    width=1000, height=800, check_size=(256, 128),
+                    coherent: bool = False) -> dict:
+    """One regen path through Renderer (``coherent``: coherent sampling):
+    a warm-up frame (it captures the graphs) and 5 frames, counts set to 0
+    just before and read just after, with the graph replays the host
+    issued: an iteration launches rt_wave_rays, K5 / K6 and rt_wave_bounce
+    once each and no lane randoms or tile draws (the coherent ray set-up
+    draws the tile bundles itself). One more frame under torch.profiler:
+    the device ms of K5 /
     K6, the ray set-up and rt_wave_bounce and their shares, the device's
     busy share, the kernel and graph launches the host issued against the
     device ops that ran (and their count an iteration), the top kernels,
@@ -1278,8 +1354,8 @@ def phase_wave_path(dev, name: str, scene, sky, spp: int, pos,
     from raytracer_tpu_torch.ops import rng
     from raytracer_tpu_torch.ops import wave_graph
     settings = rtt.RenderSettings(rays_per_pixel=spp, reflect_limit=5,
-                                  antialias=True,
-                                  sampler="regen").with_sky(sky)
+                                  antialias=True, sampler="regen",
+                                  coherent=coherent).with_sky(sky)
     cam = rtt.CameraConfig(width=width, height=height, position=pos)
     r = rtt.Renderer(scene, cam, settings, seed=0, device=dev)
     _zero_counts()
@@ -1289,8 +1365,8 @@ def phase_wave_path(dev, name: str, scene, sky, spp: int, pos,
     launches = _wave_counts()
     replays = wave_graph.REPLAYS - replays
     r.check_health()
-    out = {"path": name, "spp": spp, "blocked": r.packed_scene.blocked,
-           "launches": launches,
+    out = {"path": name, "spp": spp, "coherent": coherent,
+           "blocked": r.packed_scene.blocked, "launches": launches,
            "graph_replays_per_frame": replays / (rec["frames"] + 1),
            "kernel_launches_per_frame": {
                k: v / (rec["frames"] + 1) for k, v in launches.items()},
@@ -1310,8 +1386,9 @@ def phase_wave_path(dev, name: str, scene, sky, spp: int, pos,
     prof = device_shares(
         lambda: r.render_frame(block=True),
         ("hit_resolve_blocked_kernel", "hit_resolve_kernel",
-         "wave_rays_kernel", "wave_bounce_kernel", "lane_randoms_kernel"),
-        absent=RESOLVE_OPS)
+         "wave_rays_kernel", "wave_bounce_kernel", "lane_randoms_kernel",
+         "tile_randoms_kernel"),
+        absent=RESOLVE_OPS, all_ops=coherent)
     prof.update(iterations=iterations,
                 device_ops_per_iteration=prof["device_ops"] / iterations)
     out["profiled_frame"] = prof
@@ -1360,6 +1437,8 @@ def phase_wave_paths(dev) -> list:
     scene, sky = rtt.build_scene(4, seed=0)
     paths.append(phase_wave_path(dev, "scene4_regen", scene, sky, 20,
                                  (0.0, 0.0, 0.0)))
+    paths.append(phase_wave_path(dev, "scene4_coherent_regen", scene, sky,
+                                 20, (0.0, 0.0, 0.0), coherent=True))
     scene, sky = stress_scene(100000)
     paths.append(phase_wave_path(dev, "stress100k_regen", scene, sky, 4,
                                  (0.0, 1.0, -4.0)))
@@ -2119,13 +2198,18 @@ def phase_flythrough(dev) -> dict:
 # -- phase 14: coherent sampling, K5's counters, elastic recovery ------------
 
 def phase_tile_randoms(dev, n: int) -> dict:
-    """(b) rt_tile_randoms against its plain version on the card on n
-    lanes (the coherent regen paths' frame), every row bitwise, with and
-    without the russian-roulette row; timed bare (``ms``, ``profiled_ms``),
-    through the wrapper (``wrapper_ms``), beside the plain version and
-    beside a draw on the host: each tile's values drawn there (the plain
-    version on the CPU), copied to the card and repeated over the tile's
-    lanes on it."""
+    """(b) rt_tile_randoms against its plain version on the card, every
+    row bitwise, with and without the russian-roulette row: on n lanes
+    (the coherent regen paths' frame) and, for both arms of the kernel
+    and every n % 4, on 200,000, 4101 and 8195 lanes at tiles of 1024 (a
+    block draws its tile's bundle once), 300 and 1 (each lane draws its
+    own). Timed on n lanes with the russian-roulette row: bare (``ms``,
+    ``profiled_ms``), through the wrapper (``wrapper_ms``), beside the
+    plain version, a draw on the host (each tile's values drawn there by
+    the plain version, copied to the card and repeated over the tile's
+    lanes on it) and ``library_ms``: torch.repeat_interleave of the drawn
+    (8, nt) table over 1024 lanes into a contiguous (8, nt * 1024)
+    tensor, the expansion half of the kernel's work."""
     import torch
 
     from raytracer_tpu_torch.kernels import build
@@ -2146,15 +2230,26 @@ def phase_tile_randoms(dev, n: int) -> dict:
         want = rng.tile_randoms_reference(key, n, with_rr=rr, device=dev)
         rec[f"bitwise_rr{int(rr)}"] = bool(torch.equal(got, want))
         rec[f"max_abs_err_rr{int(rr)}"] = float((got - want).abs().max())
-    rec["max_abs_err"] = max(rec["max_abs_err_rr0"], rec["max_abs_err_rr1"])
+    arms = {}
+    for lanes in (200_000, 4101, 8195):
+        for tile in (1024, 300, 1):
+            got = rng.tile_rows(key, lanes, tile, with_rr=True, device=dev)
+            want = rng.tile_randoms_reference(key, lanes, tile,
+                                              with_rr=True, device=dev)
+            arms[f"n{lanes}_mod4_{lanes % 4}_tile{tile}"] = {
+                "bitwise": bool(torch.equal(got, want)),
+                "max_abs_err": float((got - want).abs().max())}
+    rec["arms"] = arms
+    rec["max_abs_err"] = max([rec["max_abs_err_rr0"], rec["max_abs_err_rr1"]]
+                             + [a["max_abs_err"] for a in arms.values()])
     out = torch.empty((8, n), dtype=torch.float32, device=dev)
     kd = rng.key_data(key)
     args = build.TileArgs(key0=int(kd[0]), key1=int(kd[1]),
                           out=out.data_ptr(), n=n, rows=8, tile=1024)
     rec.update(bare_times("rt_tile_randoms", args, dev,
                           "tile_randoms_kernel"))
-    rec["bare_launch_bitwise"] = bool(torch.equal(
-        out, rng.tile_randoms_reference(key, n, with_rr=True, device=dev)))
+    want = rng.tile_randoms_reference(key, n, with_rr=True, device=dev)
+    rec["bare_launch_bitwise"] = bool(torch.equal(out, want))
     rec["wrapper_ms"] = cuda_ms(lambda: rng.tile_randoms(
         key, n, with_rr=True, device=dev), 20)
     rec["plain_ms"] = cuda_ms(lambda: rng.tile_randoms_reference(
@@ -2162,19 +2257,36 @@ def phase_tile_randoms(dev, n: int) -> dict:
     rec["host_draw_ms"] = cuda_ms(host_draw, 5)
     # CPU and card conversions of the same bits may differ by an ulp
     rec["host_draw_max_abs_err"] = float((host_draw() - want).abs().max())
-    rec["library_ms"] = None
-    rec.update(bound(8 * n * 4, 8 * -(-n // 1024) * OPS_TILE_VALUE))
+    table = rng.tile_randoms_reference(key, nt, tile=1, with_rr=True,
+                                       device=dev)
+    expanded = torch.repeat_interleave(table, 1024, dim=1)
+    rec["library_expansion_bitwise"] = bool(torch.equal(expanded[:, :n],
+                                                        want))
+    rec["library_ms"] = cuda_ms(
+        lambda: torch.repeat_interleave(table, 1024, dim=1), 20)
+    rec["library_call"] = ("torch.repeat_interleave(table, 1024, dim=1) of "
+                           f"the drawn (8, {nt}) table")
+    rec.update(bound(8 * n * 4, 8 * nt * OPS_TILE_VALUE))
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    rec["half_bound_met"] = rec["ms"] <= 2 * rec["bound_ms"]
+    rec["no_slower_than_library"] = rec["ms"] <= rec["library_ms"]
     print("phase 14b rt_tile_randoms vs plain:", json.dumps(rec), flush=True)
-    check(rec["bitwise_rr0"] and rec["bitwise_rr1"],
+    check(rec["bitwise_rr0"] and rec["bitwise_rr1"]
+          and all(a["bitwise"] for a in arms.values()),
           f"rt_tile_randoms differs from its plain version: {rec}")
     check(rec["bare_launch_bitwise"], "rt_tile_randoms' bare launch differs")
+    # library_ms times the same rows only if the yardstick computes them;
+    # half_bound_met and no_slower_than_library are reported, not checked
+    check(rec["library_expansion_bitwise"],
+          "repeat_interleave of the drawn table differs from the rows")
     return rec
 
 
 def phase_coherent_regen(dev, width: int, height: int) -> dict:
     """(b) One coherent regen frame through Renderer on the card (scene 4,
-    4 spp): K5, rt_tile_randoms and rt_wave_rays on its rows, no lane
-    randoms; against the plain route on the same rays and key."""
+    4 spp): K5 and rt_wave_rays once an iteration, the ray set-up drawing
+    the tile bundles itself (no tile draws, no lane randoms); against the
+    plain route on the same rays and key."""
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.ops import integrator as integ
     from raytracer_tpu_torch.ops import rng
@@ -2200,8 +2312,9 @@ def phase_coherent_regen(dev, width: int, height: int) -> dict:
     print(f"phase 14b coherent regen Renderer frame, scene 4 {width}x"
           f"{height} spp 4, vs the plain route:", json.dumps(rec), flush=True)
     check(launches["rt_hit_resolve"] > 0
-          and launches["rt_tile_randoms"] == launches["rt_hit_resolve"]
+          and launches["rt_tile_randoms"] == 0
           and launches["rt_wave_rays"] == launches["rt_hit_resolve"]
+          and launches["rt_wave_bounce"] == launches["rt_hit_resolve"]
           and launches["rt_lane_randoms"] == 0,
           f"coherent regen frame launched {launches}")
     check_pixels(stats, "coherent regen frame vs the plain route")
@@ -2260,9 +2373,12 @@ def phase_coherent_paths(dev, width: int = 1000, height: int = 800) -> list:
     coherent Renderer's warm-up frame against the plain version: scene 4's
     whole frame against mega_reference; two megakernel tiles from the
     middle of stress10k's frame (at the path's pixpack, with their tile
-    offset); and, for the stress100k regen path, a band of 16 rows as a
-    frame of its own, kernel route against plain route (the plain K6 is
-    too slow for the whole frame)."""
+    offset); and, for the scene-4 (20 spp, K5) and stress100k (4 spp, K6)
+    regen paths, a band of 16 rows as a frame of its own, kernel route
+    against plain route (the plain versions are too slow for the whole
+    frame). A coherent regen iteration is three kernels, as a per-lane one
+    is: rt_wave_rays (drawing the tile bundles), K5 / K6, rt_wave_bounce;
+    no tile draws."""
     import torch
 
     import raytracer_tpu_torch as rtt
@@ -2271,6 +2387,8 @@ def phase_coherent_paths(dev, width: int = 1000, height: int = 800) -> list:
               (0.0, 0.0, 0.0), 5),
              ("stress10k_mega", stress_scene(10000), "auto", 20,
               (0.0, 1.0, -4.0), 2),
+             ("scene4_regen", rtt.build_scene(4, seed=0), "regen", 20,
+              (0.0, 0.0, 0.0), 5),
              ("stress100k_regen", stress_scene(100000), "regen", 4,
               (0.0, 1.0, -4.0), 2))
     recs = []
@@ -2327,9 +2445,10 @@ def phase_coherent_paths(dev, width: int = 1000, height: int = 800) -> list:
                   f"{name}: segments differ by {vs['segs_rel']:.3g}")
         coh = rec["coherent"]["launches"]
         if sampler == "regen":
-            check(coh["rt_hit_resolve_blocked"] > 0
-                  and coh["rt_tile_randoms"] > 0
-                  and coh["rt_wave_rays"] == coh["rt_hit_resolve_blocked"]
+            hit = coh["rt_hit_resolve_blocked"] + coh["rt_hit_resolve"]
+            check(hit > 0 and coh["rt_tile_randoms"] == 0
+                  and coh["rt_wave_rays"] == hit
+                  and coh["rt_wave_bounce"] == hit
                   and coh["rt_lane_randoms"] == 0,
                   f"{name}: the coherent runs launched {coh}")
         else:
@@ -3142,8 +3261,8 @@ def main() -> int:
                for s, r in samplers.items()}
     by_path.update({p["path"]: p["launches"] for p in paths})
     by_path["scene4_256x128_regen_coherent"] = coh_regen["launches"]
-    by_path["stress100k_regen_coherent"] = \
-        coh_paths["stress100k_regen"]["coherent"]["launches"]
+    for p in ("scene4_regen", "stress100k_regen"):
+        by_path[f"{p}_coherent_14c"] = coh_paths[p]["coherent"]["launches"]
     shard_launches = shard_legs[-1]
     by_path["sharded_virtual_ranks"] = {k: shard_launches[k]
                                         for k in _wave_counts()}
@@ -3280,6 +3399,8 @@ def main() -> int:
              "timed": "1M field rays over stress100k's resident pools"},
          "device_share_scene4_regen": device_share(
              "scene4_regen", "hit_resolve_kernel"),
+         "coherent_vs_per_lane_scene4_regen": coherent_summary(
+             "scene4_regen"),
          "with_stats": {"ms": counts[4]["ms"], "k5_ms": counts[4]["k5_ms"],
                         "plain_ms": counts[4]["plain_ms"],
                         "counts_equal": counts[4]["counts_equal"]
@@ -3332,18 +3453,32 @@ def main() -> int:
          "bound_ms_1m": rays_recs[1 << 20]["bound_ms"],
          "device_share_scene4_regen": device_share(
              "scene4_regen", "wave_rays_kernel"),
+         "device_share_scene4_coherent_regen": device_share(
+             "scene4_coherent_regen", "wave_rays_kernel"),
+         "coherent_arm": {
+             **timing(rays_recs[1000 * 800]["coherent"]),
+             "bound_share": rays_recs[1000 * 800]["coherent"]["bound_share"],
+             "timed": "800,000 lanes, 1024-lane tiles, antialias and "
+                      "russian roulette, the tile bundles drawn in the "
+                      "kernel"},
          "timed": "800,000 lanes (the 1000x800 regen frames), regen arm "
                   "with antialias and russian roulette"},
         {"name": "rt_tile_randoms", "route": "cuda",
-         "source": WAVEFRONT_SOURCE,
+         "source": RAYS_SOURCE,
          "replaces": "raytracer_tpu/ops/rng.py:104 (XLA, not a TPU kernel)",
          "launches": total("rt_tile_randoms"),
          "launches_by_path": {k: v["rt_tile_randoms"]
                               for k, v in by_path.items()},
-         "max_abs_err": tile_rec["max_abs_err"], **timing(tile_rec),
+         "on_paths": "none: rt_wave_rays draws the tile bundles itself; "
+                     "rng.tile_rows launches it for callers that want the "
+                     "rows (phase 14b)",
+         "max_abs_err": tile_rec["max_abs_err"],
+         **timing(tile_rec, tile_rec["library_ms"]),
+         "library_call": tile_rec["library_call"],
+         "bound_share": tile_rec["bound_share"],
          "host_draw_ms": tile_rec["host_draw_ms"],
-         "timed": f"{tile_rec['lanes']} lanes, with the russian-roulette "
-                  "row"},
+         "timed": f"{tile_rec['lanes']} lanes, 1024-lane tiles, with the "
+                  "russian-roulette row"},
         {"name": "rt_wave_bounce", "route": "cuda", "source": BOUNCE_SOURCE,
          "replaces": "raytracer_tpu/ops/integrator.py:59 (XLA's fusion of "
                      ":59-126 and :251-355, not a TPU kernel)",

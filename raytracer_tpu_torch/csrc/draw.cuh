@@ -1,6 +1,7 @@
 // The wavefront samplers' random draws as device functions: threefry2x32
 // as jax.random uses it, its uniforms and normals (XLA's float32 erfinv,
-// op for op), and one lane's key and draw (raytracer_tpu/ops/rng.py:42-101).
+// op for op), one lane's key and draw (raytracer_tpu/ops/rng.py:42-101)
+// and coherent sampling's tile key and tile value (rng.py:104-127).
 // rt_lane_randoms and rt_tile_randoms (wavefront.cu) and rt_wave_rays
 // (rays.cu) draw with them. Plain versions: ops/rng.py.
 
@@ -84,6 +85,41 @@ __device__ __forceinline__ float lane_draw(uint32_t k0, uint32_t k1,
   threefry(s0, s1, 0u, 0u, b0, b1);                          // bits
   const uint32_t bits = b0 ^ b1;
   return (row >= 3 && row < 6) ? normal01(bits) : uniform01(bits);
+}
+
+// Coherent sampling's key for one iteration: the host's words (key0,
+// key1), or, under a replayed CUDA graph (key_dev set),
+// fold_in((key_dev[0], key_dev[1]), iter_dev[0]), read when the kernel
+// runs (uint32 values held in int64). Plain version: ops/rng.py's
+// fold_in_tensor.
+__device__ __forceinline__ void tile_key(const long long* key_dev,
+                                         const long long* iter_dev,
+                                         uint32_t key0, uint32_t key1,
+                                         uint32_t& k0, uint32_t& k1) {
+  k0 = key0;
+  k1 = key1;
+  if (key_dev != nullptr)
+    threefry(static_cast<uint32_t>(key_dev[0]),
+             static_cast<uint32_t>(key_dev[1]), 0u,
+             static_cast<uint32_t>(iter_dev[0]), k0, k1);
+}
+
+// Row `row` of tile t (of nt) under the tile key. Subkey s = split(key)[s]
+// draws a block of bits whose element j is x0 ^ x1 of
+// threefry(subkey, (0, j)): block 0 the (3, nt) jitter uniforms, block 1
+// the (3, nt) normals, blocks 2 and 3 the (nt,) Fresnel and
+// russian-roulette uniforms. The row reads element (row % 3) * nt + t of
+// its block (t of blocks 2 and 3).
+__device__ __forceinline__ float tile_value(uint32_t k0, uint32_t k1,
+                                            int row, uint32_t nt,
+                                            uint32_t t) {
+  const int block = row < 3 ? 0 : row < 6 ? 1 : row - 4;
+  const uint32_t j = (row < 6 ? static_cast<uint32_t>(row % 3) * nt : 0u) + t;
+  uint32_t s0, s1, b0, b1;
+  threefry(k0, k1, 0u, static_cast<uint32_t>(block), s0, s1);  // split
+  threefry(s0, s1, 0u, j, b0, b1);                             // bits
+  const uint32_t bits = b0 ^ b1;
+  return block == 1 ? normal01(bits) : uniform01(bits);
 }
 
 }  // namespace

@@ -48,17 +48,6 @@
 // passes of ~200 elementwise ops each would dominate a bounce. It writes
 // the (7|8, n) rows for callers that want them. Plain version:
 // ops/rng.py::lane_randoms_reference.
-//
-// rt_tile_randoms is not a TPU kernel either: coherent sampling's draw
-// (raytracer_tpu/ops/rng.py:104-127), one bundle per 1024 consecutive
-// lanes, which JAX draws in XLA. Each thread splits the iteration's key
-// into its 3 or 4 subkeys and draws its tile's element of each block, so
-// the rows come out already repeated over the tile's lanes, in one launch
-// and without a trip through the host. Plain version:
-// ops/rng.py::tile_randoms_reference. Under a replayed CUDA graph the
-// iteration's key cannot come from the host: each thread then folds the
-// tile key with the iteration counter, both read from device memory
-// (plain version of that fold: ops/rng.py::fold_in_tensor).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,17 +83,6 @@ struct RtLaneArgs {
   const int* bounce;      // (n,)
   float* out;             // (rows, n)
   int n, rows;            // rows 7, or 8 with the russian-roulette draw
-};
-
-struct RtTileArgs {
-  unsigned int key0, key1;  // the iteration's key, unless key_dev is set
-  float* out;               // (rows, n)
-  int n, rows, tile;        // rows 7, or 8 with the russian-roulette draw
-  // Set under CUDA-graph replay: the iteration's key is
-  // fold_in((key_dev[0], key_dev[1]), iter_dev[0]), read when the kernel
-  // runs (uint32 values held in int64), not when it was captured.
-  const long long* key_dev;
-  const long long* iter_dev;
 };
 
 }  // extern "C"
@@ -205,35 +183,6 @@ __global__ void __launch_bounds__(256)
     a.out[static_cast<size_t>(row) * a.n + i] = lane_draw(k0, k1, row);
 }
 
-// Subkey s = split(key)[s] draws a block of bits whose element j is
-// x0 ^ x1 of threefry(subkey, (0, j)): block 0 the (3, nt) jitter
-// uniforms, block 1 the (3, nt) normals, blocks 2 and 3 the (nt,) Fresnel
-// and russian-roulette uniforms. Lane i reads element (row % 3) * nt + t
-// of its row's block, t = i / tile.
-__global__ void __launch_bounds__(256)
-    tile_randoms_kernel(const RtTileArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  const uint32_t nt = static_cast<uint32_t>((a.n + a.tile - 1) / a.tile);
-  const uint32_t t = static_cast<uint32_t>(i / a.tile);
-  uint32_t k0 = a.key0, k1 = a.key1;
-  if (a.key_dev != nullptr)
-    threefry(static_cast<uint32_t>(a.key_dev[0]),
-             static_cast<uint32_t>(a.key_dev[1]), 0u,
-             static_cast<uint32_t>(a.iter_dev[0]), k0, k1);
-  for (int row = 0; row < a.rows; ++row) {
-    const int block = row < 3 ? 0 : row < 6 ? 1 : row - 4;
-    const uint32_t j =
-        (row < 6 ? static_cast<uint32_t>(row % 3) * nt : 0u) + t;
-    uint32_t s0, s1, b0, b1;
-    threefry(k0, k1, 0u, static_cast<uint32_t>(block), s0, s1);
-    threefry(s0, s1, 0u, j, b0, b1);
-    const uint32_t bits = b0 ^ b1;
-    a.out[static_cast<size_t>(row) * a.n + i] =
-        block == 1 ? normal01(bits) : uniform01(bits);
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -266,14 +215,6 @@ int rt_lane_randoms(const RtLaneArgs* args, void* stream) {
   if (args->n <= 0) return 0;
   const int blocks = (args->n + 255) / 256;
   lane_randoms_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      *args);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int rt_tile_randoms(const RtTileArgs* args, void* stream) {
-  if (args->n <= 0) return 0;
-  const int blocks = (args->n + 255) / 256;
-  tile_randoms_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       *args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -146,14 +146,15 @@ _P3 = ctypes.c_void_p * 3
 
 
 class RaysArgs(ctypes.Structure):
-    _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "keys", "sample", "bounce", "drawn")]
-        + [(n, _P3) for n in ("d", "dj", "unit")]
-        + [(n, ctypes.c_void_p) for n in (
-            "inv_len", "draws", "alive", "segs")]
-        + [(n, ctypes.c_int) for n in (
-            "n", "rows", "bounce_const", "spp", "antialias")]
-        + [("jitter_scale", ctypes.c_float)])
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("keys", "sample", "bounce")]
+                + [(n, _P3) for n in ("d", "dj", "unit")]
+                + [(n, ctypes.c_void_p) for n in (
+                    "inv_len", "draws", "alive", "segs", "key_dev",
+                    "iter_dev")]
+                + [("key0", ctypes.c_uint), ("key1", ctypes.c_uint)]
+                + [(n, ctypes.c_int) for n in (
+                    "n", "rows", "bounce_const", "spp", "antialias")]
+                + [("jitter_scale", ctypes.c_float)])
 
 
 class TileArgs(ctypes.Structure):

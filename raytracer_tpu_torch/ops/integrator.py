@@ -21,9 +21,9 @@ Randomness is keyed by the global pixel index ``ray_idx`` (the Renderer
 passes its Morton order), sample and bounce (ops/rng.py). ``backend``
 takes the JAX names: ``"pallas"`` (default) is the kernel route, on a
 CUDA tensor three kernels an iteration: the ray set-up ``rt_wave_rays``
-(ops/rays.py: the draw, the antialias jitter, the unit directions, the
-segment count; coherent sampling draws with ``rt_tile_randoms`` before
-it), K5 or K6 (ops/intersect_cuda.py) and ``rt_wave_bounce``
+(ops/rays.py: the draw, per lane or coherent sampling's per tile, the
+antialias jitter, the unit directions, the segment count), K5 or K6
+(ops/intersect_cuda.py) and ``rt_wave_bounce``
 (ops/bounce.py: the resolve and the bounce), their plain versions on a
 CPU tensor; ``"xla"`` and ``"woop"`` are the JAX package's CPU oracles
 (ops/intersect.py). ``"plain"`` is the kernel route with every kernel
@@ -272,20 +272,16 @@ def _regen_iteration(route: _Route, st: dict, it: int, rebin: bool,
     restarts on its pixel's next sample (``rt_wave_bounce``'s regen arm),
     then rebin / lanesort regroup the lanes. ``it`` counts iterations from
     0 and keys the eager coherent draw; a captured iteration reads it from
-    ``st["it"]`` and counts it there."""
+    ``st["it"]`` and the ray set-up counts it there."""
     settings = route.settings
     spp = settings.rays_per_pixel
-    n = st["o"].shape[1]
     if settings.coherent and route.graph:
-        drawn = rng.tile_rows_at(st["key"], st["it"], n,
-                                 with_rr=route.use_rr)
-        st["it"].add_(1)
-        rays = _rays(route, st, drawn=drawn, sample_i=st["sample_i"])
+        # the kernel reads the key and counter and advances the counter
+        rays = _rays(route, st, key_dev=st["key"], iter_dev=st["it"],
+                     sample_i=st["sample_i"])
     elif settings.coherent:
-        drawn = rng.tile_rows(rng.fold_in(route.tile_key, it), n,
-                              with_rr=route.use_rr, device=st["o"].device,
-                              plain=route.plain)
-        rays = _rays(route, st, drawn=drawn, sample_i=st["sample_i"])
+        rays = _rays(route, st, tile_key=rng.fold_in(route.tile_key, it),
+                     sample_i=st["sample_i"])
     else:
         rays = _rays(route, st, keys=st["kd"], sample_i=st["sample_i"],
                      bounce=st["bounce_i"])
@@ -329,7 +325,8 @@ class _RegenGraphs:
             torch.zeros((2, n), dtype=torch.int64, device=dev), home)
         self.st.update(o0p=rows(), d0p=rows(),
                        key=torch.zeros(2, dtype=torch.int64, device=dev),
-                       it=torch.zeros(1, dtype=torch.int64, device=dev))
+                       # the coherent iteration and its ray set-up's ticket
+                       it=torch.zeros(2, dtype=torch.int64, device=dev))
         self.graphs: dict = {}
 
     def reset(self, o0, d0, kd, tile_key) -> None:
@@ -367,8 +364,9 @@ def _render_regen_soa(ws: WaveScene, settings: RenderSettings, ray_idx,
     one pixel and restarts on the pixel's next sample when its path ends.
     Returns ((3, N) mean, int64 segments).
 
-    With ``settings.coherent`` every iteration draws ``rng.tile_randoms``
-    under ``fold_in(fold_in(frame_key, tile_offset), it)``, ``it`` counting
+    With ``settings.coherent`` every iteration draws the tile bundles of
+    ``rng.tile_randoms`` (inside ``rt_wave_rays`` on the card) under
+    ``fold_in(fold_in(frame_key, tile_offset), it)``, ``it`` counting
     iterations from 0 (integrator.py:257-269). Those draws belong to the
     lane position, not to the lane's pixel: they do not ride the rebin /
     lanesort permutation (only the per-pixel keys do, :271-274), so

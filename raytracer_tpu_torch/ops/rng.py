@@ -20,16 +20,18 @@ normals go through XLA's float32 erfinv polynomial (hazard H8: not
 ``torch.erfinv``). ``lane_randoms`` launches the fused CUDA kernel
 ``rt_lane_randoms`` (csrc/wavefront.cu) on a CUDA tensor and returns the
 rows; its plain version is ``lane_randoms_reference``, int64 torch
-arithmetic. The wavefront iteration itself draws inside its ray set-up,
-``rt_wave_rays`` (ops/rays.py), with the same device functions
-(csrc/draw.cuh), so its rows never pass through device memory. Coherent
-sampling's per-tile draw ``tile_randoms`` (``tile_rows``: the rows as one
-tensor) launches ``rt_tile_randoms`` (csrc/wavefront.cu) on the card; its
-plain version is ``tile_randoms_reference``.
+arithmetic. Coherent sampling's per-tile draw ``tile_randoms``
+(``tile_rows``: the rows as one tensor) launches ``rt_tile_randoms``
+(csrc/rays.cu) on the card; its plain version is
+``tile_randoms_reference``. The wavefront iteration itself draws inside
+its ray set-up, ``rt_wave_rays`` (ops/rays.py), with the same device
+functions (csrc/draw.cuh), per lane or per tile, so no row of either
+draw passes through device memory on the paths; ``lane_randoms`` and
+``tile_rows`` stay for callers that want the rows.
 A replayed CUDA graph (ops/wave_graph.py) cannot take a key from the
-host: there ``tile_rows_at`` has ``rt_tile_randoms`` fold the tile key
-held in device memory with the iteration counter held there
-(``fold_in_tensor`` is that fold in torch), and ``per_ray_keys`` takes its
+host: there the coherent draw folds the tile key held in device memory
+with the iteration counter held there (``tile_rows_at``;
+``fold_in_tensor`` is that fold in torch), and ``per_ray_keys`` takes its
 key as a device tensor.
 """
 
@@ -207,7 +209,8 @@ def fold_in_tensor(k: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     """``fold_in`` on tensors: ``k`` (2,) int64 key words, ``data`` an
     int64 tensor holding values in [0, 2**32); returns the (2,) int64
     words of ``fold_in(k, data)``, bitwise ``rng.fold_in``. The plain
-    version of the fold ``rt_tile_randoms`` does on the card."""
+    version of the fold the tile draws do on the card (``rt_tile_randoms``
+    and ``rt_wave_rays``' coherent arm, csrc/draw.cuh ``tile_key``)."""
     y0, y1 = threefry2x32_t(k[0], k[1], 0, data.reshape(()) & _MASK)
     return torch.stack([y0, y1])
 

@@ -5,8 +5,9 @@ loop is a ``lax.while_loop`` and the scan sampler a ``lax.scan`` over
 bounces (raytracer_tpu/ops/integrator.py:186, 246-356, 431), so the
 device runs the frame without the host. The port's loop is Python, and
 on the card each iteration is three kernel launches (``rt_wave_rays``,
-K5 or K6, ``rt_wave_bounce``; coherent sampling adds ``rt_tile_randoms``
-and rebin / lanesort their regrouping). Here those iterations are
+K5 or K6, ``rt_wave_bounce``, coherent sampling too: its tile draw and
+the iteration counter's step happen inside ``rt_wave_rays``; rebin /
+lanesort add their regrouping). Here those iterations are
 captured once into a ``torch.cuda.CUDAGraph`` on static tensors and
 replayed: one launch from the host per block of iterations
 (ops/integrator.py decides what a block holds).

@@ -43,9 +43,11 @@ these); the coherent
 scene-4 and stress10k paths; and what phases 9, 10 and 12 time of K5 and
 K6 (wavefront): K5 on phase 9's 1M rays over scene 4, K6 and K5 on phase
 10's 1M stress100k field rays, the scene-4 (20 spp), stress100k (4 spp)
-and earth2048 (20 spp) regen paths through ``Renderer`` at 1000x800 (5
-frames after a warm-up; then one frame under torch.profiler: the device
-ms of K5 or K6 in it and the device's busy share), and phase 18a's
+and earth2048 (20 spp) regen paths through ``Renderer`` at 1000x800, the
+first two per lane and with coherent sampling (5 frames after a warm-up;
+then one frame under torch.profiler: the device ms of K5 or K6 in it,
+the frame's device ms and device ops, and the device's busy share), and
+phase 18a's
 ``trace`` (scene 4, 1000x800, one sample; 5 calls after a warm-up, one
 more under torch.profiler). Run it once per tree in separate processes, in turns, to
 compare two trees on one card: ``pairs`` does that (``chip_smoke.py
@@ -263,16 +265,19 @@ def paths_wavefront(dev, emit_path) -> None:
         emit_path("10", path,
                   ms=cs.cuda_ms(lambda: ic.hit_resolve_unit(ws, o, d), 3))
     from raytracer_tpu_torch.models.scenes import procedural_earth_texture
-    for path, (scene, sky), spp, pos in (
-            ("scene4_regen", rtt.build_scene(4, seed=0), 20,
-             (0.0, 0.0, 0.0)),
-            ("stress100k_regen", cs.stress_scene(100000), 4,
-             (0.0, 1.0, -4.0)),
+    scene4, stress = rtt.build_scene(4, seed=0), cs.stress_scene(100000)
+    for path, (scene, sky), spp, pos, coherent in (
+            ("scene4_regen", scene4, 20, (0.0, 0.0, 0.0), False),
+            ("scene4_coherent_regen", scene4, 20, (0.0, 0.0, 0.0), True),
+            ("stress100k_regen", stress, 4, (0.0, 1.0, -4.0), False),
+            ("stress100k_coherent_regen", stress, 4, (0.0, 1.0, -4.0),
+             True),
             ("earth2048_regen", rtt.build_scene(
                 2, earth_image=procedural_earth_texture(1024)), 20,
-             (0.0, 0.0, 0.0))):
+             (0.0, 0.0, 0.0), False)):
         s = rtt.RenderSettings(rays_per_pixel=spp, reflect_limit=5,
-                               antialias=True, sampler="regen").with_sky(sky)
+                               antialias=True, sampler="regen",
+                               coherent=coherent).with_sky(sky)
         r = rtt.Renderer(scene, rtt.CameraConfig(width=1000, height=800,
                                                  position=pos),
                          s, seed=0, device=dev)
@@ -284,10 +289,15 @@ def paths_wavefront(dev, emit_path) -> None:
         kernel = "hit_resolve_blocked_kernel" if r.packed_scene.blocked \
             else "hit_resolve_kernel"
         prof = cs.device_shares(lambda: r.render_frame(block=True),
-                                (kernel,))
+                                (kernel, "tile_randoms_kernel",
+                                 "wave_rays_kernel"))
         emit_path("12", f"{path}_{kernel}_device",
                   ms=prof[kernel]["device_ms"],
                   device_ms=prof["device_ms"], window_ms=prof["window_ms"])
+        emit_path("12", f"{path}_device", ms=prof["device_ms"],
+                  device_ops=prof["device_ops"],
+                  kernel_ms={k: prof[k]["device_ms"] for k in (
+                      kernel, "tile_randoms_kernel", "wave_rays_kernel")})
         emit_path("12", f"{path}_busy", busy_share=prof["busy_share"],
                   device_ms=prof["device_ms"], window_ms=prof["window_ms"],
                   host_kernel_launches=prof["host_kernel_launches"],

@@ -1,8 +1,9 @@
 """Coherent sampling in raytracer_tpu_torch (``RenderSettings(coherent=
-True)``) against raytracer_tpu: the tile draw ``rng.tile_randoms``, the
-megakernel's COHERENT arm (``mega_reference``) against the JAX kernel in
-Pallas interpret mode, and the regen, rebin and lanesort samplers' tile-
-keyed draws; then the estimator's contract (per-pixel marginals unchanged)
+True)``) against raytracer_tpu: the tile draw ``rng.tile_randoms`` and
+the coherent ray set-up that draws it (``rays.wave_rays`` keyed by the
+tile key), the megakernel's COHERENT arm (``mega_reference``) against
+the JAX kernel in Pallas interpret mode, and the regen, rebin and
+lanesort samplers' tile-keyed draws; then the estimator's contract (per-pixel marginals unchanged)
 and the Renderer on every sampler.
 
 Tolerances. The tile draw's key words and uniforms are bitwise; its
@@ -71,6 +72,48 @@ def test_tile_randoms_match_jax(n, with_rr, tile_offset, it):
     for i in [0, 2] + ([3] if with_rr else []):
         np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]))
     assert _ulps(got[1].numpy(), want[1]).max() <= MAX_NORMAL_ULPS
+
+
+@pytest.mark.parametrize("arm", ["host", "device"])
+@pytest.mark.parametrize("with_rr", [False, True])
+def test_coherent_wave_rays_match_jax(with_rr, arm):
+    """The coherent ray set-up (``wave_rays`` keyed by the iteration's tile
+    key, from the host or from device memory as a replayed graph reads
+    it) against JAX's ``rng.tile_randoms`` under the same key, its
+    antialias jitter (scatter.py:34) and the hit kernel's normalisation
+    (intersect_pallas.py:737-741), on 4101 lanes: the Fresnel and
+    russian-roulette rows bitwise, the normals within H8's 3 ulps, the
+    directions within test_torch_wave_rays.py's bounds (1e-6)."""
+    from raytracer_tpu.ops import scatter as jscatter
+    from raytracer_tpu_torch.ops import rays as trays
+    n = 4101
+    jk = jax.random.fold_in(jax.random.fold_in(
+        jax.random.fold_in(jax.random.key(5), FRAME), 3), 7)
+    want = jrng.tile_randoms(jk, n, with_rr=with_rr)
+    g = np.random.default_rng(8)
+    d = g.standard_normal((3, n)).astype(np.float32) * 2.0
+    jdj = jscatter.antialias_jitter(want[0], jnp.asarray(d))
+    jinv = jax.lax.rsqrt(jnp.sum(jdj * jdj, axis=0))
+    tkey = trng.fold_in(trng.fold_in(trng.key(5), FRAME), 3)
+    if arm == "host":
+        kw = dict(tile_key=trng.fold_in(tkey, 7))
+    else:
+        key_dev = torch.zeros(2, dtype=torch.int64)
+        trng.set_key(key_dev, tkey)
+        kw = dict(key_dev=key_dev,
+                  iter_dev=torch.tensor([7, 0], dtype=torch.int64))
+    got = trays.wave_rays(torch.from_numpy(d), with_rr=with_rr, **kw)
+    np.testing.assert_array_equal(got.fresnel.numpy(), np.asarray(want[2]))
+    if with_rr:
+        np.testing.assert_array_equal(got.rr.numpy(), np.asarray(want[3]))
+    assert _ulps(got.gauss.numpy(), want[1]).max() <= 3
+    np.testing.assert_allclose(got.dj.numpy(), np.asarray(jdj), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(got.unit.numpy(),
+                               np.asarray(jdj * jinv[None, :]), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(got.inv_len.numpy(), np.asarray(jinv),
+                               rtol=1e-6, atol=0)
 
 
 def test_tile_randoms_share_a_tile():

@@ -325,6 +325,33 @@ def test_lane_randoms_kernel_matches_plain(dev):
         assert torch.equal(got[3:6], want[3:6])
 
 
+@pytest.mark.parametrize("tile", [1024, 1, 300])
+@pytest.mark.parametrize("n", [200_000, 4101, 8195])
+def test_tile_randoms_arms_match_plain(dev, n, tile):
+    """The redesigned rt_tile_randoms bitwise with tile_randoms_reference
+    at n % 4 = 0, 1 and 3 (16-byte or scalar stores), in its shared arm
+    (tile 1024: each block draws its tile's bundle once) and its general
+    arm (tiles of 1 and 300: each lane draws its own tile's values), keyed
+    from the host and, as a replayed graph keys it, from device memory."""
+    from raytracer_tpu_torch.ops import rng
+    k = rng.fold_in(rng.key(6), 2)
+    key_dev = torch.zeros(2, dtype=torch.int64, device=dev)
+    rng.set_key(key_dev, k)
+    it = torch.tensor([9], dtype=torch.int64, device=dev)
+    for rr in (False, True):
+        want = rng.tile_randoms_reference(rng.fold_in(k, 9), n, tile,
+                                          with_rr=rr, device=dev)
+        before = rng.TILE_LAUNCHES
+        got = rng.tile_rows(rng.fold_in(k, 9), n, tile, with_rr=rr,
+                            device=dev)
+        at = rng.tile_rows_at(key_dev, it, n, tile, with_rr=rr)
+        torch.cuda.synchronize()
+        assert rng.TILE_LAUNCHES == before + 2
+        assert got.shape == at.shape == (8 if rr else 7, n)
+        assert torch.equal(got, want) and torch.equal(at, want)
+        assert int(it) == 9     # rt_tile_randoms reads the counter only
+
+
 def test_tile_randoms_kernel_matches_plain(dev):
     """rt_tile_randoms: every row bitwise with the plain version on the
     card, normals too, over a partial last tile, with and without the
@@ -475,9 +502,10 @@ def test_wavefront_frame_matches_plain_route(dev, sampler):
 
 
 def test_coherent_regen_frame_matches_plain_route(dev):
-    """A coherent regen Renderer frame on the card (K5, the tile draws and
-    the ray set-up on their rows; no lane randoms) against the plain route
-    on the same rays and key."""
+    """A coherent regen Renderer frame on the card (K5 and the ray set-up
+    once an iteration, the set-up drawing the tile bundles itself: no tile
+    draws, no lane randoms) against the plain route on the same rays and
+    key."""
     from raytracer_tpu_torch.ops import intersect_cuda as ic
     from raytracer_tpu_torch.ops import integrator as tint
     from raytracer_tpu_torch.ops import rays as trays
@@ -489,8 +517,8 @@ def test_coherent_regen_frame_matches_plain_route(dev):
     before = (ic.LAUNCHES, trng.LAUNCHES, trng.TILE_LAUNCHES, trays.LAUNCHES)
     r.render_frame(block=True)
     assert ic.LAUNCHES > before[0] and trng.LAUNCHES == before[1]
-    assert trng.TILE_LAUNCHES - before[2] == trays.LAUNCHES - before[3] == \
-        ic.LAUNCHES - before[0]
+    assert trng.TILE_LAUNCHES == before[2]
+    assert trays.LAUNCHES - before[3] == ic.LAUNCHES - before[0]
     ref, ref_segs = tint.render_sample_mean(
         r.packed_scene, s, r._o, r._d, trng.frame_key(r.base_key, 0),
         ray_idx=r._ray_idx, backend="plain")
@@ -955,8 +983,10 @@ def test_wave_rays_kernel_matches_plain(dev, antialias, with_rr, coherent):
     """rt_wave_rays bitwise with wave_rays_reference on 200,000 lanes
     (not a whole number of 4096-ray tiles): the regen arm (sample fold,
     per-lane bounces, count of sample_i < spp), the scan arm (one bounce,
-    the alive mask counted) and the coherent arm (the tile draw's rows);
-    one launch each, every output and the segment count equal."""
+    the alive mask counted) and the coherent arm (the 1024-lane tile's
+    bundle drawn in the kernel under a host tile key, counting by the
+    sample or by the alive mask); one launch each, every output and the
+    segment count equal."""
     from raytracer_tpu_torch.ops import rays as trays
     n = 200_000
     g = np.random.default_rng(12)
@@ -967,9 +997,9 @@ def test_wave_rays_kernel_matches_plain(dev, antialias, with_rr, coherent):
                         device=dev)
     alive = s < 12
     if coherent:
-        rows = trng.tile_rows(trng.fold_in(trng.key(3), 4), n,
-                              with_rr=with_rr, device=dev)
-        arms = [dict(drawn=rows, sample_i=s, spp=20)]
+        tile_key = trng.fold_in(trng.key(3), 4)
+        arms = [dict(tile_key=tile_key, sample_i=s, spp=20),
+                dict(tile_key=trng.fold_in(tile_key, 9), alive=alive)]
     else:
         arms = [dict(keys=keys, sample_i=s, bounce=b, spp=20),
                 dict(keys=keys, bounce=3, alive=alive)]
@@ -991,6 +1021,42 @@ def test_wave_rays_kernel_matches_plain(dev, antialias, with_rr, coherent):
             else:
                 assert a.shape == w.shape and torch.equal(a, w), k
         assert int(segs[0]) == int(segs[1]) > 0
+
+
+@pytest.mark.parametrize("n", [200_003, 204_800])
+def test_coherent_wave_rays_graph_replay(dev, n):
+    """The coherent arm keyed from device memory under a captured CUDA
+    graph, replayed twice: each replay draws under fold_in(key, it) with
+    the counter it finds, bitwise the plain version keyed by the host,
+    and advances the counter by exactly one (the ticket left zero); over
+    a partial last tile and over 200 whole ones."""
+    from raytracer_tpu_torch.ops import rays as trays
+    g = np.random.default_rng(13)
+    s = torch.as_tensor(g.integers(0, 30, n).astype(np.int32), device=dev)
+    d = torch.as_tensor(g.standard_normal((3, n)).astype(np.float32),
+                        device=dev)
+    k = trng.fold_in(trng.key(7), 1)
+    key_dev = torch.zeros(2, dtype=torch.int64, device=dev)
+    trng.set_key(key_dev, k)
+    iter_dev = torch.tensor([4, 0], dtype=torch.int64, device=dev)
+    segs = torch.zeros((), dtype=torch.int64, device=dev)
+    kw = dict(sample_i=s, spp=20, with_rr=True, segs=segs)
+    trays.wave_rays(d, key_dev=key_dev, iter_dev=iter_dev, **kw)  # warm-up
+    torch.cuda.synchronize()
+    assert iter_dev.tolist() == [5, 0]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = trays.wave_rays(d, key_dev=key_dev, iter_dev=iter_dev, **kw)
+    for it in (5, 6):
+        segs.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert iter_dev.tolist() == [it + 1, 0]
+        want = trays.wave_rays(d, tile_key=trng.fold_in(k, it), plain=True,
+                               **dict(kw, segs=None))
+        for name in ("dj", "unit", "inv_len", "gauss", "fresnel", "rr"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert int(segs) == int((s < 20).sum())
 
 
 GRAPH_CASES = [("regen", False), ("regen", True), ("scan", False),

@@ -5,7 +5,11 @@ and the bounce on the hit kernels' raw outputs (ops/bounce.py), on the CPU.
   replaced (``rng.lane_randoms_reference`` or the tile draw's rows, then
   ``scatter.antialias_jitter``, then ``intersect_cuda._unit_rays`` with its
   padding to 4096-ray tiles): bitwise, with and without a sample fold,
-  russian roulette and antialias, and the segment count; against the JAX
+  russian roulette and antialias, and the segment count; the coherent arm
+  keyed by a tile key (the host's, or the words and iteration counter in
+  device memory, which it advances) bitwise that composition on
+  ``rng.tile_rows``' rows, over a partial last tile and over whole
+  1024-lane tiles; against the JAX
   package's draw, jitter and normalisation (ops/rng.py,
   ops/scatter.py:34, intersect_pallas.py:737-741) within
   test_torch_wavefront_ops.py's bounds.
@@ -114,14 +118,16 @@ def test_wave_rays_reference_is_todays_composition(fold, with_rr,
 
 @pytest.mark.parametrize("with_rr", [False, True])
 def test_wave_rays_reference_on_tile_rows(with_rr):
-    """The coherent arm: the tile draw's rows in, its Gaussian, Fresnel
-    and russian-roulette rows out as they are, the jitter from its rows."""
+    """The coherent arm: the tile draw's rows (``rng.tile_rows``, split as
+    ``rng.tile_randoms`` splits them) drawn under the tile key, its
+    Gaussian, Fresnel and russian-roulette rows out as they are, the
+    jitter from its rows."""
     _, s, _, d = _inputs(1)
     rows = trng.tile_rows(trng.fold_in(trng.key(2), 5), N, with_rr=with_rr,
                           device="cpu")
     segs = torch.zeros((), dtype=torch.int64)
-    got = trays.wave_rays(d, drawn=rows, sample_i=s, with_rr=with_rr,
-                          segs=segs, spp=10)
+    got = trays.wave_rays(d, tile_key=trng.fold_in(trng.key(2), 5),
+                          sample_i=s, with_rr=with_rr, segs=segs, spp=10)
     _same(got, _todays_rays(None, None, None, d, True, with_rr, drawn=rows))
     assert int(segs) == int((s < 10).sum())
     split = trng.tile_randoms(trng.fold_in(trng.key(2), 5), N,
@@ -129,6 +135,40 @@ def test_wave_rays_reference_on_tile_rows(with_rr):
     assert torch.equal(torch.cat([split[0], split[1], split[2][None]]
                                  + ([split[3][None]] if with_rr else [])),
                        rows)
+
+
+@pytest.mark.parametrize("arm", ["host", "device"])
+@pytest.mark.parametrize("n", [N, 4096])
+@pytest.mark.parametrize("with_rr", [False, True])
+@pytest.mark.parametrize("antialias", [True, False])
+def test_wave_rays_tile_key_is_todays_composition(antialias, with_rr, n,
+                                                  arm):
+    """The coherent arm keyed by the iteration's tile key (``tile_key``,
+    or ``key_dev`` / ``iter_dev`` as a replayed graph holds them) is
+    bitwise the composition it replaced, ``rng.tile_rows``' rows fed to
+    the ray set-up of before, on 5000 lanes (a partial last tile) and on
+    4096 (four whole tiles); the device arm advances the counter by one
+    and leaves the ticket zero."""
+    _, s, _, d = _inputs(4)
+    s, d = s[:n].contiguous(), d[:, :n].contiguous()
+    k = trng.fold_in(trng.key(2), 3)
+    rows = trng.tile_rows(trng.fold_in(k, 5), n, with_rr=with_rr,
+                          device="cpu")
+    if arm == "host":
+        kw = dict(tile_key=trng.fold_in(k, 5))
+    else:
+        key_dev = torch.zeros(2, dtype=torch.int64)
+        trng.set_key(key_dev, k)
+        kw = dict(key_dev=key_dev,
+                  iter_dev=torch.tensor([5, 0], dtype=torch.int64))
+    segs = torch.zeros((), dtype=torch.int64)
+    got = trays.wave_rays(d, sample_i=s, antialias=antialias,
+                          with_rr=with_rr, segs=segs, spp=10, **kw)
+    if arm == "device":
+        assert kw["iter_dev"].tolist() == [6, 0]
+    _same(got, _todays_rays(None, None, None, d, antialias, with_rr,
+                            drawn=rows))
+    assert int(segs) == int((s < 10).sum())
 
 
 @pytest.mark.parametrize("with_rr", [False, True])
@@ -161,10 +201,24 @@ def test_wave_rays_match_jax(with_rr):
 
 def test_wave_rays_checks_inputs():
     keys, s, b, d = _inputs(3)
-    with pytest.raises(ValueError, match="one of keys and drawn"):
+    one_of = "one of keys, tile_key and key_dev"
+    with pytest.raises(ValueError, match=one_of):
         trays.wave_rays(d, bounce=b)
-    with pytest.raises(ValueError, match="one of keys and drawn"):
-        trays.wave_rays(d, keys=keys, drawn=torch.zeros((7, N)))
+    with pytest.raises(ValueError, match=one_of):
+        trays.wave_rays(d, keys=keys,
+                        key_dev=torch.zeros(2, dtype=torch.int64),
+                        iter_dev=torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match=one_of):
+        trays.wave_rays(d, keys=keys, tile_key=trng.key(1))
+    with pytest.raises(ValueError, match=one_of):
+        trays.wave_rays(d, key_dev=torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match=r"iter_dev must be \(2,\) int64"):
+        trays.wave_rays(d, key_dev=torch.zeros(2, dtype=torch.int64),
+                        iter_dev=torch.zeros(1, dtype=torch.int64))
+    with pytest.raises(ValueError, match="on d's device"):
+        trays.wave_rays(d, key_dev=torch.zeros(2, dtype=torch.int64),
+                        iter_dev=torch.zeros(2, dtype=torch.int64,
+                                             device="meta"))
     with pytest.raises(ValueError, match=r"\(3, N\) float32"):
         trays.wave_rays(d.double(), keys=keys, bounce=b)
     before = trays.LAUNCHES
@@ -250,8 +304,9 @@ def test_graph_trace_is_todays_trace(eager_graphs, num):
 
 def test_rays_and_bounce_structs_match_ctypes():
     """rt_wave_rays (csrc/rays.cu) and rt_wave_bounce (csrc/bounce.cu):
-    entry points, argument structs field by field, rays.cu built, the
-    draw's device functions shared from draw.cuh with rt_lane_randoms."""
+    entry points, argument structs field by field (rt_tile_randoms' too),
+    rays.cu built, the draw's device functions shared from draw.cuh with
+    rt_lane_randoms and rt_tile_randoms."""
     import re
 
     from raytracer_tpu_torch.kernels import build
@@ -262,13 +317,15 @@ def test_rays_and_bounce_structs_match_ctypes():
     assert re.search(r"\bint rt_wave_bounce\(", srcs["bounce.cu"])
     for name, c_name, py in (("rays.cu", "RtRaysArgs", build.RaysArgs),
                              ("bounce.cu", "RtBounceArgs",
-                              build.BounceArgs)):
+                              build.BounceArgs),
+                             ("rays.cu", "RtTileArgs", build.TileArgs)):
         assert _c_struct_fields(srcs[name], c_name) == [
             f[0] for f in py._fields_]
     for name in ("rays.cu", "wavefront.cu"):
         assert '#include "draw.cuh"' in srcs[name]
     draw = (CSRC / "draw.cuh").read_text()
-    for fn in ("threefry", "lane_key", "lane_draw", "erfinv_xla"):
+    for fn in ("threefry", "lane_key", "lane_draw", "erfinv_xla",
+               "tile_key", "tile_value"):
         assert re.search(r"\b%s\(" % fn, draw)
         assert not re.search(r"__device__[^;{]*\b%s\(" % fn,
                              srcs["wavefront.cu"])

@@ -1,0 +1,10 @@
+"""Share of the traced frames in which no operation ran on the device:
+100 x (1 - the union of the device ops' intervals / the frames' device
+time, marker to marker)."""
+
+
+def read(ctx):
+    tr = ctx.trace
+    if tr is None or tr.busy_s <= 0 or tr.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - tr.busy_s / tr.window_s)

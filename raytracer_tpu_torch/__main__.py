@@ -88,6 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "bitwise identical to an uninterrupted run)")
     r.add_argument("--stats", type=str, default=None,
                    help="JSONL stats sink path")
+    r.add_argument("--spans", type=str, default=None,
+                   help="JSONL path for the frame loop's host spans "
+                        "(utils/trace.py), written when the render ends")
     r.add_argument("--temporal", action="store_true",
                    help="temporal accumulation: camera moves re-project "
                         "history instead of restarting")
@@ -140,12 +143,25 @@ def cmd_render(args) -> int:
         dist.destroy_process_group()
 
 
+def _write_logs(args, renderer) -> None:
+    """The ``--stats`` and ``--spans`` files, when asked for."""
+    from raytracer_tpu_torch.utils import trace
+    if args.stats:
+        renderer.write_stats(args.stats)
+    if args.spans:
+        trace.enable(False)
+        trace.write_jsonl(args.spans, trace.take())
+
+
 def _render(args, sharding) -> int:
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.runtime.viewer import run_render_loop
+    from raytracer_tpu_torch.utils import trace
 
     # under sharding rank 0 speaks for the group
     speaks = sharding is None or sharding.mesh.rank == 0
+    if args.spans and speaks:
+        trace.enable()
     scene, use_sky = rtt.build_scene(args.scene, device=args.device)
     settings = rtt.RenderSettings(
         reflect_limit=args.bounces,
@@ -204,8 +220,7 @@ def _render(args, sharding) -> int:
         n_frames = run_interactive(
             renderer, max_frames=0 if args.frames is None else args.frames,
             move_speed=args.move_speed, out_path=args.out)
-        if args.stats:
-            renderer.write_stats(args.stats)
+        _write_logs(args, renderer)
         print(f"wrote {args.out} ({n_frames} frames)")
         return 0
 
@@ -247,8 +262,7 @@ def _render(args, sharding) -> int:
                         checkpoint_every=args.checkpoint_every,
                         quiet=not speaks, per_frame=move)
     if speaks:
-        if args.stats:
-            renderer.write_stats(args.stats)
+        _write_logs(args, renderer)
         print(f"wrote {args.out} ({renderer.frame_num} frames, "
               f"{renderer.frame_num * settings.rays_per_pixel} spp)")
     return 0

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..config import RenderSettings
+from ..utils.trace import span
 from . import film, intersect, rng, wave_graph
 from .bounce import shade_bounce_reference, wave_bounce
 from .intersect_cuda import WaveScene, hit_raw
@@ -384,7 +385,8 @@ def _render_regen_soa(ws: WaveScene, settings: RenderSettings, ray_idx,
              and n % LANES == 0 and n // LANES >= 8)
     tile_key = rng.fold_in(frame_key, tile_offset) if settings.coherent \
         else None
-    kd = rng.per_ray_keys(frame_key, ray_idx)
+    with span("regen.keys"):
+        kd = rng.per_ray_keys(frame_key, ray_idx)
     route = _Route(ws, settings, backend, tile_key=tile_key)
 
     if _replays(backend, o0):
@@ -393,13 +395,15 @@ def _render_regen_soa(ws: WaveScene, settings: RenderSettings, ray_idx,
         if cache_key not in ws.graphs:
             ws.graphs[cache_key] = _RegenGraphs(route, n, rebin, lane_sort)
         runner = ws.graphs[cache_key]
-        runner.reset(o0, d0, kd, tile_key)
+        with span("regen.reset"):
+            runner.reset(o0, d0, kd, tile_key)
         st, step = runner.st, runner.step
     else:
         home = None
         if rebin or lane_sort:
             home = n if lane_sort else n // LANES
-        st = _regen_state(o0, d0, kd, home)
+        with span("regen.reset"):
+            st = _regen_state(o0, d0, kd, home)
 
         def step(it, k):
             for j in range(k):
@@ -407,24 +411,29 @@ def _render_regen_soa(ws: WaveScene, settings: RenderSettings, ray_idx,
 
     it = 0
     while it < cap:
-        if not bool((st["sample_i"] < spp).any()):
+        with span("regen.check"):
+            more = bool((st["sample_i"] < spp).any())
+        if not more:
             break
         k = min(EXIT_CHECK_EVERY, cap - it)
-        step(it, k)
+        with span("regen.replay"):
+            step(it, k)
         it += k
 
-    pixel_sum = st["pixel_sum"]
-    if lane_sort:
-        # home[current lane] = original lane
-        out = torch.empty_like(pixel_sum)
-        out[:, st["home"]] = pixel_sum
-        pixel_sum = out
-    elif rebin:
-        unperm = torch.empty_like(st["home"])
-        unperm[st["home"]] = torch.arange(st["home"].shape[0], device=dev)
-        pixel_sum = permute_rows(unperm, pixel_sum)
-    spp_t = torch.full((), float(spp), dtype=torch.float32, device=dev)
-    return pixel_sum / spp_t, st["segs"].clone()
+    with span("regen.finish"):
+        pixel_sum = st["pixel_sum"]
+        if lane_sort:
+            # home[current lane] = original lane
+            out = torch.empty_like(pixel_sum)
+            out[:, st["home"]] = pixel_sum
+            pixel_sum = out
+        elif rebin:
+            unperm = torch.empty_like(st["home"])
+            unperm[st["home"]] = torch.arange(st["home"].shape[0],
+                                              device=dev)
+            pixel_sum = permute_rows(unperm, pixel_sum)
+        spp_t = torch.full((), float(spp), dtype=torch.float32, device=dev)
+        return pixel_sum / spp_t, st["segs"].clone()
 
 
 def render_sample_mean(scene, settings: RenderSettings, o: torch.Tensor,
@@ -485,8 +494,10 @@ def render_frame(scene, settings: RenderSettings, o: torch.Tensor,
     """One progressive frame: ``accum`` becomes the running mean of all
     frames so far, updated in place (src/raytracer.cu:109-113).
     Returns (accum, traced segment count)."""
-    fkey = rng.frame_key(base_key, frame_num)
+    with span("frame.key"):
+        fkey = rng.frame_key(base_key, frame_num)
     mean, segs = render_sample_mean(scene, settings, o, d, fkey,
                                     tile_offset=tile_offset,
                                     ray_idx=ray_idx, backend=backend)
-    return film.progressive_update(accum, mean, frame_num), segs
+    with span("film.update"):
+        return film.progressive_update(accum, mean, frame_num), segs

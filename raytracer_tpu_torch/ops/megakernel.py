@@ -40,6 +40,7 @@ import torch
 from ..config import ANTIALIAS_OFFSET_RANGE, RenderSettings
 from ..models.materials import (MAT_EMISSIVE, MAT_REFRACTIVE,
                                 TEX_CHECKERBOARD, TEX_GRADIENT, TEX_IMAGE)
+from ..utils.trace import span
 from . import rng, sweep
 
 LANES = sweep.LANES
@@ -508,25 +509,28 @@ def _mega_cuda(ps, mat, o, d, seed, *, tex, img_rows, pixpack, spp, limit,
     from ..kernels import build
     n_pad = o.shape[1]
     n_tiles = n_pad // (MEGA_TILE * pixpack)
-    group = mega_group(n_tiles * MEGA_TILE, ps, _group)
-    out = torch.empty((5, n_pad), dtype=torch.float32, device=o.device)
-    w0, w1, tile_offset = seed
-    args = build.MegaArgs(
-        scene=build.scene_args(ps), o=build.row_ptrs(o), d=build.row_ptrs(d),
-        out=build.row_ptrs(out),
-        mat=mat.data_ptr(), n_mat=mat.shape[1], tex=tex.data_ptr(),
-        img_rows=img_rows, seed_w0=w0, seed_w1=w1,
-        tile_offset=tile_offset, n_tiles=n_tiles,
-        pixpack=pixpack, spp=spp, limit=limit, antialias=int(antialias),
-        rr_start=rr_start, emissive_terminates=int(emissive_terminates),
-        fix_exit_ior=int(fix_exit_ior), need_sphere_uv=int(need_sphere_uv),
-        has_refractive=int(has_refractive), coherent=int(coherent),
-        inv_spp=float(np.float32(1.0 / float(spp))),
-        sky=(ctypes.c_float * 3)(*sky), group=group)
-    lib = build.load()
-    rc = lib.rt_megakernel(ctypes.byref(args),
-                           ctypes.c_void_p(build.stream(o.device)))
-    build.check(lib, rc, "rt_megakernel")
+    with span("mega.args"):
+        group = mega_group(n_tiles * MEGA_TILE, ps, _group)
+        out = torch.empty((5, n_pad), dtype=torch.float32, device=o.device)
+        w0, w1, tile_offset = seed
+        args = build.MegaArgs(
+            scene=build.scene_args(ps), o=build.row_ptrs(o),
+            d=build.row_ptrs(d), out=build.row_ptrs(out),
+            mat=mat.data_ptr(), n_mat=mat.shape[1], tex=tex.data_ptr(),
+            img_rows=img_rows, seed_w0=w0, seed_w1=w1,
+            tile_offset=tile_offset, n_tiles=n_tiles,
+            pixpack=pixpack, spp=spp, limit=limit, antialias=int(antialias),
+            rr_start=rr_start, emissive_terminates=int(emissive_terminates),
+            fix_exit_ior=int(fix_exit_ior),
+            need_sphere_uv=int(need_sphere_uv),
+            has_refractive=int(has_refractive), coherent=int(coherent),
+            inv_spp=float(np.float32(1.0 / float(spp))),
+            sky=(ctypes.c_float * 3)(*sky), group=group)
+    with span("mega.launch"):
+        lib = build.load()
+        rc = lib.rt_megakernel(ctypes.byref(args),
+                               ctypes.c_void_p(build.stream(o.device)))
+        build.check(lib, rc, "rt_megakernel")
     global LAUNCHES, IMAGE_LAUNCHES, COHERENT_LAUNCHES
     LAUNCHES += 1
     IMAGE_LAUNCHES += int(img_rows > 0)
@@ -618,7 +622,11 @@ def mega_inputs(ms: MegaScene, settings: RenderSettings, o, d,
     if o.shape != d.shape or o.device != d.device or ms.device != o.device:
         raise ValueError(f"rays on {o.device} / {d.device}, scene on "
                          f"{ms.device}: all must share one device")
-    o_p, d_p = (o, d) if padded else pad_rays(o, d, k)
+    if padded:
+        o_p, d_p = o, d
+    else:
+        with span("mega.pad"):
+            o_p, d_p = pad_rays(o, d, k)
     seed = rng.seed_words(frame_key, tile_offset)
     kw = dict(tex=ms.tex, img_rows=ms.img_rows,
               pixpack=k, spp=int(settings.rays_per_pixel),
@@ -643,7 +651,8 @@ def mega_frame(ms: MegaScene, settings: RenderSettings, o, d,
                                      tile_offset, pixpack)
     n = o.n if isinstance(o, PaddedRays) else o.shape[1]
     if o_p.device.type == "cpu":
-        return mega_reference(ms.packed, ms.mat, o_p, d_p, seed, **kw), n
+        with span("mega.launch"):
+            return mega_reference(ms.packed, ms.mat, o_p, d_p, seed, **kw), n
     if o_p.device.type == "cuda":
         return _mega_cuda(ms.packed, ms.mat, o_p, d_p, seed, **kw), n
     raise ValueError(f"no megakernel for device {o_p.device}")
@@ -664,7 +673,8 @@ def render_sample_mean_mega(scene, settings: RenderSettings, o, d,
     ms = scene if isinstance(scene, MegaScene) else MegaScene(scene)
     out, n = mega_frame(ms, settings, o, d, frame_key, tile_offset, pixpack)
     mean = out[:3, :n]
-    segs = out[3, :n].sum(dtype=torch.float64)
+    with span("mega.segs"):
+        segs = out[3, :n].sum(dtype=torch.float64)
     if want_depth:
         return mean, segs, out[4, :n]
     return mean, segs

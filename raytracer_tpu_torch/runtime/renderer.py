@@ -50,6 +50,7 @@ from ..parallel.distributed import gather_image, local_device
 from ..utils.debug import check_finite
 from ..utils.device import resolve_device
 from ..utils.image import save_png
+from ..utils.trace import span
 
 
 def _sync(dev: torch.device) -> None:
@@ -110,7 +111,6 @@ class Renderer:
         self.accum = film.new_accumulator(self._n_local, self.device)
         self.base_key = rng.key(seed)
         self.total_segments = 0.0
-        self.last_frame_ms = float("nan")
         self.stats_log: list = []
         self._last_segs = None  # device scalar of the last frame
 
@@ -228,33 +228,39 @@ class Renderer:
         camera's first frame, the megakernel with depth, then the epilogue:
         the per-pixel-weight blend, after a move over the stashed
         accumulation gathered into this view as JAX packs and gathers it."""
-        fkey = rng.frame_key(self.base_key, self._rng_frame)
+        with span("frame.key"):
+            fkey = rng.frame_key(self.base_key, self._rng_frame)
         self._rng_frame += 1
         cam = self.camera_cfg
         if self._rays is None:
-            self._rays = camera_rays(self._cam, cam.width, cam.height,
-                                     self.settings.pixpack, self.device)
+            with span("temporal.rays"):
+                self._rays = camera_rays(self._cam, cam.width, cam.height,
+                                         self.settings.pixpack, self.device)
         out, n = mega_frame(self._mega, self.settings, self._rays, None,
                             fkey)
-        self.accum, self._wpix, segs = warp.temporal_frame(
-            out, n, self.accum, self._wpix, self._warp_src, self._cam,
-            cam.width, cam.height)
+        with span("temporal.epilogue"):
+            self.accum, self._wpix, segs = warp.temporal_frame(
+                out, n, self.accum, self._wpix, self._warp_src, self._cam,
+                cam.width, cam.height)
         self._warp_src = None
         self._depth = out[4, :n]
         return segs
 
     def _step(self) -> torch.Tensor:
-        """One frame of either mode; returns its segment count."""
-        if self._temporal:
-            segs = self._temporal_render()
-        elif self._shard_step is not None:
-            self.accum, segs = self._shard_step(
-                self.packed_scene, self._ray_idx, self._o, self._d,
-                self.accum, self.frame_num, self.base_key)
-        else:
-            _, segs = render_frame(self.packed_scene, self.settings, self._o,
-                                   self._d, self.accum, self.frame_num,
-                                   self.base_key, ray_idx=self._ray_idx)
+        """One frame of either mode, as span ``frame``; returns its
+        segment count."""
+        with span("frame", self.frame_num):
+            if self._temporal:
+                segs = self._temporal_render()
+            elif self._shard_step is not None:
+                self.accum, segs = self._shard_step(
+                    self.packed_scene, self._ray_idx, self._o, self._d,
+                    self.accum, self.frame_num, self.base_key)
+            else:
+                _, segs = render_frame(self.packed_scene, self.settings,
+                                       self._o, self._d, self.accum,
+                                       self.frame_num, self.base_key,
+                                       ray_idx=self._ray_idx)
         self._last_segs = segs
         return segs
 
@@ -264,13 +270,13 @@ class Renderer:
         t0 = time.perf_counter()
         segs = self._step()
         if block:
-            _sync(self.device)
-        dt = time.perf_counter() - t0
+            with span("frame.sync", self.frame_num):
+                _sync(self.device)
+                dt = time.perf_counter() - t0
+                segs_f = float(segs)
         self.frame_num += 1
         if block:
-            segs_f = float(segs)
             self.total_segments += segs_f
-            self.last_frame_ms = dt * 1000.0
             self.stats_log.append(self.frame_stats(segs_f, dt))
         return self.accum
 
@@ -302,11 +308,11 @@ class Renderer:
             for _ in range(n):
                 seg_handles.append(self._step())
                 self.frame_num += 1
-        _sync(self.device)
-        dt = time.perf_counter() - t0
-        segments = float(sum(float(s) for s in seg_handles))
+        with span("frame.sync", self.frame_num - 1):
+            _sync(self.device)
+            dt = time.perf_counter() - t0
+            segments = float(sum(float(s) for s in seg_handles))
         self.total_segments += segments
-        self.last_frame_ms = dt / n * 1000.0
         rec = self.frame_stats(segments, dt)
         rec["frames"] = n
         self.stats_log.append(rec)
@@ -336,11 +342,14 @@ class Renderer:
     def image(self) -> np.ndarray:
         """Current render as (H, W, 3) u8 in row-major pixel order. Under
         sharding every rank gathers the whole film (and must call it)."""
-        flat = np.empty((self.camera_cfg.num_pixels, 3), np.float32)
-        # undo Morton
-        flat[self._pixel_order] = gather_image(self.accum, self._placement)
-        return film.to_u8(flat, self.camera_cfg.width,
-                          self.camera_cfg.height, gamma=self.settings.gamma)
+        with span("image.copy"):
+            host = gather_image(self.accum, self._placement)
+        with span("image.to_u8"):
+            flat = np.empty((self.camera_cfg.num_pixels, 3), np.float32)
+            flat[self._pixel_order] = host   # undo Morton
+            return film.to_u8(flat, self.camera_cfg.width,
+                              self.camera_cfg.height,
+                              gamma=self.settings.gamma)
 
     def save_png(self, path: str) -> None:
         img = self.image()

@@ -113,7 +113,7 @@ def test_frames_stats_and_fuse(tmp_path):
     assert r.settings.pixpack == 8            # auto policy at spp <= 32
     rec = r.render_frames(2)
     assert rec["frames"] == 2 and rec["segments"] > 0
-    assert rec["mrays_per_sec"] > 0 and np.isfinite(r.last_frame_ms)
+    assert rec["mrays_per_sec"] > 0 and np.isfinite(rec["frame_ms"])
     fused = _port_renderer(32, 32, spp=1)
     fused.render_frames(2, fuse=True)
     assert fused.frame_num == 2

@@ -22,7 +22,10 @@ and lanesort bitwise equal to regen, ``rt_wave_bounce`` (the resolve and
 the bounce after the hit, fused) against its plain version on K5's and
 K6's raw outputs, bitwise, in both arms on 256x128 lanes of scenes 1-4,
 stress100k and earth2048 and timed on scene 4's 1000x800 regen lanes
-(phase 19), and four regen paths through ``Renderer`` at 1000x800, 5
+(phase 19), the ray set-up, K5 and the bounce timed on the 1000x800 lanes
+of both regen cells with none, a frame's share (73% on scene 4, 27% on
+scene 2) and all of them finished (phase 20),
+and four regen paths through ``Renderer`` at 1000x800, 5
 bounces: scene 4 at 20 spp (K5), per lane and with coherent sampling,
 stress100k at 4 spp (K6) and the 1024x2048 earth at 20 spp (K5 + the
 atlas gather), each with its frame ms, the graph replays and kernel
@@ -913,6 +916,36 @@ def phase_lane_randoms(dev, n: int) -> dict:
     return rec
 
 
+RAYS_FIELDS = ("dj", "unit", "inv_len", "gauss", "fresnel", "rr")
+
+
+def rays_agreement(got, want, done=None) -> dict:
+    """rt_wave_rays' outputs (a WaveRays) against the plain version's:
+    every output of a live lane, the share of equal values and the
+    largest difference; with ``done`` (the finished lanes, sample_i >=
+    spp), whose dj and draws are unspecified, ``parked``: their unit
+    direction and 1 / |d| are ``rays.PARK_UNIT`` and 1."""
+    import torch
+
+    from raytracer_tpu_torch.ops.rays import PARK_UNIT
+    live = slice(None) if done is None else ~done
+    pairs = [(getattr(got, k)[..., live], getattr(want, k)[..., live])
+             for k in RAYS_FIELDS if getattr(want, k) is not None]
+    parked = True
+    if done is not None:
+        park = torch.tensor(PARK_UNIT, device=done.device)[:, None]
+        parked = bool((got.unit[:, done] == park).all()
+                      and (got.inv_len[done] == 1.0).all())
+    pairs = [(a, w) for a, w in pairs if w.numel()]  # no live lane
+    return {"bitwise": parked and all(bool(torch.equal(a, w))
+                                      for a, w in pairs),
+            "parked": parked,
+            "equal_share": {k: float((a == w).float().mean())
+                            for k, (a, w) in zip(RAYS_FIELDS, pairs)},
+            "max_abs_err": max([0.0] + [float((a - w).abs().max())
+                                        for a, w in pairs])}
+
+
 def coherent_graph_replay(d, s, dev) -> dict:
     """rt_wave_rays' coherent arm keyed by fold_in(key_dev, iter_dev[0])
     in device memory, captured in a CUDA graph and replayed twice: each
@@ -934,7 +967,6 @@ def coherent_graph_replay(d, s, dev) -> dict:
     with torch.cuda.graph(graph):
         got = rays.wave_rays(d, key_dev=key_dev, iter_dev=iter_dev,
                              segs=segs[0], **kw)
-    fields = ("dj", "unit", "inv_len", "gauss", "fresnel", "rr")
     bitwise, counters, err = True, [], 0.0
     for it in (4, 5):
         for x in segs:
@@ -944,11 +976,9 @@ def coherent_graph_replay(d, s, dev) -> dict:
         counters.append(iter_dev.tolist())
         want = rays.wave_rays(d, tile_key=rng.fold_in(rng.key(0), it),
                               segs=segs[1], plain=True, **kw)
-        bitwise = bitwise and all(bool(torch.equal(getattr(got, k),
-                                                   getattr(want, k)))
-                                  for k in fields)
-        err = max([err] + [float((getattr(got, k) - getattr(
-            want, k)).abs().max()) for k in fields])
+        agree = rays_agreement(got, want, s >= 20)
+        bitwise = bitwise and agree["bitwise"]
+        err = max(err, agree["max_abs_err"])
     del graph
     return {"bitwise": bitwise and counters == [[5, 0], [6, 0]],
             "counters": counters, "max_abs_err": err,
@@ -960,20 +990,22 @@ def phase_wave_rays(dev, sizes=(1 << 20, 1000 * 800)) -> dict:
     """rt_wave_rays (the wavefront iteration's ray set-up) against its
     plain version on each size's lanes: the regen arm (per-pixel keys of
     a frame, random samples and bounces, the sample fold, the count of
-    sample_i < spp), the scan arm (one bounce, the alive mask counted) and
-    the coherent arm (the 1024-lane tiles' bundles drawn in the kernel
-    under a host tile key, and under the key and iteration counter in
-    device memory, captured in a CUDA graph and replayed twice, each
-    replay against the host-keyed plain version and the counter advanced
-    by one), antialias and russian roulette on; every output bitwise and
-    the counts equal. The regen arm
-    timed bare on prebuilt arguments (``ms``, ``profiled_ms``), through
-    the wrapper (``wrapper_ms``) and the plain version (``plain_ms``),
+    sample_i < spp, a sixth of the lanes finished), the scan arm (one
+    bounce, the alive mask counted) and the coherent arm (the 1024-lane
+    tiles' bundles drawn in the kernel under a host tile key, and under
+    the key and iteration counter in device memory, captured in a CUDA
+    graph and replayed twice, each replay against the host-keyed plain
+    version and the counter advanced by one), antialias and russian
+    roulette on; every output of a live lane bitwise, a finished lane's
+    park direction, and the counts equal. The regen arm timed bare on
+    prebuilt arguments (``ms``, ``profiled_ms``), through the wrapper
+    (``wrapper_ms``) and the plain version (``plain_ms``),
     beside its bound: each lane reads its key (16 bytes), sample, bounce
     (8) and direction (12) once and writes its jittered and unit
-    direction, 1 / |d| and 5 draws (48); ~OPS_RAYS operations. The
-    coherent arm (1024-lane tiles) timed the same way (``coherent``)
-    beside its bytes: a lane reads its sample and direction (16) and
+    direction, 1 / |d| and 5 draws (48); ~OPS_RAYS operations; a finished
+    lane reads its sample and writes its unit direction and 1 / |d| (20).
+    The coherent arm (1024-lane tiles) timed the same way (``coherent``)
+    beside its bytes: a live lane reads its sample and direction (16) and
     writes the same 48; its draw is 3 threefry calls a value a block.
     Returns the records by size."""
     import torch
@@ -994,6 +1026,8 @@ def phase_wave_rays(dev, sizes=(1 << 20, 1000 * 800)) -> dict:
         arms = {"regen": dict(keys=keys, sample_i=s, bounce=b, spp=20),
                 "scan": dict(keys=keys, bounce=3, alive=s < 12),
                 "coherent": dict(tile_key=tile_key, sample_i=s, spp=20)}
+        # the finished lanes: their dj and draws are unspecified
+        done = {"regen": s >= 20, "scan": None, "coherent": s >= 20}
         checks, wants = {}, {}
         for arm, kw in arms.items():
             segs = [torch.zeros((), dtype=torch.int64, device=dev)
@@ -1001,17 +1035,9 @@ def phase_wave_rays(dev, sizes=(1 << 20, 1000 * 800)) -> dict:
             got = rays.wave_rays(d, with_rr=True, segs=segs[0], **kw)
             want = rays.wave_rays(d, with_rr=True, segs=segs[1], plain=True,
                                   **kw)
-            fields = ("dj", "unit", "inv_len", "gauss", "fresnel", "rr")
-            checks[arm] = {
-                "bitwise": all(bool(torch.equal(getattr(got, k),
-                                                getattr(want, k)))
-                               for k in fields),
-                "equal_share": {k: float((getattr(got, k) == getattr(
-                    want, k)).float().mean()) for k in fields},
-                "max_abs_err": max(float((getattr(got, k) - getattr(
-                    want, k)).abs().max()) for k in fields),
-                "segments": int(segs[0]), "segments_equal":
-                    int(segs[0]) == int(segs[1])}
+            checks[arm] = rays_agreement(got, want, done[arm])
+            checks[arm].update(segments=int(segs[0]),
+                               segments_equal=int(segs[0]) == int(segs[1]))
             wants[arm] = want
         checks["coherent_graph"] = coherent_graph_replay(d, s, dev)
         rec = {"lanes": n, "checks": checks,
@@ -1028,14 +1054,10 @@ def phase_wave_rays(dev, sizes=(1 << 20, 1000 * 800)) -> dict:
             args = rays.rays_args(d, out, draws, with_rr=True, segs=seg,
                                   **arms[arm])
             t = bare_times("rt_wave_rays", args, dev, "wave_rays_kernel")
-            want = wants[arm]
-            t["bare_launch_bitwise"] = bool(
-                torch.equal(out.dj, want.dj)
-                and torch.equal(out.unit, want.unit)
-                and torch.equal(out.inv_len, want.inv_len)
-                and torch.equal(draws[0:3], want.gauss)
-                and torch.equal(draws[3], want.fresnel)
-                and torch.equal(draws[4], want.rr))
+            t["bare_launch_bitwise"] = rays_agreement(
+                rays.WaveRays(out.dj, out.unit, out.inv_len, draws[0:3],
+                              draws[3], draws[4]),
+                wants[arm], done[arm])["bitwise"]
             kw = dict(arms[arm], with_rr=True)
             t.update(wrapper_ms=cuda_ms(lambda: rays.wave_rays(d, **kw), 20),
                      plain_ms=cuda_ms(lambda: rays.wave_rays(
@@ -1043,12 +1065,16 @@ def phase_wave_rays(dev, sizes=(1 << 20, 1000 * 800)) -> dict:
             return t
 
         rec.update(timed("regen"))
-        rec.update(bound(n * (16 + 8 + 12 + 48), n * OPS_RAYS))
-        rec["bound_ms_int32_rate"] = n * OPS_RAYS / (PEAK_OPS_PER_S / 2) * 1e3
+        # a finished lane reads its sample and writes its unit and inv_len
+        live = int((s < 20).sum())
+        rec.update(bound(live * (16 + 8 + 12 + 48) + (n - live) * 20,
+                         live * OPS_RAYS))
+        rec["bound_ms_int32_rate"] = \
+            live * OPS_RAYS / (PEAK_OPS_PER_S / 2) * 1e3
         nt = -(-n // 1024)
         coh = timed("coherent")
-        coh.update(bound(n * (4 + 12 + 48),
-                         n * OPS_COHERENT_LANE + 8 * nt * OPS_TILE_VALUE))
+        coh.update(bound(live * (4 + 12 + 48) + (n - live) * 20,
+                         live * OPS_COHERENT_LANE + 8 * nt * OPS_TILE_VALUE))
         coh["bound_share"] = coh["bound_ms"] / coh["ms"]
         rec["coherent"] = coh
         print(f"phase 8 rt_wave_rays vs plain, {n} lanes (regen, scan and "
@@ -1519,7 +1545,7 @@ def bounce_vs_plain(dev, ws, settings, pos, width, height, regen,
 
     from raytracer_tpu_torch.ops import bounce as tb
     st, inputs = bounce_lanes(dev, ws, settings, pos, width, height, regen)
-    kw = {"regen": regen, "park": regen}
+    kw = {"regen": regen}
     bitwise, max_abs, equal, total = True, 0.0, 0, 0
     for b in range(bounces):
         args = (ws.scene, settings) + inputs(b)
@@ -1569,6 +1595,37 @@ def fresh_launch_times(launch, restore, kernel: str,
     return {"ms": ms, "profiled_ms": dev_ms / repeats if dev_ms else None}
 
 
+def bounce_bytes(args, want) -> tuple:
+    """rt_wave_bounce's bytes bound on ``args`` (``wave_bounce``'s
+    positional arguments, the state third, K5's raw outputs fifth) and
+    the counts it rests on, from the plain version's result ``want``: a
+    live lane reads its state, pixel sum, traced direction, raw t and code
+    and 1 / |d| and writes its state (156 bytes); a live hit also reads
+    its material id, uv, centre or normal, Gaussian, smoothness and
+    Fresnel draw (44), its colour (12) on a colour texture or its texel
+    (12) on an image; a path end reads the lane's primary ray (24); a
+    finished lane reads its sample (4); the material table once."""
+    from raytracer_tpu_torch.ops.intersect_cuda import resolve
+    scene, settings, st = args[:3]
+    rec_hit, shade = resolve(args[4], st["o"], args[3], args[5],
+                             scene.needs_sphere_uv)
+    alive = st["sample_i"] < settings.rays_per_pixel
+    live = alive & rec_hit.hit
+    ends = int((want["sample_i"] != st["sample_i"]).sum())
+    ttype = scene.tex_type[shade.mat_id.long()]
+    n_alive = int(alive.sum())
+    n_bytes = (n_alive * 156 + (alive.numel() - n_alive) * 4
+               + 44 * int(live.sum()) + 24 * ends
+               + 12 * int((live & ((ttype == 0) | (ttype == 3))).sum())
+               + tensor_bytes(scene.mat_type, scene.mat_ior, scene.mat_emit,
+                              scene.tex_type, scene.tex_light,
+                              scene.tex_dark, scene.tex_nsq,
+                              scene.tex_offset, scene.tex_width,
+                              scene.tex_height))
+    return n_bytes, {"live_lanes": n_alive, "live_hits": int(live.sum()),
+                     "path_ends": ends}
+
+
 def phase_wave_bounce(dev, check_size=(256, 128),
                       time_size=(1000, 800)) -> dict:
     """Phase 19: rt_wave_bounce against its plain version on the card,
@@ -1579,12 +1636,7 @@ def phase_wave_bounce(dev, check_size=(256, 128),
     each from the same state (``fresh_launch_times``: ``ms``,
     ``profiled_ms``), through the wrapper on copies (``wrapper_ms``) and
     the plain version (``plain_ms``), beside its bytes bound counted on
-    these inputs: every lane reads its state, pixel sum, traced direction,
-    raw t and code and 1 / |d| and writes its state (156 bytes); a live
-    hit also reads its material id, uv, centre or normal, Gaussian,
-    smoothness and Fresnel draw (44), its colour (12) on a colour texture
-    or its texel (12) on an image; a path end reads the lane's primary ray
-    (24); the material table once. The stress100k cases feed it K6's raw
+    these inputs (``bounce_bytes``). The stress100k cases feed it K6's raw
     outputs, the others K5's."""
     import torch
 
@@ -1593,7 +1645,7 @@ def phase_wave_bounce(dev, check_size=(256, 128),
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.kernels import build
     from raytracer_tpu_torch.ops import bounce as tb
-    from raytracer_tpu_torch.ops.intersect_cuda import WaveScene, resolve
+    from raytracer_tpu_torch.ops.intersect_cuda import WaveScene
     w, h = check_size
     checks = {}
     for name, scene, sky, pos in bounce_scenes(dev):
@@ -1618,21 +1670,9 @@ def phase_wave_bounce(dev, check_size=(256, 128),
     for b in range(2):
         st.update(tb.wave_bounce(ws.scene, s, *inputs(b), regen=True))
     args = (ws.scene, s) + inputs(2)
-    rec_hit, shade = resolve(args[4], st["o"], args[3], args[5],
-                             scene.needs_sphere_uv)
-    hit = rec_hit.hit
     want = tb.wave_bounce_reference(*args, regen=True)
-    live = (st["sample_i"] < s.rays_per_pixel) & hit
-    ends = int((want["sample_i"] != st["sample_i"]).sum())
-    ttype = scene.tex_type[shade.mat_id.long()]
     n = w * h
-    n_bytes = (n * 156 + 44 * int(live.sum()) + 24 * ends
-               + 12 * int((live & ((ttype == 0) | (ttype == 3))).sum())
-               + tensor_bytes(scene.mat_type, scene.mat_ior, scene.mat_emit,
-                              scene.tex_type, scene.tex_light,
-                              scene.tex_dark, scene.tex_nsq,
-                              scene.tex_offset, scene.tex_width,
-                              scene.tex_height))
+    n_bytes, counts = bounce_bytes(args, want)
     timed = {k: v.clone() for k, v in st.items()}
     bare = tb.bounce_args(ws.scene, s, timed, *args[3:], regen=True)
     lib = build.load()
@@ -1648,7 +1688,7 @@ def phase_wave_bounce(dev, check_size=(256, 128),
     lib.rt_wave_bounce(ctypes.byref(bare), stream)
     rec["bare_launch_bitwise"] = all(
         bool(torch.equal(timed[k], want[k])) for k in want)
-    rec.update(lanes=n, live_hits=int(live.sum()), path_ends=ends,
+    rec.update(lanes=n, **counts,
                wrapper_ms=cuda_ms(lambda: tb.wave_bounce(
                    *args, regen=True), 20),
                plain_ms=cuda_ms(lambda: tb.wave_bounce_reference(
@@ -1664,6 +1704,164 @@ def phase_wave_bounce(dev, check_size=(256, 128),
                         if not v["bitwise"]}))
     check(rec["bare_launch_bitwise"], "rt_wave_bounce's bare launch differs")
     return rec
+
+
+# -- phase 20: finished regen lanes in the ray set-up, K5 and the bounce ----
+
+# the regen cells' scenes (perfbench/configs), camera positions and the
+# share of a frame's lane-iterations whose lane has finished (PERF.md §5)
+FINISHED_CELLS = {"rtiow_scene4": (4, {"num_spheres": 100, "seed": 0},
+                                   (0.0, 0.5, -6.0), 0.73),
+                  "earth_scene2": (2, {}, (0.0, 0.0, 0.0), 0.27)}
+
+
+def finished_state(st: dict, done, spp: int) -> dict:
+    """A copy of the regen state ``st`` with the lanes ``done`` finished
+    and parked, as the loop leaves a lane whose last sample ended."""
+    import torch
+
+    from raytracer_tpu_torch.ops.bounce import PARK_ORIGIN
+    out = {k: v.clone() for k, v in st.items()}
+    out["sample_i"] = torch.where(done, torch.clamp(st["sample_i"], min=spp),
+                                  st["sample_i"])
+    out["o"] = torch.where(done[None, :], PARK_ORIGIN, st["o"])
+    out["d"] = torch.where(done[None, :], torch.tensor(
+        [[1.0], [0.0], [0.0]], device=done.device), st["d"])
+    return out
+
+
+def k5_ms(ws, o, unit, repeats: int = 10):
+    """K5's device ms a launch on (o, unit) by the profiler, over
+    ``repeats`` ``hit_raw`` calls; None where it recorded none."""
+    from raytracer_tpu_torch.ops.intersect_cuda import hit_raw
+    rec = device_shares(lambda: [hit_raw(ws, o, unit)
+                                 for _ in range(repeats)],
+                        ("hit_resolve_kernel",))["hit_resolve_kernel"]
+    return rec["device_ms"] / rec["count"] if rec["count"] else None
+
+
+def phase_finished_lanes(dev, cell: str, width: int = 1000,
+                         height: int = 800, spp: int = 100) -> list:
+    """Phase 20: what a finished regen lane (sample_i >= spp: all its
+    samples traced) costs rt_wave_rays, K5 and rt_wave_bounce. The
+    width x height lanes of ``cell``'s scene at its regen cell's camera
+    and settings (FINISHED_CELLS; spp, 5 bounces, antialias, the sky where
+    the scene has one), run through the regen loop's iterations on the
+    kernel route. Four states, by the cell's finished share f: ``none``
+    (after 2 iterations, every lane live), ``loop`` (the loop's own state
+    at the first iteration with f or more of its lanes finished),
+    ``random`` (f of the lanes of ``none``, drawn at random, finished and
+    parked: nearly every warp mixed) and ``all`` (every lane of ``loop``
+    finished and parked). On each: rt_wave_rays bare on prebuilt
+    arguments (``bare_times``) beside its bound (a live lane's 84 bytes
+    and OPS_RAYS operations, a finished lane's 20 bytes), K5 by the
+    profiler's device time a launch over 10 ``hit_raw`` calls (on
+    ``loop`` also with its finished lanes unparked, on their primary
+    rays: ``k5_unparked_profiled_ms``), and rt_wave_bounce bare, each
+    launch from the same state (``fresh_launch_times``), beside
+    ``bounce_bytes``; both kernels' outputs held bitwise against the
+    plain versions (a finished lane's parked direction, its state
+    unchanged)."""
+    import ctypes
+
+    import torch
+
+    import raytracer_tpu_torch as rtt
+    from raytracer_tpu_torch.kernels import build
+    from raytracer_tpu_torch.ops import bounce as tb
+    from raytracer_tpu_torch.ops import integrator as integ
+    from raytracer_tpu_torch.ops import rays, rng
+    from raytracer_tpu_torch.ops.intersect_cuda import (WaveScene, hit_raw,
+                                                        unit_rays)
+    num, kwargs, pos, share = FINISHED_CELLS[cell]
+    scene, sky = rtt.build_scene(num, device=dev, **kwargs)
+    s = rtt.RenderSettings(rays_per_pixel=spp, reflect_limit=5,
+                           antialias=True, sampler="regen",
+                           sky_colour=(0.8, 1.0, 1.0)).with_sky(sky)
+    ws = WaveScene(scene)
+    o, d = camera_rays(width, height, dev, position=pos)
+    keys = rng.per_ray_keys(rng.frame_key(rng.key(0), 0),
+                            camera_order(width, height, dev))
+    route = integ._Route(ws, s, "pallas")
+    st = integ._regen_state(o, d, keys)
+    n = o.shape[1]
+    states, it = {}, 0
+    while it < spp * s.reflect_limit:
+        if it == 2:
+            states["none"] = ({k: v.clone() for k, v in st.items()}, it)
+        if float((st["sample_i"] >= spp).float().mean()) >= share:
+            states["loop"] = ({k: v.clone() for k, v in st.items()}, it)
+            break
+        integ._regen_iteration(route, st, it, False, False)
+        it += 1
+    gen = torch.Generator(device=dev).manual_seed(20)
+    pick = torch.rand(n, generator=gen, device=dev) < share
+    states["random"] = (finished_state(states["none"][0], pick, spp), 2)
+    states["all"] = (finished_state(
+        states["loop"][0], torch.ones(n, dtype=torch.bool, device=dev),
+        spp), states["loop"][1])
+    use_rr = s.russian_roulette > 0
+    rows = 8 if use_rr else 7
+    lib = build.load()
+    stream = ctypes.c_void_p(build.stream(dev))
+    recs = []
+    for name, (st0, at) in states.items():
+        done = st0["sample_i"] >= spp
+        live = int((~done).sum())
+        kw = dict(keys=keys, sample_i=st0["sample_i"], bounce=st0["bounce_i"],
+                  with_rr=use_rr, spp=spp)
+        seg = torch.zeros((), dtype=torch.int64, device=dev)
+        draws = torch.empty((rows - 3, n), device=dev)
+        out = rays.WaveRays(torch.empty_like(o), torch.empty_like(o),
+                            torch.empty(n, device=dev), draws[0:3], draws[3],
+                            draws[4] if use_rr else None)
+        args = rays.rays_args(st0["d"], out, draws, segs=seg, **kw)
+        rays_rec = bare_times("rt_wave_rays", args, dev, "wave_rays_kernel")
+        rays_rec.update(bound(live * 84 + (n - live) * 20, live * OPS_RAYS))
+        agree = rays_agreement(out, rays.wave_rays(st0["d"], plain=True,
+                                                   **kw), done)
+        rays_rec["bitwise"] = agree["bitwise"]
+        raw = hit_raw(ws, st0["o"], out.unit)
+        k5 = k5_ms(ws, st0["o"], out.unit)
+        k5_unparked = None
+        if name == "loop":  # the finished lanes on their primary rays
+            k5_unparked = k5_ms(
+                ws, torch.where(done[None, :], st0["o0p"], st0["o"]),
+                torch.where(done[None, :], unit_rays(st0["d0p"])[0],
+                            out.unit))
+        bargs = (scene, s, st0, out.dj, raw, out.inv_len, out.gauss,
+                 out.fresnel, out.rr)
+        want = tb.wave_bounce_reference(*bargs, regen=True)
+        n_bytes, counts = bounce_bytes(bargs, want)
+        timed = {k: v.clone() for k, v in st0.items()}
+        bare = tb.bounce_args(scene, s, timed, *bargs[3:], regen=True)
+
+        def restore():
+            for k, x in st0.items():
+                timed[k].copy_(x)
+        bounce_rec = fresh_launch_times(
+            lambda: lib.rt_wave_bounce(ctypes.byref(bare), stream), restore,
+            "wave_bounce_kernel")
+        restore()
+        lib.rt_wave_bounce(ctypes.byref(bare), stream)
+        bounce_rec["bitwise"] = all(
+            bool(torch.equal(timed[k], want[k]))
+            and bool(torch.equal(want[k][..., done], st0[k][..., done]))
+            for k in want)
+        bounce_rec.update(bound(n_bytes, 0.0), **counts)
+        recs.append({"state": name, "iteration": at, "lanes": n,
+                     "finished_share": 1.0 - live / n,
+                     "rt_wave_rays": rays_rec,
+                     "k5_profiled_ms": k5,
+                     "k5_unparked_profiled_ms": k5_unparked,
+                     "rt_wave_bounce": bounce_rec})
+    print(f"phase 20 finished regen lanes, {cell} {width}x{height} at "
+          f"{spp} spp ({cell}.regen's camera and settings): rt_wave_rays, "
+          "K5, rt_wave_bounce by state:", json.dumps(recs), flush=True)
+    check(all(r["rt_wave_rays"]["bitwise"] and r["rt_wave_bounce"]["bitwise"]
+              for r in recs),
+          "a finished-lane state differs from the plain versions")
+    return recs
 
 
 def fly_camera(i: int, width: int, height: int):
@@ -3235,6 +3433,8 @@ def main() -> int:
     k6_rec = phase_k6(dev, 1 << 16, 1 << 20)
     samplers = phase_samplers(dev, 256, 128)
     bounce_rec = phase_wave_bounce(dev)
+    for cell in FINISHED_CELLS:
+        phase_finished_lanes(dev, cell)
     paths = phase_wave_paths(dev)
     temporal = phase_temporal_vs_plain(dev, 256, 128)
     fly = phase_flythrough(dev)

@@ -17,9 +17,10 @@
 // gathered here: the wavefront's own layout, not K4's plane), the scatter
 // (ops/scatter.py), russian roulette, and, in its regen arm, the path end,
 // the pixel sum, the sample and bounce counters, the restart on the lane's
-// primary ray and the parking of exhausted lanes. One thread a lane, on
-// the (3, n) SoA state, updated in place, with the lane's randoms from
-// rt_wave_rays. Both arms (scan: an alive mask, no regeneration; regen)
+// primary ray and the parking of a lane as its last sample ends (a lane
+// that enters finished returns once its sample is loaded). One thread a
+// lane, on the (3, n) SoA state, updated in place, with the lane's randoms
+// from rt_wave_rays. Both arms (scan: an alive mask, no regeneration; regen)
 // are template arguments. Plain version: ops/bounce.py::
 // wave_bounce_reference.
 //
@@ -38,8 +39,10 @@
 // What bounds it on an H100: bytes. Each lane reads its state, the hit
 // kernel's raw outputs and its randoms once and writes its state once,
 // ~250 bytes a lane on the regen arm; the material rows and texels are
-// few and stay in L1/L2. The design does nothing else about it: a simple
-// kernel, one pass, no staging; the resolve costs no bytes of its own.
+// few and stay in L1/L2. The design: a simple kernel, one pass, no
+// staging; the resolve costs no bytes of its own; a finished regen lane
+// (sample_i >= spp) costs its 4-byte sample, since nothing it would read
+// or write changes its pixel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,7 +87,7 @@ struct RtBounceArgs {
   int bounce_const;  // scan arm: the bounce index russian roulette reads
   int rr_start;      // settings.russian_roulette (0: off)
   int limit, spp;
-  int fix_exit_ior, has_refractive, emissive_terminates, park;
+  int fix_exit_ior, has_refractive, emissive_terminates;
   int regen;      // 1: the regen arm, 0: the scan arm
   int blocked;    // 1: raw holds K6's 9 outputs
   int sphere_uv;  // scene.needs_sphere_uv: resolve the sphere UV
@@ -238,22 +241,25 @@ __global__ void __launch_bounds__(256)
     wave_bounce_kernel(const RtBounceArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
-  V3 o = load3(a.o, i);
-  V3 thru = load3(a.thru, i);
-  V3 rad = load3(a.rad, i);
-  const V3 dj = load3(a.dj, i);
-  float cur_ior = a.ior[i];
   int sample_i = 0, bounce_i = 0, bounces_done;
   bool alive;
   if (kRegen) {
     sample_i = a.sample[i];
+    // a finished lane (all its samples traced) keeps its state: it reads
+    // none of the hit kernel's outputs or its randoms and stores nothing
+    if (sample_i >= a.spp) return;
     bounce_i = a.bounce[i];
-    alive = sample_i < a.spp;
+    alive = true;
     bounces_done = bounce_i;
   } else {
     alive = a.alive[i] != 0;
     bounces_done = a.bounce_const;
   }
+  V3 o = load3(a.o, i);
+  V3 thru = load3(a.thru, i);
+  V3 rad = load3(a.rad, i);
+  const V3 dj = load3(a.dj, i);
+  float cur_ior = a.ior[i];
   const Resolved res = resolve<kBlocked, kSphereUV>(a, i, o, dj);
   const bool hit = res.hit;
 
@@ -397,8 +403,10 @@ __global__ void __launch_bounds__(256)
       rad = V3{0.0f, 0.0f, 0.0f};
       cur_ior = 1.0f;
     }
-    if (a.park && new_sample >= a.spp) {
-      // park exhausted lanes far away, pointing at nothing
+    if (new_sample >= a.spp) {
+      // park the lane its last path end finished far away: the ray set-up
+      // walks it from there along its park direction, which enters no
+      // box; d here is what rebin / lanesort bucket it by
       o = V3{kParkOrigin, kParkOrigin, kParkOrigin};
       d = V3{1.0f, 0.0f, 0.0f};
     }

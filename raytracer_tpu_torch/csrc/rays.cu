@@ -17,8 +17,12 @@
 // 1 / |d|, the plain version's two normalisations (the second length is
 // near 1, not 1). It writes the jittered direction, the unit direction,
 // 1 / |d| and the rows rt_wave_bounce reads (Gaussian x 3, Fresnel[,
-// russian roulette]); the jitter rows never leave registers. It also adds
-// the lanes that trace a segment this iteration to one int64: a block count
+// russian roulette]); the jitter rows never leave registers. A finished
+// regen lane (sample_i >= spp, no alive mask) skips all of it: it gets the
+// park walk's unit direction (kParkUnit) and 1 / |d| = 1, without its d
+// being read, so K5 / K6 walk it from the park origin the bounce moved it
+// to. It also adds the lanes that trace a segment this iteration to one
+// int64: a block count
 // (__syncthreads_count), then one atomic add a block (integers, so the
 // order does not matter). Under a replayed CUDA graph the coherent arm
 // reads the tile key and the iteration counter from device memory, and
@@ -27,8 +31,9 @@
 // iteration needs no other op. The hit kernels take any n, so nothing is
 // padded. Plain version: ops/rays.py::wave_rays_reference.
 //
-// What bounds it on an H100: operations, ~1500 a lane, most of them the
-// threefry rounds' integer adds, xors and shifts (the bytes: ~90 a lane).
+// What bounds it on an H100: operations, ~1500 a live lane, most of them
+// the threefry rounds' integer adds, xors and shifts (the bytes: ~90 a
+// lane); a finished lane reads its sample and writes 16 bytes.
 // What the design does about it: one pass, nothing staged; the jitter
 // rows are drawn only with antialias on and never stored, and the rows it
 // writes are the ones the bounce reads. The coherent arm's draw is a few
@@ -75,7 +80,10 @@ struct RtRaysArgs {
   float* unit[3];         // out: dj / |dj|
   float* inv_len;         // out: 1 / |dj|
   float* draws;           // out: (rows - 3, n) Gaussian x 3, Fresnel[, rr]
-  const unsigned char* alive;  // the count's lanes (scan), or null
+  const unsigned char* alive;  // the count's lanes (scan), or null; when
+                               // null, a lane with sample >= spp is
+                               // finished and only its unit (kParkUnit)
+                               // and inv_len (1) are written
   long long* segs;        // the lanes that trace a segment, added; or null
   // The coherent arm's tile key: (key0, key1), or, when key_dev is set,
   // fold_in((key_dev[0], key_dev[1]), iter_dev[0]) read when the kernel
@@ -104,6 +112,12 @@ struct RtTileArgs {
 namespace {
 
 constexpr int kThreads = 256;
+// A finished lane's unit direction (ops/rays.py PARK_UNIT): from the park
+// origin (1e13, 1e13, 1e13) away from the scene and along no axis. With a
+// zero component the hit kernels' exact triangle division divides by zero
+// on every triangle parallel to it (a box's walls), which IEEE division
+// takes on its slow path. Its squares sum to 1 in float32.
+constexpr float kParkUx = 0.6f, kParkUy = 0.64f, kParkUz = 0.48f;
 // The coherent arm's lanes a tile: tile_randoms' default, the tile the
 // JAX wavefront loop draws with (raytracer_tpu/ops/rng.py:104,
 // ops/integrator.py:266); ops/rays.py's TILE. A multiple of kThreads, so a
@@ -154,17 +168,30 @@ __global__ void __launch_bounds__(kThreads) wave_rays_kernel(
     const RtRaysArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in = i < a.n;
+  // a finished regen lane (sample_i >= spp) traces nothing: it draws
+  // nothing, and K5 / K6 walk it from the park origin rt_wave_bounce
+  // moved it to as its last path ended, along kParkUnit
+  const bool finished = in && a.alive == nullptr && a.sample != nullptr &&
+                        a.sample[i] >= a.spp;
   if (a.segs != nullptr) {  // the same for every thread of the grid
     const bool live = in && (a.alive != nullptr ? a.alive[i] != 0
-                                                : a.sample[i] < a.spp);
+                                                : !finished);
     const int count = __syncthreads_count(live);
     if (threadIdx.x == 0 && count > 0)
       atomicAdd(reinterpret_cast<unsigned long long*>(a.segs),
                 static_cast<unsigned long long>(count));
   }
   float jit[3] = {0.0f, 0.0f, 0.0f};
-  if (kCoherent) tile_draw(a, i, in, jit);  // every thread of the grid
+  // every thread of the grid: the block's barrier and ticket
+  if (kCoherent) tile_draw(a, i, in && !finished, jit);
   if (!in) return;
+  if (finished) {
+    a.unit[0][i] = kParkUx;
+    a.unit[1][i] = kParkUy;
+    a.unit[2][i] = kParkUz;
+    a.inv_len[i] = 1.0f;
+    return;
+  }
   const size_t n = static_cast<size_t>(a.n);
   if (!kCoherent) {
     uint32_t k0, k1;

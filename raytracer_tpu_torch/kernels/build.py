@@ -239,7 +239,7 @@ class BounceArgs(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in (
                     "n", "bounce_const", "rr_start", "limit", "spp",
                     "fix_exit_ior", "has_refractive", "emissive_terminates",
-                    "park", "regen", "blocked", "sphere_uv")])
+                    "regen", "blocked", "sphere_uv")])
 
 
 def scene_args(ps) -> SceneArgs:

@@ -7,10 +7,12 @@ the sky on a miss, the emission, the material lookup (ops/tables.py), the
 texture (ops/textures.py), the scatter (ops/scatter.py) and russian
 roulette (raytracer_tpu/ops/integrator.py:59-126); in the regen arm also
 the regeneration bookkeeping (:251-355): the path end, the pixel sum, the
-sample and bounce counters, the restart on the lane's primary ray and,
-for the samplers that regroup lanes, the parking of exhausted lanes. The
-scan arm keeps an alive mask and does no regeneration. The draws and the
-antialias jitter come before the hit, from the ray set-up
+sample and bounce counters, the restart on the lane's primary ray and the
+parking of a lane whose last sample ends (far away, where the hit
+kernels' walk along the ray set-up's ``PARK_UNIT`` enters no box). A lane
+that enters the bounce finished (``sample_i >= rays_per_pixel``) keeps its
+state. The scan arm keeps an alive mask and does no regeneration. The
+draws and the antialias jitter come before the hit, from the ray set-up
 (ops/rays.py), and the bounce reads their result.
 
 The lane state is a dict of tensors: ``o``, ``d``, ``thru``, ``rad``
@@ -54,8 +56,7 @@ _WRITES = {False: ("o", "d", "thru", "rad", "cur_ior", "alive"),
 def shade_bounce_reference(scene, settings, st: dict, dj: torch.Tensor,
                            hit: torch.Tensor, shade, gauss: torch.Tensor,
                            fresnel_u: torch.Tensor, rr_u=None, *,
-                           regen: bool = False, bounce: int = 0,
-                           park: bool = False) -> dict:
+                           regen: bool = False, bounce: int = 0) -> dict:
     """The bounce on a resolved hit: the new lane state (a dict of new
     tensors holding the keys the arm writes).
 
@@ -64,9 +65,10 @@ def shade_bounce_reference(scene, settings, st: dict, dj: torch.Tensor,
     HitRecord's hit mask and the ShadeData of the resolve;
     ``gauss`` (3, N), ``fresnel_u`` (N,) and ``rr_u`` (N,) or None: the
     lane randoms. ``regen``: the regen arm, whose lanes are active while
-    ``sample_i < rays_per_pixel``; else the scan arm, whose ``bounce`` is
-    the bounce index russian roulette reads. ``park``: park exhausted
-    lanes (the rebin and lanesort samplers)."""
+    ``sample_i < rays_per_pixel``, which parks a lane whose last sample
+    ends here and leaves a lane that enters finished as it was; else the
+    scan arm, whose ``bounce`` is the bounce index russian roulette
+    reads."""
     o, thru, rad, cur_ior = st["o"], st["thru"], st["rad"], st["cur_ior"]
     if regen:
         alive = st["sample_i"] < settings.rays_per_pixel
@@ -133,22 +135,23 @@ def shade_bounce_reference(scene, settings, st: dict, dj: torch.Tensor,
     thru = torch.where(restart, 1.0, thru)
     rad = torch.where(restart, 0.0, rad)
     cur_ior = torch.where(path_end, 1.0, cur_ior)
-    if park:
-        # park exhausted lanes far away, pointing at nothing
-        done = sample_i >= spp
-        park_d = torch.tensor([1.0, 0.0, 0.0], device=o.device)[:, None]
-        o = torch.where(done[None, :], PARK_ORIGIN, o)
-        d = torch.where(done[None, :], park_d, d)
-    return {"o": o, "d": d, "thru": thru, "rad": rad, "cur_ior": cur_ior,
-            "pixel_sum": pixel_sum, "sample_i": sample_i,
-            "bounce_i": bounce_i}
+    # park finished lanes far away (rebin / lanesort bucket them by d)
+    done = sample_i >= spp
+    park_d = torch.tensor([1.0, 0.0, 0.0], device=o.device)[:, None]
+    o = torch.where(done[None, :], PARK_ORIGIN, o)
+    d = torch.where(done[None, :], park_d, d)
+    out = {"o": o, "d": d, "thru": thru, "rad": rad, "cur_ior": cur_ior,
+           "pixel_sum": pixel_sum, "sample_i": sample_i,
+           "bounce_i": bounce_i}
+    # a lane that entered finished keeps its state, as in rt_wave_bounce
+    return {k: torch.where(active if x.dim() == 1 else active[None, :], x,
+                           st[k]) for k, x in out.items()}
 
 
 def wave_bounce_reference(scene, settings, st: dict, dj: torch.Tensor,
                           raw, inv_len: torch.Tensor, gauss: torch.Tensor,
                           fresnel_u: torch.Tensor, rr_u=None, *,
-                          regen: bool = False, bounce: int = 0,
-                          park: bool = False) -> dict:
+                          regen: bool = False, bounce: int = 0) -> dict:
     """Plain version of ``rt_wave_bounce``: ``intersect_cuda.resolve`` of
     the hit kernel's raw outputs ``raw`` (K5's 12 or K6's 9, from the
     state's ``o`` along ``dj``'s unit direction, ``inv_len`` = 1 / |dj|,
@@ -158,7 +161,7 @@ def wave_bounce_reference(scene, settings, st: dict, dj: torch.Tensor,
                          bool(scene.needs_sphere_uv))
     return shade_bounce_reference(scene, settings, st, dj, rec.hit, shade,
                                   gauss, fresnel_u, rr_u, regen=regen,
-                                  bounce=bounce, park=park)
+                                  bounce=bounce)
 
 
 def _rows(x: torch.Tensor, rows: int, what: str):
@@ -182,8 +185,7 @@ _RAW_DTYPES = {12: _K5_DTYPES, 9: _K6_DTYPES}
 
 
 def bounce_args(scene, settings, st, dj, raw, inv_len, gauss, fresnel_u,
-                rr_u=None, *, regen: bool = False, bounce: int = 0,
-                park: bool = False):
+                rr_u=None, *, regen: bool = False, bounce: int = 0):
     """``rt_wave_bounce``'s argument struct over the state ``st`` (updated
     in place by the launch) and this bounce's inputs; checks what the
     kernel reads. The caller keeps the tensors alive across the launch."""
@@ -239,7 +241,6 @@ def bounce_args(scene, settings, st, dj, raw, inv_len, gauss, fresnel_u,
     args.fix_exit_ior = int(settings.fix_exit_ior)
     args.has_refractive = int(bool(scene.has_refractive))
     args.emissive_terminates = int(settings.emissive_terminates)
-    args.park = int(park)
     args.regen = int(regen)
     args.blocked = int(len(raw) == 9)
     args.sphere_uv = int(bool(scene.needs_sphere_uv))
@@ -260,7 +261,7 @@ def _wave_bounce_cuda(scene, settings, st, *args, **kw) -> None:
 
 def wave_bounce(scene, settings, st: dict, dj, raw, inv_len, gauss,
                 fresnel_u, rr_u=None, *, regen: bool = False,
-                bounce: int = 0, park: bool = False, plain: bool = False,
+                bounce: int = 0, plain: bool = False,
                 inplace: bool = False) -> dict:
     """One bounce after the hit (arguments as ``wave_bounce_reference``):
     the new lane state, the keys the arm writes. CPU tensors, or
@@ -272,7 +273,7 @@ def wave_bounce(scene, settings, st: dict, dj, raw, inv_len, gauss,
     if dev.type == "cpu" or plain:
         out = wave_bounce_reference(scene, settings, st, dj, raw, inv_len,
                                     gauss, fresnel_u, rr_u, regen=regen,
-                                    bounce=bounce, park=park)
+                                    bounce=bounce)
         if not inplace:
             return out
         for k, x in out.items():
@@ -282,6 +283,5 @@ def wave_bounce(scene, settings, st: dict, dj, raw, inv_len, gauss,
         raise ValueError(f"no bounce kernel for device {dev}")
     out = {k: st[k] if inplace else st[k].clone() for k in _WRITES[regen]}
     _wave_bounce_cuda(scene, settings, {**st, **out}, dj, raw, inv_len,
-                      gauss, fresnel_u, rr_u, regen=regen, bounce=bounce,
-                      park=park)
+                      gauss, fresnel_u, rr_u, regen=regen, bounce=bounce)
     return out

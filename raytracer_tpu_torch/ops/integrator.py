@@ -9,7 +9,8 @@ rays as (3, N) tensors and run one bounce of every lane per step:
   the transcription of the reference's nested loops
   (src/raytracer.cu:71,102);
 - ``regen``: one loop in which a lane whose path ends restarts on its
-  pixel's next sample (``_render_regen_soa``);
+  pixel's next sample (``_render_regen_soa``); a lane whose samples are
+  all traced is parked and skipped (``LANE_ITERATIONS``);
 - ``rebin`` / ``lanesort``: regen with the lanes regrouped by origin cell
   and direction octant after every bounce, by 128-lane rows or by ray
   (ops/rebin.py). Random streams are keyed by pixel and ride the
@@ -64,6 +65,13 @@ BACKENDS = ("pallas", "plain", "xla", "woop")
 # nothing. On the card each look is followed by the replay of one graph of
 # this many iterations (or of the rest up to the cap).
 EXIT_CHECK_EVERY = 8
+# Lane-iterations the regen loop has run or replayed: N x k for every
+# block of k iterations, added on the host with no sync. Over a stretch of
+# frames, 1 - segments / LANE_ITERATIONS is the share of lane-iterations
+# that found their lane finished (``sample_i >= spp``): parked, so the hit
+# kernels' walk enters no box, and skipped by the ray set-up and the
+# bounce.
+LANE_ITERATIONS = 0
 # what rebin and lanesort regroup each iteration, besides ``home``
 _REGROUPED = ("o", "d", "thru", "rad", "pixel_sum", "o0p", "d0p",
               "cur_ior", "kd", "bounce_i", "sample_i")
@@ -108,15 +116,16 @@ def _rays(route: _Route, st: dict, **kw):
 
 
 def _bounce(route: _Route, st: dict, rays, *, regen: bool,
-            bounce: int = 0, park: bool = False) -> None:
+            bounce: int = 0) -> None:
     """One bounce of every lane of ``st`` (integrator.py:59-126) on the
     iteration's ``rays`` (``wave_rays``): the nearest hit (K5 / K6 on the
     kernel route, their raw outputs), then ``wave_bounce``
-    (``rt_wave_bounce``: the resolve and the bounce). The oracles resolve
-    their own hits (ops/intersect.py) and take ``shade_bounce_reference``."""
+    (``rt_wave_bounce``: the resolve and the bounce; the regen arm parks
+    a lane as its last sample ends). The oracles resolve their own hits
+    (ops/intersect.py) and take ``shade_bounce_reference``."""
     settings, ws = route.settings, route.ws
     scene = ws.scene
-    kw = dict(regen=regen, bounce=bounce, park=park)
+    kw = dict(regen=regen, bounce=bounce)
     if route.backend in ("pallas", "plain"):
         raw = hit_raw(ws, st["o"], rays.unit, plain=route.plain)
         st.update(wave_bounce(
@@ -286,7 +295,7 @@ def _regen_iteration(route: _Route, st: dict, it: int, rebin: bool,
     else:
         rays = _rays(route, st, keys=st["kd"], sample_i=st["sample_i"],
                      bounce=st["bounce_i"])
-    _bounce(route, st, rays, regen=True, park=rebin or lane_sort)
+    _bounce(route, st, rays, regen=True)
     if not (rebin or lane_sort):
         return
     done = st["sample_i"] >= spp
@@ -376,6 +385,7 @@ def _render_regen_soa(ws: WaveScene, settings: RenderSettings, ray_idx,
     On the card (the kernel route) the iterations replay CUDA graphs that
     ``ws`` caches per (N, settings, backend): one of EXIT_CHECK_EVERY
     iterations between two looks for the end, as the eager loop looks."""
+    global LANE_ITERATIONS
     spp = settings.rays_per_pixel
     cap = spp * settings.reflect_limit
     n = o0.shape[1]
@@ -419,6 +429,7 @@ def _render_regen_soa(ws: WaveScene, settings: RenderSettings, ray_idx,
         with span("regen.replay"):
             step(it, k)
         it += k
+        LANE_ITERATIONS += n * k
 
     with span("regen.finish"):
         pixel_sum = st["pixel_sum"]

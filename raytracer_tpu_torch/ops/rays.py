@@ -11,6 +11,10 @@ jitters and renormalises the direction, normalises it again for the hit
 kernel and writes what K5 / K6 and ``rt_wave_bounce`` read: the traced
 direction ``dj``, its unit direction and 1 / |dj|, and the Gaussian,
 Fresnel and russian-roulette draws. The jitter rows stay in registers.
+A finished regen lane (``sample_i >= spp``) draws nothing: it gets the
+unit direction ``PARK_UNIT`` and 1 / |dj| = 1, which K5 / K6 walk from
+the park origin ``rt_wave_bounce`` moved it to, and its ``dj`` and draws
+are left unwritten.
 It also adds the iteration's traced segments to a counter in device
 memory and, under a replayed CUDA graph, advances the coherent draw's
 iteration counter there: a coherent iteration is three kernels, as a
@@ -47,6 +51,12 @@ JITTER_SCALE = float(np.float32(2.0 * ANTIALIAS_OFFSET_RANGE))
 # JAX wavefront loop draws with (raytracer_tpu/ops/integrator.py:266), and
 # csrc/rays.cu's kCoherentTile.
 TILE = 1024
+# A finished lane's unit direction (csrc/rays.cu kParkUnit): from the park
+# origin away from the scene and along no axis, since a zero component
+# sends the hit kernels' triangle division by zero on every triangle
+# parallel to it, IEEE division's slow path. Its squares sum to 1 in
+# float32.
+PARK_UNIT = (0.6, 0.64, 0.48)
 
 
 @dataclasses.dataclass
@@ -66,11 +76,26 @@ class WaveRays:
     rr: torch.Tensor = None
 
 
-def _count(segs, alive, sample_i, spp) -> None:
+def _finished(alive, sample_i, spp):
+    """The finished regen lanes, ``sample_i >= spp`` ((N,) bool), or None:
+    an alive mask, no sample or no ``spp`` finishes no lane."""
+    if alive is not None or sample_i is None or spp is None:
+        return None
+    return sample_i >= spp
+
+
+def _check_count(segs, alive, sample_i, spp) -> None:
+    if segs is not None and alive is None and (sample_i is None
+                                               or spp is None):
+        raise ValueError("counting segments needs alive, or sample_i and "
+                         "spp")
+
+
+def _count(segs, alive, done) -> None:
     """Add the lanes that trace a segment to ``segs``: ``alive``'s, else
-    those with ``sample_i < spp``."""
+    those not ``done``."""
     if segs is not None:
-        segs.add_((alive if alive is not None else sample_i < spp).sum())
+        segs.add_((alive if alive is not None else ~done).sum())
 
 
 def _tile_rows(n, with_rr, tile_key, key_dev, iter_dev, device):
@@ -88,9 +113,12 @@ def wave_rays_reference(d: torch.Tensor, *, keys=None, sample_i=None,
                         bounce=0, tile_key=None, key_dev=None,
                         iter_dev=None, antialias: bool = True,
                         with_rr: bool = False, segs=None, alive=None,
-                        spp: int = 0) -> WaveRays:
-    """Plain version of ``rt_wave_rays`` (arguments as ``wave_rays``)."""
-    _count(segs, alive, sample_i, spp)
+                        spp=None) -> WaveRays:
+    """Plain version of ``rt_wave_rays`` (arguments as ``wave_rays``): a
+    finished lane's ``dj`` and draws are computed as a live lane's, which
+    the kernel leaves unwritten."""
+    done = _finished(alive, sample_i, spp)
+    _count(segs, alive, done)
     if keys is not None:
         if not isinstance(bounce, torch.Tensor):
             bounce = torch.full((d.shape[1],), int(bounce),
@@ -101,6 +129,10 @@ def wave_rays_reference(d: torch.Tensor, *, keys=None, sample_i=None,
                            iter_dev, d.device)
     dj = antialias_jitter(drawn[0:3], d) if antialias else d
     unit, inv_len = unit_rays(dj)
+    if done is not None:
+        park = torch.tensor(PARK_UNIT, device=d.device)[:, None]
+        unit = torch.where(done[None, :], park, unit)
+        inv_len = torch.where(done, 1.0, inv_len)
     return WaveRays(dj, unit, inv_len, drawn[3:6], drawn[6],
                     drawn[7] if with_rr else None)
 
@@ -120,13 +152,14 @@ def _rows3(x: torch.Tensor) -> list:
 def rays_args(d, out: WaveRays, draws, *, keys=None, sample_i=None,
               bounce=0, tile_key=None, key_dev=None, iter_dev=None,
               antialias=True, with_rr=False, segs=None, alive=None,
-              spp=0):
+              spp=None):
     """``rt_wave_rays``' argument struct: inputs as ``wave_rays`` (the
     per-lane ``keys`` or the tile key), outputs ``out``'s tensors and
     ``draws`` (the (rows - 3, N) buffer ``out``'s draws view). Checks what
     the kernel reads; the caller keeps the tensors alive across the
     launch."""
     from ..kernels import build
+    _check_count(segs, alive, sample_i, spp)
     n = d.shape[1]
     rows = 8 if with_rr else 7
     a = build.RaysArgs()
@@ -155,9 +188,9 @@ def rays_args(d, out: WaveRays, draws, *, keys=None, sample_i=None,
         a.segs = _ptr(segs, torch.int64, (), "segs")
         if alive is not None:
             a.alive = _ptr(alive, torch.bool, (n,), "alive")
-        elif sample_i is None:
-            raise ValueError("counting segments needs alive or sample_i")
-    a.n, a.rows, a.spp, a.antialias = n, rows, int(spp), int(antialias)
+    a.n, a.rows, a.antialias = n, rows, int(antialias)
+    # without spp no lane is finished
+    a.spp = np.iinfo(np.int32).max if spp is None else int(spp)
     a.jitter_scale = JITTER_SCALE
     return a
 
@@ -188,7 +221,7 @@ def _wave_rays_cuda(d, **kw) -> WaveRays:
 def wave_rays(d: torch.Tensor, *, keys=None, sample_i=None, bounce=0,
               tile_key=None, key_dev=None, iter_dev=None,
               antialias: bool = True, with_rr: bool = False, segs=None,
-              alive=None, spp: int = 0, plain: bool = False) -> WaveRays:
+              alive=None, spp=None, plain: bool = False) -> WaveRays:
     """One wavefront iteration's ray set-up for the lanes' directions
     ``d`` ((3, N) float32, rows contiguous).
 
@@ -207,7 +240,10 @@ def wave_rays(d: torch.Tensor, *, keys=None, sample_i=None, bounce=0,
     ``antialias``: jitter ``d`` (else it is traced as it is); ``with_rr``:
     draw the russian-roulette row. ``segs`` (a 0-dim int64 tensor, or
     None) gets the lanes that trace a segment added: those of ``alive``
-    ((N,) bool), else those with ``sample_i < spp``.
+    ((N,) bool), else those with ``sample_i < spp``. Without ``alive``, a
+    lane with ``sample_i >= spp`` (an int, or None: no lane) is finished:
+    its ``unit`` is ``PARK_UNIT`` and its ``inv_len`` 1, and its ``dj``
+    and draws are unspecified (the kernel writes neither).
 
     CPU tensors, or ``plain=True`` on any device, take
     ``wave_rays_reference``; CUDA tensors launch ``rt_wave_rays`` (or
@@ -229,6 +265,7 @@ def wave_rays(d: torch.Tensor, *, keys=None, sample_i=None, bounce=0,
         raise ValueError(f"key_dev and iter_dev must be on d's device "
                          f"{d.device}, got {key_dev.device} and "
                          f"{iter_dev.device}")
+    _check_count(segs, alive, sample_i, spp)
     kw = dict(keys=keys, sample_i=sample_i, bounce=bounce,
               tile_key=tile_key, key_dev=key_dev, iter_dev=iter_dev,
               antialias=antialias, with_rr=with_rr, segs=segs,

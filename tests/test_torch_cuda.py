@@ -929,7 +929,8 @@ def _bounce_vs_plain(dev, scene, s, pos, regen, blocked=None, bounces=4):
     for b in range(bounces):
         if regen:
             rays = wave_rays(st["d"], keys=keys, sample_i=st["sample_i"],
-                             bounce=st["bounce_i"], with_rr=use_rr)
+                             bounce=st["bounce_i"], with_rr=use_rr,
+                             spp=s.rays_per_pixel)
         else:
             rays = wave_rays(st["d"], keys=keys, bounce=b, with_rr=use_rr)
         raw = hit_raw(ws, st["o"], rays.unit)
@@ -937,11 +938,10 @@ def _bounce_vs_plain(dev, scene, s, pos, regen, blocked=None, bounces=4):
         args = (scene, s, st, rays.dj, raw, rays.inv_len, rays.gauss,
                 rays.fresnel, rays.rr)
         before = tb.LAUNCHES
-        got = tb.wave_bounce(*args, regen=regen, bounce=b, park=regen)
+        got = tb.wave_bounce(*args, regen=regen, bounce=b)
         torch.cuda.synchronize()
         assert tb.LAUNCHES == before + 1
-        want = tb.wave_bounce_reference(*args, regen=regen, bounce=b,
-                                        park=regen)
+        want = tb.wave_bounce_reference(*args, regen=regen, bounce=b)
         assert sorted(got) == sorted(want)
         for k in want:
             assert torch.equal(got[k], want[k]), k
@@ -976,6 +976,27 @@ def test_wave_bounce_kernel_on_k6_raw(dev, num, arm):
                      blocked=True)
 
 
+def _rays_equal(got, want, done=None):
+    """rt_wave_rays' outputs bitwise the plain version's: every output of
+    a live lane; a finished lane's (``done``) unit direction and 1 / |d|,
+    ``PARK_UNIT`` and 1 (its dj and draws are unspecified)."""
+    from raytracer_tpu_torch.ops.rays import PARK_UNIT
+    live = slice(None) if done is None else ~done
+    for k in ("dj", "unit", "inv_len", "gauss", "fresnel", "rr"):
+        a, w = getattr(got, k), getattr(want, k)
+        if w is None:
+            assert a is None, k
+        else:
+            assert a.shape == w.shape, k
+            assert torch.equal(a[..., live], w[..., live]), k
+    if done is not None:
+        m = int(done.sum())
+        assert torch.equal(got.unit[:, done], torch.tensor(
+            PARK_UNIT, device=done.device)[:, None].expand(3, m))
+        assert torch.equal(got.inv_len[done],
+                           torch.ones(m, device=done.device))
+
+
 @pytest.mark.parametrize("coherent", [False, True])
 @pytest.mark.parametrize("with_rr", [False, True])
 @pytest.mark.parametrize("antialias", [True, False])
@@ -986,7 +1007,8 @@ def test_wave_rays_kernel_matches_plain(dev, antialias, with_rr, coherent):
     the alive mask counted) and the coherent arm (the 1024-lane tile's
     bundle drawn in the kernel under a host tile key, counting by the
     sample or by the alive mask); one launch each, every output and the
-    segment count equal."""
+    segment count equal (a finished lane, sample_i >= spp: the park
+    walk's direction)."""
     from raytracer_tpu_torch.ops import rays as trays
     n = 200_000
     g = np.random.default_rng(12)
@@ -1014,12 +1036,8 @@ def test_wave_rays_kernel_matches_plain(dev, antialias, with_rr, coherent):
         want = trays.wave_rays(d, antialias=antialias, with_rr=with_rr,
                                segs=segs[1], plain=True, **kw)
         assert trays.LAUNCHES == before + 1
-        for k in ("dj", "unit", "inv_len", "gauss", "fresnel", "rr"):
-            a, w = getattr(got, k), getattr(want, k)
-            if w is None:
-                assert a is None, k
-            else:
-                assert a.shape == w.shape and torch.equal(a, w), k
+        done = s >= 20 if "spp" in kw else None
+        _rays_equal(got, want, done)
         assert int(segs[0]) == int(segs[1]) > 0
 
 
@@ -1054,8 +1072,7 @@ def test_coherent_wave_rays_graph_replay(dev, n):
         assert iter_dev.tolist() == [it + 1, 0]
         want = trays.wave_rays(d, tile_key=trng.fold_in(k, it), plain=True,
                                **dict(kw, segs=None))
-        for name in ("dj", "unit", "inv_len", "gauss", "fresnel", "rr"):
-            assert torch.equal(getattr(got, name), getattr(want, name)), name
+        _rays_equal(got, want, s >= 20)
         assert int(segs) == int((s < 20).sum())
 
 
@@ -1176,3 +1193,136 @@ def test_regen_frame_launches_three_kernels_an_iteration(dev, num):
              trng.LAUNCHES, trng.TILE_LAUNCHES)
     assert [a - b for a, b in zip(after, before)] == [8, 8, 8, 0, 0]
     assert r.packed_scene.blocked == (num == "stress")
+
+
+# -- finished regen lanes: skipped by the ray set-up and the bounce ----------
+
+FINISHED_CASES = ["none", "half", "all", "one_block"]
+
+
+def _finished_lanes(dev, case):
+    """Scene 4's 128x64 regen lanes (32 blocks of 256) after two plain
+    iterations at 4 spp, 5 bounces, russian roulette from bounce 2; then
+    the lanes of ``case`` finished (sample_i = spp) and parked, as the
+    loop leaves them: none, every other lane (each block holds both
+    kinds), all, or the first half of block 5 alone."""
+    from raytracer_tpu_torch.ops import bounce as tb
+    from raytracer_tpu_torch.ops import integrator as tint
+    from raytracer_tpu_torch.ops.intersect_cuda import WaveScene
+    scene, sky = rtt.build_scene(4, seed=0, device=dev)
+    s = rtt.RenderSettings(rays_per_pixel=4, reflect_limit=5,
+                           sampler="regen", russian_roulette=2).with_sky(sky)
+    o, d = _rays(dev, 128, 64, position=(0.0, 0.5, -6.0))
+    n = o.shape[1]
+    keys = trng.per_ray_keys(trng.key(9), torch.arange(n, device=dev))
+    ws = WaveScene(scene)
+    route = tint._Route(ws, s, "plain")
+    st = tint._regen_state(o, d, keys)
+    for it in range(2):
+        tint._regen_iteration(route, st, it, False, False)
+    done = torch.zeros(n, dtype=torch.bool, device=dev)
+    if case == "half":
+        done[1::2] = True
+    elif case == "all":
+        done[:] = True
+    elif case == "one_block":
+        done[5 * 256:5 * 256 + 128] = True
+    st["sample_i"] = torch.where(done, s.rays_per_pixel, st["sample_i"])
+    st["o"] = torch.where(done[None, :], tb.PARK_ORIGIN, st["o"])
+    st["d"] = torch.where(done[None, :], torch.tensor(
+        [[1.0], [0.0], [0.0]], device=dev), st["d"])
+    return ws, s, keys, st, done
+
+
+@pytest.mark.parametrize("coherent", [False, True])
+@pytest.mark.parametrize("case", FINISHED_CASES)
+def test_finished_lanes_match_plain(dev, case, coherent):
+    """rt_wave_rays (per-lane or coherent arm) and rt_wave_bounce (regen
+    arm, which parks) bitwise their plain versions with none, half
+    (interleaved), all or half of one block of the lanes finished: the
+    ray set-up gives a finished lane the unit direction ``PARK_UNIT``
+    and 1 / |d| = 1 and counts only live lanes; the bounce leaves a
+    finished lane's state as it was; two iterations, K5 between."""
+    from raytracer_tpu_torch.ops import bounce as tb
+    from raytracer_tpu_torch.ops.intersect_cuda import hit_raw
+    from raytracer_tpu_torch.ops.rays import wave_rays
+    ws, s, keys, st, done = _finished_lanes(dev, case)
+    spp = s.rays_per_pixel
+    for it in range(2):
+        done = st["sample_i"] >= spp
+        if coherent:
+            kw = dict(tile_key=trng.fold_in(trng.key(4), it))
+        else:
+            kw = dict(keys=keys, bounce=st["bounce_i"])
+        segs = [torch.zeros((), dtype=torch.int64, device=dev)
+                for _ in range(2)]
+        got = wave_rays(st["d"], sample_i=st["sample_i"], spp=spp,
+                        with_rr=True, segs=segs[0], **kw)
+        want = wave_rays(st["d"], sample_i=st["sample_i"], spp=spp,
+                         with_rr=True, segs=segs[1], plain=True, **kw)
+        torch.cuda.synchronize()
+        _rays_equal(got, want, done)
+        assert int(segs[0]) == int(segs[1]) == int((~done).sum())
+        raw = hit_raw(ws, st["o"], got.unit)
+        args = (ws.scene, s, st, got.dj, raw, got.inv_len, got.gauss,
+                got.fresnel, got.rr)
+        new = tb.wave_bounce(*args, regen=True)
+        ref = tb.wave_bounce_reference(*args, regen=True)
+        for k in ref:
+            assert torch.equal(new[k], ref[k]), k
+            assert torch.equal(new[k][..., done], st[k][..., done]), k
+        st.update(new)
+
+
+GRAPH_FINISHED_CASES = [("regen", False), ("regen", True), ("rebin", False),
+                        ("lanesort", False)]
+
+
+@pytest.mark.parametrize("sampler,coherent", GRAPH_FINISHED_CASES)
+def test_graph_frame_lanes_match_plain_route(dev, monkeypatch, sampler,
+                                             coherent):
+    """A graph-replayed frame (scene 4, 64x32, 3 spp, 4 bounces: a block
+    of 8 iterations and one of 4) against the eager plain route: the
+    film bitwise, the segments equal, every lane's final ``sample_i``
+    equal and every finished lane parked in both, and
+    ``LANE_ITERATIONS`` grown by N x 12 on each."""
+    from raytracer_tpu_torch.ops import bounce as tb
+    from raytracer_tpu_torch.ops import integrator as tint
+    from raytracer_tpu_torch.ops.intersect_cuda import WaveScene
+    scene, sky = rtt.build_scene(4, seed=0, device=dev)
+    s = rtt.RenderSettings(rays_per_pixel=3, reflect_limit=4,
+                           sampler=sampler, coherent=coherent,
+                           russian_roulette=2).with_sky(sky)
+    o, d = _rays(dev, 64, 32, position=(0.0, 0.5, -6.0))
+    o, d = o.T.contiguous(), d.T.contiguous()
+    n = o.shape[0]
+    idx = torch.as_tensor(tcam.morton_order(64, 32), device=dev)
+    fkey = trng.frame_key(trng.key(1), 0)
+    ws = WaveScene(scene)
+    states = []
+    regen_state = tint._regen_state
+    monkeypatch.setattr(tint, "_regen_state",
+                        lambda *a: states.append(regen_state(*a))
+                        or states[-1])
+    out = {}
+    for route in ("graph", "plain"):
+        before = tint.LANE_ITERATIONS
+        mean, segs = tint.render_sample_mean(
+            ws, s, o, d, fkey, ray_idx=idx,
+            backend="pallas" if route == "graph" else "plain")
+        torch.cuda.synchronize()
+        assert tint.LANE_ITERATIONS - before == n * 12
+        st = (ws.graphs[("regen", n, s, "pallas")].st if route == "graph"
+              else states[-1])
+        out[route] = (mean.clone(), float(segs), st["sample_i"].clone(),
+                      st["o"].clone(), st["d"].clone())
+    (gm, gs, gi, go, gd), (pm, ps, pi, po, pd) = out["graph"], out["plain"]
+    assert torch.equal(gm, pm) and gs == ps
+    assert torch.equal(gi, pi)
+    done = gi >= s.rays_per_pixel
+    assert bool(done.any())
+    for x in (go, po):
+        assert bool((x[:, done] == tb.PARK_ORIGIN).all())
+    for x in (gd, pd):
+        assert torch.equal(x[:, done], torch.tensor(
+            [[1.0], [0.0], [0.0]], device=dev).expand(3, int(done.sum())))

@@ -335,7 +335,7 @@ def todays_bounce_vs_reference(num, arm, variant, blocked=False):
     on the raw outputs of K5 (K6 with ``blocked``), from the new ray set-up,
     against today's composition on today's draws: the scan arm against
     ``_todays_bounce``, the regen arm against it plus today's regeneration
-    bookkeeping (parking on: the rebin / lanesort arm)."""
+    bookkeeping (the regen arm parks a lane as its last sample ends)."""
     from raytracer_tpu_torch.ops.rays import wave_rays
     scene, sky = _scene(num)
     settings = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=3,
@@ -372,7 +372,7 @@ def todays_bounce_vs_reference(num, arm, variant, blocked=False):
         assert len(raw) == (9 if blocked else 12)
         got = tb.wave_bounce_reference(
             scene, settings, st, rays.dj, raw, rays.inv_len, rays.gauss,
-            rays.fresnel, rays.rr, regen=regen, bounce=b, park=regen)
+            rays.fresnel, rays.rr, regen=regen, bounce=b)
         o2, d2, thru, rad, ior, cont = _todays_bounce(
             ws, settings, "pallas", _sky(settings), st["o"], st["d"],
             st["thru"], st["rad"], alive, st["cur_ior"], *drawn[:3],
@@ -654,3 +654,84 @@ def test_tile_randoms_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         trng.tile_randoms_reference(k, 100)
     assert trng.tile_randoms(k, 100, device="cpu")[0].device.type == "cpu"
+
+
+# -- finished lanes: kept, parked, counted -----------------------------------
+
+def _by_lane(st: dict, sampler: str) -> dict:
+    """The regen state indexed by original lane: rebin moves 128-lane rows
+    (``home`` per row), lanesort lanes (``home`` per lane)."""
+    n = st["o"].shape[1]
+    if sampler == "lanesort":
+        orig = st["home"]
+    elif sampler == "rebin":
+        orig = (st["home"][:, None] * LANES
+                + torch.arange(LANES)[None, :]).reshape(-1)
+    else:
+        orig = torch.arange(n)
+    pos = torch.empty_like(orig)
+    pos[orig] = torch.arange(n)
+    return {k: x[..., pos] for k, x in st.items()
+            if k not in ("segs", "home")}
+
+
+@pytest.mark.parametrize("sampler", ["regen", "rebin", "lanesort"])
+def test_finished_lanes_keep_their_state(sampler):
+    """The plain regen iteration, lane by lane (scene 4, 64x32: 16 rows,
+    so rebin and lanesort regroup; 2 spp, 3 bounces, russian roulette): a
+    lane that enters an iteration finished leaves it with every state row
+    as it was; a lane that finishes in it is parked (``PARK_ORIGIN``,
+    direction (1, 0, 0)), in regen as in rebin and lanesort."""
+    scene, sky = _scene(4)
+    s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=3,
+                           sampler=sampler, russian_roulette=1).with_sky(sky)
+    o, d, idx = _rays(4, 64, 32)
+    o, d = o.T.contiguous(), d.T.contiguous()
+    n = o.shape[1]
+    rebin, lane_sort = sampler == "rebin", sampler == "lanesort"
+    home = (n if lane_sort else n // LANES) if rebin or lane_sort else None
+    st = tint._regen_state(o, d, trng.per_ray_keys(trng.key(5), idx), home)
+    route = tint._Route(WaveScene(scene), s, "pallas")
+    park_d = torch.tensor([1.0, 0.0, 0.0])
+    kept = parked = 0
+    for it in range(s.rays_per_pixel * s.reflect_limit):
+        before = _by_lane(st, sampler)
+        tint._regen_iteration(route, st, it, rebin, lane_sort)
+        after = _by_lane(st, sampler)
+        was_done = before["sample_i"] >= s.rays_per_pixel
+        now_done = after["sample_i"] >= s.rays_per_pixel
+        for k in before:
+            assert torch.equal(before[k][..., was_done],
+                               after[k][..., was_done]), k
+        new = now_done & ~was_done
+        assert bool((after["o"][:, new] == tb.PARK_ORIGIN).all())
+        assert bool((after["d"][:, new] == park_d[:, None]).all())
+        kept += int(was_done.sum())
+        parked += int(new.sum())
+    assert kept > 0 and parked > 0
+
+
+@pytest.mark.parametrize("route", ["eager", "graph"])
+@pytest.mark.parametrize("sampler", ["regen", "rebin", "lanesort"])
+def test_lane_iterations_count_the_loop(monkeypatch, eager_graphs, sampler,
+                                        route):
+    """``integrator.LANE_ITERATIONS`` grows by N x the iterations the loop
+    runs (eager, the plain route) or replays (the graph route, its capture
+    stubbed as above), and the frame's segments are fewer: the share
+    skipped, 1 - segments / lane-iterations, is above 0 on scene 4."""
+    scene, sky = _scene(4)
+    s = rtt.RenderSettings(rays_per_pixel=3, reflect_limit=4,
+                           sampler=sampler).with_sky(sky)
+    o, d, idx = _rays(4, 64, 32)
+    ran = []
+    iteration = tint._regen_iteration
+    monkeypatch.setattr(tint, "_regen_iteration",
+                        lambda *a: ran.append(1) or iteration(*a))
+    before = tint.LANE_ITERATIONS
+    _, segs = tint.render_sample_mean(
+        WaveScene(scene), s, o, d, trng.frame_key(trng.key(1), 0),
+        ray_idx=idx, backend="pallas" if route == "graph" else "plain")
+    grown = tint.LANE_ITERATIONS - before
+    assert len(ran) > 0 and grown == o.shape[0] * len(ran)
+    assert 0 < float(segs) < grown
+    assert bool(eager_graphs) == (route == "graph")

@@ -75,13 +75,26 @@ def _inputs(seed=0):
     return keys, s, b, torch.from_numpy(d)
 
 
-def _same(got: trays.WaveRays, want: dict):
+def _same(got: trays.WaveRays, want: dict, done=None):
+    """Every output bitwise; with ``done`` (the finished lanes,
+    ``sample_i >= spp``) on the live lanes, and a finished lane's ``unit``
+    and ``inv_len`` ``PARK_UNIT`` and 1 (its ``dj`` and draws are
+    unspecified: the kernel writes neither)."""
+    live = slice(None) if done is None else ~done
     for k, x in want.items():
         y = getattr(got, k)
         if x is None:
             assert y is None, k
         else:
-            assert y.dtype == x.dtype and torch.equal(y, x), k
+            assert y.dtype == x.dtype, k
+            assert torch.equal(y[..., live], x[..., live]), k
+    if done is not None:
+        assert bool(done.any()) and not bool(done.all())
+        park = torch.tensor(trays.PARK_UNIT)[:, None]
+        assert torch.equal(got.unit[:, done],
+                           park.expand(3, int(done.sum())))
+        assert torch.equal(got.inv_len[done],
+                           torch.ones(int(done.sum())))
 
 
 @pytest.mark.parametrize("antialias", [True, False])
@@ -121,14 +134,16 @@ def test_wave_rays_reference_on_tile_rows(with_rr):
     """The coherent arm: the tile draw's rows (``rng.tile_rows``, split as
     ``rng.tile_randoms`` splits them) drawn under the tile key, its
     Gaussian, Fresnel and russian-roulette rows out as they are, the
-    jitter from its rows."""
+    jitter from its rows; a finished lane (``sample_i >= spp``) gets the
+    park walk's direction."""
     _, s, _, d = _inputs(1)
     rows = trng.tile_rows(trng.fold_in(trng.key(2), 5), N, with_rr=with_rr,
                           device="cpu")
     segs = torch.zeros((), dtype=torch.int64)
     got = trays.wave_rays(d, tile_key=trng.fold_in(trng.key(2), 5),
                           sample_i=s, with_rr=with_rr, segs=segs, spp=10)
-    _same(got, _todays_rays(None, None, None, d, True, with_rr, drawn=rows))
+    _same(got, _todays_rays(None, None, None, d, True, with_rr, drawn=rows),
+          done=s >= 10)
     assert int(segs) == int((s < 10).sum())
     split = trng.tile_randoms(trng.fold_in(trng.key(2), 5), N,
                               with_rr=with_rr, device="cpu")
@@ -147,8 +162,8 @@ def test_wave_rays_tile_key_is_todays_composition(antialias, with_rr, n,
     or ``key_dev`` / ``iter_dev`` as a replayed graph holds them) is
     bitwise the composition it replaced, ``rng.tile_rows``' rows fed to
     the ray set-up of before, on 5000 lanes (a partial last tile) and on
-    4096 (four whole tiles); the device arm advances the counter by one
-    and leaves the ticket zero."""
+    4096 (four whole tiles), a finished lane on the park walk; the
+    device arm advances the counter by one and leaves the ticket zero."""
     _, s, _, d = _inputs(4)
     s, d = s[:n].contiguous(), d[:, :n].contiguous()
     k = trng.fold_in(trng.key(2), 3)
@@ -167,7 +182,7 @@ def test_wave_rays_tile_key_is_todays_composition(antialias, with_rr, n,
     if arm == "device":
         assert kw["iter_dev"].tolist() == [6, 0]
     _same(got, _todays_rays(None, None, None, d, antialias, with_rr,
-                            drawn=rows))
+                            drawn=rows), done=s >= 10)
     assert int(segs) == int((s < 10).sum())
 
 

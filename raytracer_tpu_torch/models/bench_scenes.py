@@ -3,7 +3,9 @@
 They extend the five reference scenes (scenes.py) with the workloads of
 benchmarks/suite.py: the RTiOW diffuse/metal/glass trio, the textured
 cube.obj over a checkered floor, the Suzanne mesh with an emissive area
-light and a dielectric, and the random-sphere stress scenes (10k, 100k).
+light and a dielectric, and the random-sphere stress scenes (10k, 100k);
+besides, the SPD recursive tetrahedral pyramid (``spd_tetra_scene``), a
+triangle mesh of 4^(L+1) faces.
 Each returns (scene, use_sky) with the scene on ``device``: the card by
 default, as ``build_scene``; ``device="cpu"`` builds on the CPU.
 """
@@ -95,4 +97,38 @@ def stress_10k_scene(num: int = 10000, seed: int = 1,
         Texture.checkerboard((0.7, 0.7, 0.7), (0.4, 0.4, 0.4), 20), 0)
     b.add_quad((-20, -1.3, -2), (20, -1.3, -2), (20, -1.3, 40),
                (-20, -1.3, 40), floor)
+    return b.build(device=device), True
+
+
+# The SPD pyramid's faces as vertex indices of a tetrahedron (apex first).
+_TETRA_FACES = ((0, 1, 2), (0, 2, 3), (0, 3, 1), (1, 3, 2))
+
+
+def spd_tetra_faces(level: int) -> np.ndarray:
+    """(4 * 4^level, 3, 3) float32 faces of Haines' SPD recursive
+    tetrahedral pyramid (``tetra.c``): a regular tetrahedron of
+    circumradius 1, apex up, centroid (0, 0.2, 2.5), replaced ``level``
+    times by its four half-size corner copies (corner i of T is
+    ``(T + T[i]) / 2``), each output as its four faces."""
+    base = np.array([[0.0, 1.0, 0.0],
+                     [0.0, -1.0 / 3.0, -np.sqrt(8.0 / 9.0)],
+                     [np.sqrt(2.0 / 3.0), -1.0 / 3.0, np.sqrt(2.0) / 3.0],
+                     [-np.sqrt(2.0 / 3.0), -1.0 / 3.0, np.sqrt(2.0) / 3.0]])
+    tets = (base + np.array([0.0, 0.2, 2.5]))[None]       # (1, 4, 3)
+    for _ in range(level):
+        # (n, corner i, vertex j): (T[j] + T[i]) / 2
+        tets = ((tets[:, None, :, :] + tets[:, :, None, :]) / 2.0
+                ).reshape(-1, 4, 3)
+    return tets[:, np.asarray(_TETRA_FACES)].reshape(-1, 3, 3).astype(
+        np.float32)
+
+
+def spd_tetra_scene(level: int = 6,
+                    device="cuda") -> Tuple[SceneArrays, bool]:
+    """The SPD tetrahedral pyramid at ``level`` (4^(level+1) triangles, one
+    diffuse material) under the sky, through the mesh path
+    (``SceneBuilder.add_mesh``)."""
+    b = SceneBuilder()
+    b.add_mesh(spd_tetra_faces(level), Material.standard(
+        Texture.const_colour((0.8, 0.3, 0.3)), 0))
     return b.build(device=device), True

@@ -17,17 +17,24 @@ leaf clusters, super-clusters, cell orders and image layout.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.device import resolve_device
 from .materials import MAT_REFRACTIVE, TEX_IMAGE, Material, compile_materials
 
 _PAD = 8  # pad primitive pools to a multiple of this
 _CLUSTER_LEAF = 32  # BVH leaf size for cluster culling
 _SUPER_LEAF = 8     # clusters per super-cluster
+
+# The newest ``SceneBuilder.build``: each pool's primitives, leaf size,
+# clusters and supers, and the build's host ms. Always kept (one clock
+# pair a build, no torch call); read by tests and scripts.
+LAST_BUILD: dict = {}
 
 
 def _super_level(clusters: np.ndarray, leaf: int) -> tuple:
@@ -381,8 +388,28 @@ class SceneBuilder:
 
     def build(self, device="cuda") -> SceneArrays:
         """The scene's arrays on ``device`` (the card by default; raises
-        without one, utils/device.py)."""
+        without one, utils/device.py). Span ``scene.build``, with the
+        children ``scene.woop`` (the per-triangle transforms) and
+        ``scene.bvh`` (both BVH levels of both pools); the pools'
+        hierarchy and the host ms go to ``LAST_BUILD``."""
         device = resolve_device(device)
+        t0 = time.perf_counter()
+        with trace.span("scene.build"):
+            scene = self._build(device)
+        LAST_BUILD.clear()
+        LAST_BUILD.update(
+            spheres=len(self._spheres)
+            + sum(c.shape[0] for c, *_ in self._bulk_spheres),
+            triangles=len(self._tris),
+            sph_leaf=scene.sph_leaf, tri_leaf=scene.tri_leaf,
+            sph_clusters=int(scene.sph_clusters.shape[0]),
+            tri_clusters=int(scene.tri_clusters.shape[0]),
+            sph_supers=int(scene.sph_supers.shape[0]),
+            tri_supers=int(scene.tri_supers.shape[0]),
+            host_ms=1e3 * (time.perf_counter() - t0))
+        return scene
+
+    def _build(self, device) -> SceneArrays:
         if not self._materials:
             self.material_id(Material.default())
 
@@ -432,88 +459,91 @@ class SceneBuilder:
         tri_cull = np.zeros((t_pad, 3), np.float32)
         tri_w = np.zeros((3, t_pad, 4), np.float32)
 
-        for i, rec in enumerate(self._tris):
-            e1 = rec.v1 - rec.v0
-            e2 = rec.v2 - rec.v0
-            n = np.cross(e1, e2)
-            n_len = np.linalg.norm(n)
-            tri_v0[i] = rec.v0
-            tri_e1[i] = e1
-            tri_e2[i] = e2
-            tri_mat[i] = rec.mat_id
-            tri_colour[i], tri_smooth[i] = rec.params
-            if rec.uv is not None:
-                tri_uv[0, i] = rec.uv[0]
-                tri_uv[1, i] = rec.uv[1]
-                tri_uv[2, i] = rec.uv[2]
-            if rec.cull is not None:
-                tri_cull[i] = rec.cull
-            if n_len <= 0.0 or not np.isfinite(n_len):
-                # degenerate: left invalid, its zero Woop rows never hit
-                continue
-            tri_normal[i] = (n / n_len).astype(np.float32)
-            tri_valid[i] = True
-            # Woop world->barycentric transform: solve [e1 e2 n] x = p - v0.
-            w_mat = np.stack([e1, e2, n / n_len], axis=1).astype(np.float64)
-            try:
-                inv = np.linalg.inv(w_mat)
-            except np.linalg.LinAlgError:
-                tri_valid[i] = False
-                tri_normal[i] = 0.0
-                continue
-            for row in range(3):
-                tri_w[row, i, :3] = inv[row]
-                tri_w[row, i, 3] = -inv[row] @ rec.v0.astype(np.float64)
+        with trace.span("scene.woop"):
+            for i, rec in enumerate(self._tris):
+                e1 = rec.v1 - rec.v0
+                e2 = rec.v2 - rec.v0
+                n = np.cross(e1, e2)
+                n_len = np.linalg.norm(n)
+                tri_v0[i] = rec.v0
+                tri_e1[i] = e1
+                tri_e2[i] = e2
+                tri_mat[i] = rec.mat_id
+                tri_colour[i], tri_smooth[i] = rec.params
+                if rec.uv is not None:
+                    tri_uv[0, i] = rec.uv[0]
+                    tri_uv[1, i] = rec.uv[1]
+                    tri_uv[2, i] = rec.uv[2]
+                if rec.cull is not None:
+                    tri_cull[i] = rec.cull
+                if n_len <= 0.0 or not np.isfinite(n_len):
+                    # degenerate: left invalid, its zero Woop rows never hit
+                    continue
+                tri_normal[i] = (n / n_len).astype(np.float32)
+                tri_valid[i] = True
+                # Woop world->barycentric transform: solve
+                # [e1 e2 n] x = p - v0.
+                w_mat = np.stack([e1, e2, n / n_len],
+                                 axis=1).astype(np.float64)
+                try:
+                    inv = np.linalg.inv(w_mat)
+                except np.linalg.LinAlgError:
+                    tri_valid[i] = False
+                    tri_normal[i] = 0.0
+                    continue
+                for row in range(3):
+                    tri_w[row, i, :3] = inv[row]
+                    tri_w[row, i, 3] = -inv[row] @ rec.v0.astype(np.float64)
 
         # --- BVH leaf clustering (reference BVH, src/objects.cu:448-771,
         # cut into leaves of exactly the pool's leaf size) ---
-        tri_clusters = np.zeros((0, 8), np.float32)
-        sph_clusters = np.zeros((0, 8), np.float32)
-        tri_supers = np.zeros((0, 8), np.float32)
-        sph_supers = np.zeros((0, 8), np.float32)
-        if t_clustered:
-            from ..runtime.loader import build_bvh_clusters
-            verts = np.stack(
-                [tri_v0[:t], tri_v0[:t] + tri_e1[:t], tri_v0[:t] + tri_e2[:t]],
-                axis=1)
-            order, _, _ = build_bvh_clusters(verts, _CLUSTER_LEAF)
-            tri_arrs = [tri_v0, tri_e1, tri_e2, tri_normal, tri_mat,
-                        tri_valid, tri_cull, tri_colour, tri_smooth]
-            for arr in tri_arrs:
-                arr[:t] = arr[:t][order]
-            for k in range(3):
-                tri_uv[k, :t] = tri_uv[k, :t][order]
-                tri_w[k, :t] = tri_w[k, :t][order]
-            pmin = np.minimum(np.minimum(verts[order, 0], verts[order, 1]),
-                              verts[order, 2])
-            pmax = np.maximum(np.maximum(verts[order, 0], verts[order, 1]),
-                              verts[order, 2])
-            tri_clusters = _cut_exact_leaves(pmin, pmax, t_leaf)
-            tri_clusters, tri_supers, corder = _super_level(tri_clusters,
-                                                            t_leaf)
-            if corder is not None:
-                _permute_leaf_blocks(
-                    tri_arrs + [tri_uv[0], tri_uv[1], tri_uv[2],
-                                tri_w[0], tri_w[1], tri_w[2]],
-                    t_pad, corder, t_leaf)
-        if s_clustered:
-            from ..runtime.loader import build_bvh_clusters
-            c = sph_center[:s]
-            r = sph_radius[:s, None]
-            # spheres as degenerate triangles: bounds = center +- r
-            verts = np.stack([c - r, c + r, c], axis=1)
-            order, _, _ = build_bvh_clusters(verts, _CLUSTER_LEAF)
-            sph_arrs = [sph_center, sph_radius, sph_mat, sph_colour,
-                        sph_smooth]
-            for arr in sph_arrs:
-                arr[:s] = arr[:s][order]
-            pmin = (sph_center[:s] - sph_radius[:s, None])
-            pmax = (sph_center[:s] + sph_radius[:s, None])
-            sph_clusters = _cut_exact_leaves(pmin, pmax, s_leaf)
-            sph_clusters, sph_supers, corder = _super_level(sph_clusters,
-                                                            s_leaf)
-            if corder is not None:
-                _permute_leaf_blocks(sph_arrs, s_pad, corder, s_leaf)
+        with trace.span("scene.bvh"):
+            tri_clusters = np.zeros((0, 8), np.float32)
+            sph_clusters = np.zeros((0, 8), np.float32)
+            tri_supers = np.zeros((0, 8), np.float32)
+            sph_supers = np.zeros((0, 8), np.float32)
+            if t_clustered:
+                from ..runtime.loader import build_bvh_clusters
+                verts = np.stack([tri_v0[:t], tri_v0[:t] + tri_e1[:t],
+                                  tri_v0[:t] + tri_e2[:t]], axis=1)
+                order, _, _ = build_bvh_clusters(verts, _CLUSTER_LEAF)
+                tri_arrs = [tri_v0, tri_e1, tri_e2, tri_normal, tri_mat,
+                            tri_valid, tri_cull, tri_colour, tri_smooth]
+                for arr in tri_arrs:
+                    arr[:t] = arr[:t][order]
+                for k in range(3):
+                    tri_uv[k, :t] = tri_uv[k, :t][order]
+                    tri_w[k, :t] = tri_w[k, :t][order]
+                pmin = np.minimum(np.minimum(verts[order, 0], verts[order, 1]),
+                                  verts[order, 2])
+                pmax = np.maximum(np.maximum(verts[order, 0], verts[order, 1]),
+                                  verts[order, 2])
+                tri_clusters = _cut_exact_leaves(pmin, pmax, t_leaf)
+                tri_clusters, tri_supers, corder = _super_level(tri_clusters,
+                                                                t_leaf)
+                if corder is not None:
+                    _permute_leaf_blocks(
+                        tri_arrs + [tri_uv[0], tri_uv[1], tri_uv[2],
+                                    tri_w[0], tri_w[1], tri_w[2]],
+                        t_pad, corder, t_leaf)
+            if s_clustered:
+                from ..runtime.loader import build_bvh_clusters
+                c = sph_center[:s]
+                r = sph_radius[:s, None]
+                # spheres as degenerate triangles: bounds = center +- r
+                verts = np.stack([c - r, c + r, c], axis=1)
+                order, _, _ = build_bvh_clusters(verts, _CLUSTER_LEAF)
+                sph_arrs = [sph_center, sph_radius, sph_mat, sph_colour,
+                            sph_smooth]
+                for arr in sph_arrs:
+                    arr[:s] = arr[:s][order]
+                pmin = (sph_center[:s] - sph_radius[:s, None])
+                pmax = (sph_center[:s] + sph_radius[:s, None])
+                sph_clusters = _cut_exact_leaves(pmin, pmax, s_leaf)
+                sph_clusters, sph_supers, corder = _super_level(sph_clusters,
+                                                                s_leaf)
+                if corder is not None:
+                    _permute_leaf_blocks(sph_arrs, s_pad, corder, s_leaf)
 
         # --- per-cell near-first visitation orders (8..512 top-level boxes)
         grid_n = 4

@@ -60,6 +60,7 @@ import math
 
 import torch
 
+from ..utils import trace
 from .intersect import HitRecord, ShadeData
 from .sweep import (INF, S_F32_ROWS, S_I32_ROWS, T_F32_ROWS,
                     T_I32_ROWS, T_NRM, T_UV, PackedScene, _check_rays,
@@ -313,14 +314,18 @@ class WaveScene:
     ``fits_smem``, as the JAX package does; True or False forces a route
     (the JAX package's RAYTRACER_FORCE_BLOCKED). ``graphs`` caches the
     wavefront samplers' captured CUDA graphs over this scene
-    (ops/wave_graph.py)."""
+    (ops/wave_graph.py). The blocked layout's build is span
+    ``wave.blocked``."""
 
     def __init__(self, scene, blocked=None):
         self.scene = scene
         self.blocked = (not fits_smem(scene)) if blocked is None \
             else bool(blocked)
         self.packed = None if self.blocked else pack(scene)
-        self.tables = blocked_tables(scene) if self.blocked else None
+        self.tables = None
+        if self.blocked:
+            with trace.span("wave.blocked"):
+                self.tables = blocked_tables(scene)
         self.graphs: dict = {}
 
     @property

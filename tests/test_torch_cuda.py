@@ -1326,3 +1326,106 @@ def test_graph_frame_lanes_match_plain_route(dev, monkeypatch, sampler,
     for x in (gd, pd):
         assert torch.equal(x[:, done], torch.tensor(
             [[1.0], [0.0], [0.0]], device=dev).expand(3, int(done.sum())))
+
+
+# -- the SPD tetrahedral pyramid at level 6: a mesh past the resident budget --
+
+@functools.lru_cache(maxsize=1)
+def _tetra6(dev):
+    """Level 6 (16,384 triangles): 512 leaves of 32 under 64 supers."""
+    from raytracer_tpu_torch.models import bench_scenes
+    scene, sky = bench_scenes.spd_tetra_scene(level=6, device=dev)
+    assert tuple(scene.tri_supers.shape) == (64, 8)
+    return scene, sky
+
+
+def _tetra_rays(dev, n, seed=6):
+    """``n`` rays from the camera's origin and from points in the
+    pyramid's box, toward random points of the box: most of them enter
+    it, and those from inside start among its faces."""
+    g = np.random.default_rng(seed)
+    lo, hi = np.array([-0.82, -0.14, 1.55]), np.array([0.82, 1.2, 2.98])
+    o = np.where(g.uniform(size=(n, 1)) < 0.5, 0.0,
+                 g.uniform(lo, hi, (n, 3)))
+    d = g.uniform(lo, hi, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.as_tensor(o.T.astype(np.float32), device=dev).contiguous(),
+            torch.as_tensor(d.T.astype(np.float32), device=dev).contiguous())
+
+
+@pytest.mark.parametrize("group", GROUP_CASES)
+def test_megakernel_tetra6_matches_plain(dev, group, monkeypatch):
+    """K1 gates at depth 2 over the pyramid's triangle pool: a 64x48
+    slice of the 1000x800 frame (the middle of the Morton order), 4 spp,
+    bitwise mega_reference at every G."""
+    _force_group(monkeypatch, group)
+    scene, sky = _tetra6(dev)
+    ms = tmk.MegaScene(scene)
+    assert tsweep.gate_depth(ms.packed) == 2
+    s = rtt.RenderSettings(rays_per_pixel=4, reflect_limit=5).with_sky(sky)
+    o, d = _rays(dev, 1000, 800, position=(0.0, 0.0, 0.0))
+    mid = 400_000
+    o = o[:, mid:mid + 64 * 48].contiguous()
+    d = d[:, mid:mid + 64 * 48].contiguous()
+    key = trng.fold_in(trng.key(0), 1)
+    before = tmk.LAUNCHES
+    mean, segs, depth = tmk.render_sample_mean_mega(ms, s, o, d, key,
+                                                    want_depth=True)
+    torch.cuda.synchronize()
+    assert tmk.LAUNCHES == before + 1
+    o_p, d_p, seed, kw = tmk.mega_inputs(ms, s, o, d, key)
+    ref = tmk.mega_reference(ms.packed, ms.mat, o_p, d_p, seed, **kw)
+    n = o.shape[1]
+    assert bool((depth < tmk.INF).float().mean() > 0.2)
+    assert torch.equal(mean, ref[:3, :n]) and torch.equal(depth, ref[4, :n])
+    assert float(segs) == float(ref[3, :n].double().sum())
+
+
+@functools.lru_cache(maxsize=1)
+def _tetra6_k6_plain(dev):
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    ws = ic.WaveScene(_tetra6(dev)[0])
+    o, d = _tetra_rays(dev, 1 << 16)
+    return ws, o, d, ic.hit_resolve_unit(ws, o, d, plain=True)
+
+
+@pytest.mark.parametrize("group", GROUP_CASES)
+def test_hit_resolve_blocked_tetra6_matches_plain(dev, group):
+    """K6 on a triangle-only scene past the resident budget (16 blocks of
+    1,024 triangles): 65,536 rays into the pyramid, bitwise plain K6 at
+    every G."""
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    ws, o, d, want = _tetra6_k6_plain(dev)
+    assert ws.blocked and ws.tables.nblocks == 16
+    before = ic.BLOCKED_LAUNCHES
+    got = ic.hit_resolve_unit(ws, o, d, _group=group)
+    torch.cuda.synchronize()
+    assert ic.BLOCKED_LAUNCHES == before + 1
+    assert float((got[0] < tsweep.INF).float().mean()) > 0.2
+    _bitwise(got, want)
+
+
+def test_regen_tetra6_graph_replay_matches_eager(dev, monkeypatch):
+    """Two regen Renderer frames on the pyramid replay the captured
+    iterations with K6; each running mean is bitwise the eager kernel
+    route's (every launch as a plain call, no graph)."""
+    from raytracer_tpu_torch.ops import integrator as tint
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    from raytracer_tpu_torch.ops import wave_graph as twg
+    scene, sky = _tetra6(dev)
+    s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=5,
+                           sampler="regen").with_sky(sky)
+    r = rtt.Renderer(scene, rtt.CameraConfig(width=64, height=48), s,
+                     device=dev)
+    assert r.packed_scene.blocked
+    accum = rtt.film.new_accumulator(64 * 48, dev)
+    replays, blocked = twg.REPLAYS, ic.BLOCKED_LAUNCHES
+    for frame in range(2):
+        r.render_frame(block=True)
+        with monkeypatch.context() as m:
+            m.setattr(tint, "_replays", lambda backend, o: False)
+            tint.render_frame(r.packed_scene, s, r._o, r._d, accum, frame,
+                              r.base_key, ray_idx=r._ray_idx)
+        torch.cuda.synchronize()
+        assert torch.equal(r.accum, accum)
+    assert twg.REPLAYS > replays and ic.BLOCKED_LAUNCHES > blocked

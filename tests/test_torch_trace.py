@@ -205,9 +205,12 @@ def test_cli_writes_spans(tmp_path):
     assert rc == 0
     rows = [json.loads(line) for line in spans.read_text().splitlines()]
     roots = [(r["name"], r["frame"]) for r in rows if r["parent"] is None]
-    assert roots == [("frame", 0), ("frame.sync", 0), ("frame", 1),
-                     ("frame.sync", 1), ("image.copy", None),
+    assert roots == [("scene.build", None), ("frame", 0), ("frame.sync", 0),
+                     ("frame", 1), ("frame.sync", 1), ("image.copy", None),
                      ("image.to_u8", None)]
+    # the scene build's children: the Woop loop, then the BVH levels
+    assert [r["name"] for r in rows if r["parent"] == 0] == [
+        "scene.woop", "scene.bvh"]
     assert all(r["dur_us"] >= 0 for r in rows)
     assert len(stats.read_text().splitlines()) == 2
     assert trace.span("x") is trace.span("y")   # the CLI turned it off

@@ -22,9 +22,11 @@ and lanesort bitwise equal to regen, ``rt_wave_bounce`` (the resolve and
 the bounce after the hit, fused) against its plain version on K5's and
 K6's raw outputs, bitwise, in both arms on 256x128 lanes of scenes 1-4,
 stress100k and earth2048 and timed on scene 4's 1000x800 regen lanes
-(phase 19), the ray set-up, K5 and the bounce timed on the 1000x800 lanes
-of both regen cells with none, a frame's share (73% on scene 4, 27% on
-scene 2) and all of them finished (phase 20),
+(phase 19), the ray set-up, K5 (K6 on the pyramid) and the bounce timed
+on the 1000x800 lanes of the three regen cells with none, a frame's share
+(73% on scene 4, 27% on scene 2, measured on the pyramid) and all of them
+finished, the hit kernel with and without the regen loop's skip (phase
+20),
 and four regen paths through ``Renderer`` at 1000x800, 5
 bounces: scene 4 at 20 spp (K5), per lane and with coherent sampling,
 stress100k at 4 spp (K6) and the 1024x2048 earth at 20 spp (K5 + the
@@ -220,15 +222,20 @@ def check(ok: bool, what: str) -> None:
 def kernel_name(mangled: str) -> str:
     """A readable name for a mangled entry function: the group instances
     as megakernel<G2>, nearest_hit_kernel<G1>, hit_resolve_blocked_kernel<G8>
-    or hit_resolve_kernel<G4, with_stats>."""
-    m = re.search(r"(megakernel|nearest_hit_kernel|hit_resolve_blocked_kernel)"
-                  r"ILi(\d+)E", mangled)
+    (<G8, masked>: the regen loop's skip arm) or hit_resolve_kernel<G4,
+    with_stats> (or <G4, masked>)."""
+    m = re.search(r"(megakernel|nearest_hit_kernel)ILi(\d+)E", mangled)
     if m:
         return f"{m.group(1)}<G{m.group(2)}>"
-    m = re.search(r"hit_resolve_kernelILi(\d+)ELb([01])E", mangled)
+    m = re.search(r"hit_resolve_blocked_kernelILi(\d+)ELb([01])E", mangled)
     if m:
-        stats = ", with_stats" if m.group(2) == "1" else ""
-        return f"hit_resolve_kernel<G{m.group(1)}{stats}>"
+        masked = ", masked" if m.group(2) == "1" else ""
+        return f"hit_resolve_blocked_kernel<G{m.group(1)}{masked}>"
+    m = re.search(r"hit_resolve_kernelILi(\d+)ELb([01])ELb([01])E", mangled)
+    if m:
+        arm = ", with_stats" if m.group(2) == "1" else ""
+        arm += ", masked" if m.group(3) == "1" else ""
+        return f"hit_resolve_kernel<G{m.group(1)}{arm}>"
     m = re.search(r"wave_bounce_kernelILb([01])ELb([01])ELb([01])E",
                   mangled)
     if m:
@@ -1289,6 +1296,7 @@ def _zero_counts() -> None:
     from raytracer_tpu_torch.ops import rng
     from raytracer_tpu_torch.ops import warp
     ic.LAUNCHES = ic.STATS_LAUNCHES = ic.BLOCKED_LAUNCHES = rng.LAUNCHES = 0
+    ic.SKIP_LAUNCHES = 0
     rng.TILE_LAUNCHES = bounce.LAUNCHES = rays.LAUNCHES = 0
     mk.LAUNCHES = mk.IMAGE_LAUNCHES = mk.FETCH_LAUNCHES = 0
     mk.COHERENT_LAUNCHES = camera.LAUNCHES = warp.FRAME_LAUNCHES = 0
@@ -1706,13 +1714,17 @@ def phase_wave_bounce(dev, check_size=(256, 128),
     return rec
 
 
-# -- phase 20: finished regen lanes in the ray set-up, K5 and the bounce ----
+# -- phase 20: finished regen lanes in the ray set-up, K5 / K6, the bounce --
 
-# the regen cells' scenes (perfbench/configs), camera positions and the
-# share of a frame's lane-iterations whose lane has finished (PERF.md §5)
+# the regen cells' scenes (perfbench/configs: upstream scene number or the
+# SPD pyramid's level), camera positions and the share of a frame's
+# lane-iterations whose lane has finished (PERF.md §5; None: measured by
+# running the loop to its end first)
 FINISHED_CELLS = {"rtiow_scene4": (4, {"num_spheres": 100, "seed": 0},
                                    (0.0, 0.5, -6.0), 0.73),
-                  "earth_scene2": (2, {}, (0.0, 0.0, 0.0), 0.27)}
+                  "earth_scene2": (2, {}, (0.0, 0.0, 0.0), 0.27),
+                  "spd_tetra6": ("spd", {"level": 6}, (0.0, 0.0, 0.0),
+                                 None)}
 
 
 def finished_state(st: dict, done, spp: int) -> dict:
@@ -1730,20 +1742,38 @@ def finished_state(st: dict, done, spp: int) -> dict:
     return out
 
 
-def k5_ms(ws, o, unit, repeats: int = 10):
-    """K5's device ms a launch on (o, unit) by the profiler, over
-    ``repeats`` ``hit_raw`` calls; None where it recorded none."""
+def hit_ms(ws, o, unit, repeats: int = 10, **mask):
+    """The hit kernel's (K5, or K6 on a blocked scene) device ms a launch
+    on (o, unit) by the profiler, over ``repeats`` ``hit_raw`` calls
+    (``mask``: its ``sample_i`` and ``spp``); None where it recorded
+    none."""
     from raytracer_tpu_torch.ops.intersect_cuda import hit_raw
-    rec = device_shares(lambda: [hit_raw(ws, o, unit)
-                                 for _ in range(repeats)],
-                        ("hit_resolve_kernel",))["hit_resolve_kernel"]
+    name = "hit_resolve_blocked_kernel" if ws.blocked else \
+        "hit_resolve_kernel"
+    rec = device_shares(lambda: [hit_raw(ws, o, unit, **mask)
+                                 for _ in range(repeats)], (name,))[name]
     return rec["device_ms"] / rec["count"] if rec["count"] else None
+
+
+def finished_share(route, st: dict, spp: int) -> float:
+    """The share of a frame's lane-iterations whose lane was finished:
+    the regen loop run on a copy of ``st`` to its end, 1 - segments /
+    (lanes x iterations)."""
+    from raytracer_tpu_torch.ops import integrator as integ
+    st = {k: v.clone() for k, v in st.items()}
+    it = 0
+    while it < spp * route.settings.reflect_limit and bool(
+            (st["sample_i"] < spp).any()):
+        integ._regen_iteration(route, st, it, False, False)
+        it += 1
+    return 1.0 - float(st["segs"]) / (st["o"].shape[1] * it)
 
 
 def phase_finished_lanes(dev, cell: str, width: int = 1000,
                          height: int = 800, spp: int = 100) -> list:
     """Phase 20: what a finished regen lane (sample_i >= spp: all its
-    samples traced) costs rt_wave_rays, K5 and rt_wave_bounce. The
+    samples traced) costs rt_wave_rays, K5 (K6 on the pyramid) and
+    rt_wave_bounce. The
     width x height lanes of ``cell``'s scene at its regen cell's camera
     and settings (FINISHED_CELLS; spp, 5 bounces, antialias, the sky where
     the scene has one), run through the regen loop's iterations on the
@@ -1754,14 +1784,18 @@ def phase_finished_lanes(dev, cell: str, width: int = 1000,
     parked: nearly every warp mixed) and ``all`` (every lane of ``loop``
     finished and parked). On each: rt_wave_rays bare on prebuilt
     arguments (``bare_times``) beside its bound (a live lane's 84 bytes
-    and OPS_RAYS operations, a finished lane's 20 bytes), K5 by the
-    profiler's device time a launch over 10 ``hit_raw`` calls (on
-    ``loop`` also with its finished lanes unparked, on their primary
-    rays: ``k5_unparked_profiled_ms``), and rt_wave_bounce bare, each
-    launch from the same state (``fresh_launch_times``), beside
-    ``bounce_bytes``; both kernels' outputs held bitwise against the
-    plain versions (a finished lane's parked direction, its state
-    unchanged)."""
+    and OPS_RAYS operations, a finished lane's 20 bytes), the hit kernel
+    by the profiler's device time a launch over 10 ``hit_raw`` calls,
+    without the loop's mask (``hit_profiled_ms``: the walk of a parked
+    lane, as the parent ran it) and with it (``hit_masked_profiled_ms``:
+    a finished lane skipped), on ``loop`` also with its finished lanes
+    unparked, on their primary rays (``hit_unparked_profiled_ms``), and
+    rt_wave_bounce bare, each launch from the same state
+    (``fresh_launch_times``), beside ``bounce_bytes``; the kernels'
+    outputs held bitwise against the plain versions (a finished lane's
+    parked direction, its state unchanged), the masked hit's live rows
+    against the unmasked launch's and the bounce on the masked hit's
+    outputs against the plain bounce."""
     import ctypes
 
     import torch
@@ -1773,8 +1807,12 @@ def phase_finished_lanes(dev, cell: str, width: int = 1000,
     from raytracer_tpu_torch.ops import rays, rng
     from raytracer_tpu_torch.ops.intersect_cuda import (WaveScene, hit_raw,
                                                         unit_rays)
+    from raytracer_tpu_torch.models import bench_scenes
     num, kwargs, pos, share = FINISHED_CELLS[cell]
-    scene, sky = rtt.build_scene(num, device=dev, **kwargs)
+    if num == "spd":
+        scene, sky = bench_scenes.spd_tetra_scene(device=dev, **kwargs)
+    else:
+        scene, sky = rtt.build_scene(num, device=dev, **kwargs)
     s = rtt.RenderSettings(rays_per_pixel=spp, reflect_limit=5,
                            antialias=True, sampler="regen",
                            sky_colour=(0.8, 1.0, 1.0)).with_sky(sky)
@@ -1785,6 +1823,8 @@ def phase_finished_lanes(dev, cell: str, width: int = 1000,
     route = integ._Route(ws, s, "pallas")
     st = integ._regen_state(o, d, keys)
     n = o.shape[1]
+    if share is None:
+        share = finished_share(route, st, spp)
     states, it = {}, 0
     while it < spp * s.reflect_limit:
         if it == 2:
@@ -1822,16 +1862,27 @@ def phase_finished_lanes(dev, cell: str, width: int = 1000,
                                                    **kw), done)
         rays_rec["bitwise"] = agree["bitwise"]
         raw = hit_raw(ws, st0["o"], out.unit)
-        k5 = k5_ms(ws, st0["o"], out.unit)
-        k5_unparked = None
+        mask = dict(sample_i=st0["sample_i"], spp=spp)
+        masked = hit_raw(ws, st0["o"], out.unit, **mask)
+        hit = {"kernel": "K6" if ws.blocked else "K5",
+               "profiled_ms": hit_ms(ws, st0["o"], out.unit),
+               "masked_profiled_ms": hit_ms(ws, st0["o"], out.unit, **mask),
+               "unparked_profiled_ms": None,
+               "masked_live_rows_bitwise": all(
+                   bool(torch.equal(a[~done], b[~done]))
+                   for a, b in zip(masked, raw))}
         if name == "loop":  # the finished lanes on their primary rays
-            k5_unparked = k5_ms(
+            hit["unparked_profiled_ms"] = hit_ms(
                 ws, torch.where(done[None, :], st0["o0p"], st0["o"]),
                 torch.where(done[None, :], unit_rays(st0["d0p"])[0],
                             out.unit))
         bargs = (scene, s, st0, out.dj, raw, out.inv_len, out.gauss,
                  out.fresnel, out.rr)
         want = tb.wave_bounce_reference(*bargs, regen=True)
+        on_masked = tb.wave_bounce(scene, s, st0, out.dj, masked,
+                                   *bargs[5:], regen=True)
+        hit["bounce_on_masked_bitwise"] = all(
+            bool(torch.equal(on_masked[k], want[k])) for k in want)
         n_bytes, counts = bounce_bytes(bargs, want)
         timed = {k: v.clone() for k, v in st0.items()}
         bare = tb.bounce_args(scene, s, timed, *bargs[3:], regen=True)
@@ -1851,15 +1902,15 @@ def phase_finished_lanes(dev, cell: str, width: int = 1000,
         bounce_rec.update(bound(n_bytes, 0.0), **counts)
         recs.append({"state": name, "iteration": at, "lanes": n,
                      "finished_share": 1.0 - live / n,
-                     "rt_wave_rays": rays_rec,
-                     "k5_profiled_ms": k5,
-                     "k5_unparked_profiled_ms": k5_unparked,
+                     "rt_wave_rays": rays_rec, "hit": hit,
                      "rt_wave_bounce": bounce_rec})
     print(f"phase 20 finished regen lanes, {cell} {width}x{height} at "
-          f"{spp} spp ({cell}.regen's camera and settings): rt_wave_rays, "
-          "K5, rt_wave_bounce by state:", json.dumps(recs), flush=True)
+          f"{spp} spp ({cell}.regen's camera and settings, a frame's "
+          f"finished share {share:.4f}): rt_wave_rays, K5 / K6, "
+          "rt_wave_bounce by state:", json.dumps(recs), flush=True)
     check(all(r["rt_wave_rays"]["bitwise"] and r["rt_wave_bounce"]["bitwise"]
-              for r in recs),
+              and r["hit"]["masked_live_rows_bitwise"]
+              and r["hit"]["bounce_on_masked_bitwise"] for r in recs),
           "a finished-lane state differs from the plain versions")
     return recs
 

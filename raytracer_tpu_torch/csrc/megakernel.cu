@@ -18,6 +18,8 @@
 //                   material id, colour and smoothness decoded; with a
 //                   stats pointer, also each ray's primitive-test count
 //                   (K5's with_stats arm, intersect_pallas.py:74-105);
+//                   with a sample pointer (the regen loop's), a finished
+//                   lane is skipped;
 //   rt_fetch_image  K4 over a batch of (u, v, material) queries.
 // Their plain PyTorch versions are ops/megakernel.py::mega_reference,
 // ops/sweep.py::nearest_hit_reference,
@@ -136,6 +138,10 @@ struct RtResolveArgs {
   // t, code, u, v, n0, n1, n2, mat, colour r, g, b, smoothness
   void* out[12];
   float* stats;  // per-ray primitive tests (K5's with_stats), or null
+  // (n,) the regen lanes' sample index, or null: a lane with
+  // sample >= spp is finished and skipped, its outputs left as they were
+  const int* sample;
+  int spp;
   int n;
   int group;     // threads per ray: 1, 2, 4 or 8
 };
@@ -358,12 +364,16 @@ __global__ void __launch_bounds__(kBlock)
 // exact triangle division, the winner's parameters and its decoded
 // material; a miss keeps the sweep's zero carry. kStats also writes the
 // ray's primitive tests, so the plain launch pays nothing for the
-// counters.
-template <int G, bool kStats>
+// counters. kMask (the regen loop's launch) skips a finished lane,
+// sample[i] >= spp: rt_wave_bounce reads none of its outputs, so the
+// group returns before it loads the ray, walks or writes; the other
+// callers' instances keep their code.
+template <int G, bool kStats, bool kMask>
 __global__ void __launch_bounds__(kBlock)
     hit_resolve_kernel(const RtResolveArgs a) {
   const int i = (blockIdx.x * blockDim.x + threadIdx.x) / G;
   if (i >= a.n) return;  // whole groups: the G threads share i
+  if (kMask && a.sample[i] >= a.spp) return;  // whole groups too
   const Ray r{a.o[0][i], a.o[1][i], a.o[2][i],
               a.d[0][i], a.d[1][i], a.d[2][i]};
   const Group<G> grp = this_group<G>();
@@ -708,10 +718,14 @@ template <int G>
 int launch_resolve(const RtResolveArgs& a, cudaStream_t st) {
   const int blocks = static_cast<int>(
       (static_cast<long long>(a.n) * G + kBlock - 1) / kBlock);
-  if (a.stats != nullptr) {
-    hit_resolve_kernel<G, true><<<blocks, kBlock, 0, st>>>(a);
+  if (a.stats != nullptr && a.sample != nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);  // no such instance
+  } else if (a.stats != nullptr) {
+    hit_resolve_kernel<G, true, false><<<blocks, kBlock, 0, st>>>(a);
+  } else if (a.sample != nullptr) {
+    hit_resolve_kernel<G, false, true><<<blocks, kBlock, 0, st>>>(a);
   } else {
-    hit_resolve_kernel<G, false><<<blocks, kBlock, 0, st>>>(a);
+    hit_resolve_kernel<G, false, false><<<blocks, kBlock, 0, st>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -723,7 +737,7 @@ const void* kernel_ptr(int kind) {
   switch (kind) {
     case 0: return (const void*)megakernel<G>;
     case 1: return (const void*)nearest_hit_kernel<G>;
-    case 2: return (const void*)hit_resolve_kernel<G, false>;
+    case 2: return (const void*)hit_resolve_kernel<G, false, false>;
     case 3: return rt_blocked_kernel(G);
     default: return nullptr;
   }

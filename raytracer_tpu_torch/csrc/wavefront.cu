@@ -20,7 +20,9 @@
 // The leader reads the winner's parameters (centre or normal, colour30,
 // smooth|mat, the texture UV of a triangle) from the pools by code.
 // Outputs are raw, as the TPU kernel's: t, code, u, v, n0-2, pa, pb; a
-// miss keeps zeros. Its plain version is
+// miss keeps zeros. Given the regen loop's sample indices, a finished
+// lane (sample >= spp) is skipped and its outputs keep what they held:
+// rt_wave_bounce reads none of them. Its plain version is
 // ops/intersect_cuda.py::hit_resolve_blocked_reference, which
 // brute-forces every block and merges the block winners in block order.
 //
@@ -73,6 +75,10 @@ struct RtBlockedArgs {
   const float* o[3];
   const float* d[3];  // unit directions
   void* out[9];       // t, code, u, v, n0, n1, n2, pa, pb
+  // (n,) the regen lanes' sample index, or null: a lane with
+  // sample >= spp is finished and skipped, its outputs left as they were
+  const int* sample;
+  int spp;
   int n;
   int group;          // threads per ray: 1, 2, 4 or 8
 };
@@ -93,12 +99,14 @@ constexpr int kSphBlock = 4096;
 constexpr int kTriBlock = 1024;
 constexpr int kTriNrm = 12, kTriUV = 18;
 
-// K6, G threads a ray.
-template <int G>
+// K6, G threads a ray. kMask (the regen loop's launch) skips a finished
+// lane, sample[i] >= spp, before it loads the ray, as K5's does.
+template <int G, bool kMask>
 __global__ void __launch_bounds__(kBlock)
     hit_resolve_blocked_kernel(const RtBlockedArgs a) {
   const int i = (blockIdx.x * blockDim.x + threadIdx.x) / G;
   if (i >= a.n) return;  // whole groups: the G threads share i
+  if (kMask && a.sample[i] >= a.spp) return;  // whole groups too
   const Ray r{a.o[0][i], a.o[1][i], a.o[2][i],
               a.d[0][i], a.d[1][i], a.d[2][i]};
   const Group<G> grp = this_group<G>();
@@ -166,7 +174,11 @@ template <int G>
 int launch_blocked(const RtBlockedArgs& a, cudaStream_t st) {
   const int blocks = static_cast<int>(
       (static_cast<long long>(a.n) * G + kBlock - 1) / kBlock);
-  hit_resolve_blocked_kernel<G><<<blocks, kBlock, 0, st>>>(a);
+  if (a.sample != nullptr) {
+    hit_resolve_blocked_kernel<G, true><<<blocks, kBlock, 0, st>>>(a);
+  } else {
+    hit_resolve_blocked_kernel<G, false><<<blocks, kBlock, 0, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -203,10 +215,10 @@ int rt_hit_resolve_blocked(const RtBlockedArgs* args, void* stream) {
 // null for another group.
 const void* rt_blocked_kernel(int group) {
   switch (group) {
-    case 1: return (const void*)hit_resolve_blocked_kernel<1>;
-    case 2: return (const void*)hit_resolve_blocked_kernel<2>;
-    case 4: return (const void*)hit_resolve_blocked_kernel<4>;
-    case 8: return (const void*)hit_resolve_blocked_kernel<8>;
+    case 1: return (const void*)hit_resolve_blocked_kernel<1, false>;
+    case 2: return (const void*)hit_resolve_blocked_kernel<2, false>;
+    case 4: return (const void*)hit_resolve_blocked_kernel<4, false>;
+    case 8: return (const void*)hit_resolve_blocked_kernel<8, false>;
     default: return nullptr;
   }
 }

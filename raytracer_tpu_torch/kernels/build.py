@@ -120,6 +120,7 @@ class ResolveArgs(ctypes.Structure):
     _fields_ = [("scene", SceneArgs),
                 ("o", ctypes.c_void_p * 3), ("d", ctypes.c_void_p * 3),
                 ("out", ctypes.c_void_p * 12), ("stats", ctypes.c_void_p),
+                ("sample", ctypes.c_void_p), ("spp", ctypes.c_int),
                 ("n", ctypes.c_int), ("group", ctypes.c_int)]
 
 
@@ -132,7 +133,8 @@ class BlockedArgs(ctypes.Structure):
             "sc_rows", "tc_rows", "ss_rows", "ts_rows", "has_one_way",
             "needs_tri_uv")]
         + [("o", ctypes.c_void_p * 3), ("d", ctypes.c_void_p * 3),
-           ("out", ctypes.c_void_p * 9), ("n", ctypes.c_int),
+           ("out", ctypes.c_void_p * 9), ("sample", ctypes.c_void_p),
+           ("spp", ctypes.c_int), ("n", ctypes.c_int),
            ("group", ctypes.c_int)])
 
 

@@ -8,8 +8,9 @@ texture (ops/textures.py), the scatter (ops/scatter.py) and russian
 roulette (raytracer_tpu/ops/integrator.py:59-126); in the regen arm also
 the regeneration bookkeeping (:251-355): the path end, the pixel sum, the
 sample and bounce counters, the restart on the lane's primary ray and the
-parking of a lane whose last sample ends (far away, where the hit
-kernels' walk along the ray set-up's ``PARK_UNIT`` enters no box). A lane
+parking of a lane whose last sample ends (far away, where a hit kernel
+launched without the regen loop's mask walks along the ray set-up's
+``PARK_UNIT`` and enters no box). A lane
 that enters the bounce finished (``sample_i >= rays_per_pixel``) keeps its
 state. The scan arm keeps an alive mask and does no regeneration. The
 draws and the antialias jitter come before the hit, from the ray set-up

@@ -68,9 +68,9 @@ EXIT_CHECK_EVERY = 8
 # Lane-iterations the regen loop has run or replayed: N x k for every
 # block of k iterations, added on the host with no sync. Over a stretch of
 # frames, 1 - segments / LANE_ITERATIONS is the share of lane-iterations
-# that found their lane finished (``sample_i >= spp``): parked, so the hit
-# kernels' walk enters no box, and skipped by the ray set-up and the
-# bounce.
+# that found their lane finished (``sample_i >= spp``): skipped by the ray
+# set-up, K5 / K6 and the bounce (and parked, so a hit kernel launched
+# without the loop's mask enters no box along it).
 LANE_ITERATIONS = 0
 # what rebin and lanesort regroup each iteration, besides ``home``
 _REGROUPED = ("o", "d", "thru", "rad", "pixel_sum", "o0p", "d0p",
@@ -119,15 +119,18 @@ def _bounce(route: _Route, st: dict, rays, *, regen: bool,
             bounce: int = 0) -> None:
     """One bounce of every lane of ``st`` (integrator.py:59-126) on the
     iteration's ``rays`` (``wave_rays``): the nearest hit (K5 / K6 on the
-    kernel route, their raw outputs), then ``wave_bounce``
-    (``rt_wave_bounce``: the resolve and the bounce; the regen arm parks
-    a lane as its last sample ends). The oracles resolve their own hits
-    (ops/intersect.py) and take ``shade_bounce_reference``."""
+    kernel route, their raw outputs; in the regen arm they skip a finished
+    lane, ``sample_i >= spp``), then ``wave_bounce`` (``rt_wave_bounce``:
+    the resolve and the bounce; the regen arm parks a lane as its last
+    sample ends). The oracles resolve their own hits (ops/intersect.py)
+    and take ``shade_bounce_reference``."""
     settings, ws = route.settings, route.ws
     scene = ws.scene
     kw = dict(regen=regen, bounce=bounce)
     if route.backend in ("pallas", "plain"):
-        raw = hit_raw(ws, st["o"], rays.unit, plain=route.plain)
+        mask = dict(sample_i=st["sample_i"],
+                    spp=settings.rays_per_pixel) if regen else {}
+        raw = hit_raw(ws, st["o"], rays.unit, plain=route.plain, **mask)
         st.update(wave_bounce(
             scene, settings, st, rays.dj, raw, rays.inv_len, rays.gauss,
             rays.fresnel, rays.rr, plain=route.plain, inplace=route.graph,

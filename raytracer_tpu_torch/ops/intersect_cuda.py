@@ -46,7 +46,10 @@ kernel and its plain version see the same inputs. The kernels take any
 number of rays: nothing is padded to the JAX kernel's 4096-ray tiles. On
 the wavefront samplers' iteration ``rt_wave_rays`` (ops/rays.py) does
 ``unit_rays``' work and ``rt_wave_bounce`` (ops/bounce.py) ``resolve``'s,
-on K5's and K6's raw outputs (``hit_raw``). A CUDA tensor launches the
+on K5's and K6's raw outputs (``hit_raw``); there the regen loop hands
+both kernels its lanes' sample indices, and they skip a lane whose
+samples are all traced, as the other two kernels of the iteration do
+(``SKIP_LAUNCHES`` counts those launches). A CUDA tensor launches the
 kernel or raises; the plain versions run on CPU tensors, or on any device
 when ``plain=True`` (how the card holds the kernels against them).
 ``_group`` forces G, for the tests and the sweeps.
@@ -76,10 +79,12 @@ S_CR2 = 3                # sphere row |c|^2 - r^2 (poisoned with INF)
 SMEM_BUDGET = 800_000
 
 # Launches of rt_hit_resolve (K5), of those with the counters on, and of
-# rt_hit_resolve_blocked (K6).
+# rt_hit_resolve_blocked (K6); of K5's and K6's, those that carried the
+# regen loop's sample indices and so skipped its finished lanes.
 LAUNCHES = 0
 STATS_LAUNCHES = 0
 BLOCKED_LAUNCHES = 0
+SKIP_LAUNCHES = 0
 
 # Waves of resident threads the group rules fill: K5's by the scene's gate
 # depth (``sweep.gate_depth``), K6's one number, since the blocked layout
@@ -499,29 +504,34 @@ _K6_DTYPES = (_F32, _I32, _F32, _F32, _F32, _F32, _F32, _I32, _I32)
 
 
 def _hit_resolve_cuda(ps: PackedScene, o, d, with_stats: bool = False,
-                      group=None):
+                      group=None, sample_i=None, spp: int = 0):
     """Launch K5 at G = ``resolve_group``; with ``with_stats`` its counting
-    arm, whose 13th output is each ray's primitive tests."""
+    arm, whose 13th output is each ray's primitive tests; with
+    ``sample_i`` its skip arm (``hit_raw``)."""
     from ..kernels import build
     n = o.shape[1]
     outs = _outs(n, o.device, _K5_DTYPES + ((_F32,) if with_stats else ()))
     args = build.ResolveArgs(
         scene=build.scene_args(ps), o=build.row_ptrs(o), d=build.row_ptrs(d),
         out=(ctypes.c_void_p * 12)(*[x.data_ptr() for x in outs[:12]]),
-        stats=outs[12].data_ptr() if with_stats else None, n=n,
-        group=resolve_group(n, ps, group))
+        stats=outs[12].data_ptr() if with_stats else None,
+        sample=None if sample_i is None else sample_i.data_ptr(), spp=spp,
+        n=n, group=resolve_group(n, ps, group))
     lib = build.load()
     rc = lib.rt_hit_resolve(ctypes.byref(args),
                             ctypes.c_void_p(build.stream(o.device)))
     build.check(lib, rc, "rt_hit_resolve")
-    global LAUNCHES, STATS_LAUNCHES
+    global LAUNCHES, STATS_LAUNCHES, SKIP_LAUNCHES
     LAUNCHES += 1
     STATS_LAUNCHES += int(with_stats)
+    SKIP_LAUNCHES += int(sample_i is not None)
     return outs
 
 
-def _hit_resolve_blocked_cuda(bt: BlockedTables, o, d, group=None):
-    """Launch K6 at G = ``blocked_group``."""
+def _hit_resolve_blocked_cuda(bt: BlockedTables, o, d, group=None,
+                              sample_i=None, spp: int = 0):
+    """Launch K6 at G = ``blocked_group``; with ``sample_i`` its skip arm
+    (``hit_raw``)."""
     from ..kernels import build
     n = o.shape[1]
     outs = _outs(n, o.device, _K6_DTYPES)
@@ -533,34 +543,56 @@ def _hit_resolve_blocked_cuda(bt: BlockedTables, o, d, group=None):
         bt.sc_rows, bt.tc_rows, bt.ss_rows, bt.ts_rows,
         int(bt.has_one_way), int(bt.needs_tri_uv),
         build.row_ptrs(o), build.row_ptrs(d),
-        (ctypes.c_void_p * 9)(*[x.data_ptr() for x in outs]), n,
+        (ctypes.c_void_p * 9)(*[x.data_ptr() for x in outs]),
+        None if sample_i is None else sample_i.data_ptr(), spp, n,
         blocked_group(n, group))
     lib = build.load()
     rc = lib.rt_hit_resolve_blocked(ctypes.byref(args),
                                     ctypes.c_void_p(build.stream(o.device)))
     build.check(lib, rc, "rt_hit_resolve_blocked")
-    global BLOCKED_LAUNCHES
+    global BLOCKED_LAUNCHES, SKIP_LAUNCHES
     BLOCKED_LAUNCHES += 1
+    SKIP_LAUNCHES += int(sample_i is not None)
     return outs
 
 
+def _check_mask(o: torch.Tensor, sample_i, spp) -> None:
+    if (sample_i is None) != (spp is None):
+        raise ValueError("give sample_i and spp together, or neither")
+    if sample_i is not None and (
+            sample_i.dtype != torch.int32 or not sample_i.is_contiguous()
+            or tuple(sample_i.shape) != (o.shape[1],)
+            or sample_i.device != o.device):
+        raise ValueError(f"sample_i must be a contiguous ({o.shape[1]},) "
+                         f"int32 tensor on {o.device}, got "
+                         f"{tuple(sample_i.shape)} {sample_i.dtype} on "
+                         f"{sample_i.device}")
+
+
 def hit_raw(ws: WaveScene, o: torch.Tensor, d: torch.Tensor,
-            plain: bool = False, *, _group=None):
+            plain: bool = False, *, sample_i=None, spp=None, _group=None):
     """K5 or K6 (by ``ws.blocked``) on rays with unit directions, their
     raw outputs: K5's 12, K6's 9 (t, code, u, v, n0-2, colour30,
     smooth|mat). CPU tensors, or ``plain=True``, take the plain versions;
     CUDA tensors launch, at the rule's G (``_group`` forces it, for the
-    tests and the sweeps)."""
+    tests and the sweeps).
+
+    ``sample_i`` ((N,) int32) and ``spp``: the regen loop's mask. The
+    kernels skip a finished lane (``sample_i >= spp``), whose output rows
+    keep whatever their buffers held: ``rt_wave_bounce`` reads none of
+    them. The plain versions compute every row all the same."""
     check_group(_group)
+    _check_mask(o, sample_i, spp)
     if o.device.type == "cpu" or plain:
         if ws.blocked:
             return list(hit_resolve_blocked_reference(ws.tables, o, d))
         return hit_resolve_reference(ws.packed, o, d)
     if o.device.type != "cuda":
         raise ValueError(f"no hit kernel for device {o.device}")
+    mask = dict(sample_i=sample_i, spp=0 if spp is None else int(spp))
     if ws.blocked:
-        return _hit_resolve_blocked_cuda(ws.tables, o, d, _group)
-    return _hit_resolve_cuda(ws.packed, o, d, group=_group)
+        return _hit_resolve_blocked_cuda(ws.tables, o, d, _group, **mask)
+    return _hit_resolve_cuda(ws.packed, o, d, group=_group, **mask)
 
 
 def decoded(raw):

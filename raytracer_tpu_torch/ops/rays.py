@@ -13,8 +13,9 @@ direction ``dj``, its unit direction and 1 / |dj|, and the Gaussian,
 Fresnel and russian-roulette draws. The jitter rows stay in registers.
 A finished regen lane (``sample_i >= spp``) draws nothing: it gets the
 unit direction ``PARK_UNIT`` and 1 / |dj| = 1, which K5 / K6 walk from
-the park origin ``rt_wave_bounce`` moved it to, and its ``dj`` and draws
-are left unwritten.
+the park origin ``rt_wave_bounce`` moved it to where they are launched
+without the regen loop's mask (with it they skip the lane), and its
+``dj`` and draws are left unwritten.
 It also adds the iteration's traced segments to a counter in device
 memory and, under a replayed CUDA graph, advances the coherent draw's
 iteration counter there: a coherent iteration is three kernels, as a

@@ -36,7 +36,8 @@ from . import bounce, intersect_cuda, rays, rng
 
 # The kernels' launch counters a graph holds launches of.
 COUNTERS = ((intersect_cuda, "LAUNCHES"), (intersect_cuda, "STATS_LAUNCHES"),
-            (intersect_cuda, "BLOCKED_LAUNCHES"), (rng, "LAUNCHES"),
+            (intersect_cuda, "BLOCKED_LAUNCHES"),
+            (intersect_cuda, "SKIP_LAUNCHES"), (rng, "LAUNCHES"),
             (rng, "TILE_LAUNCHES"), (bounce, "LAUNCHES"),
             (rays, "LAUNCHES"))
 REPLAYS = 0

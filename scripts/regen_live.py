@@ -14,9 +14,12 @@ One JSON line a frame: ``timed``: frame ms and segments (``stats_log``);
 ``blocks``: the segments, the iterations run (the blocks' sizes summed),
 ``live_share`` = segments / (lanes x iterations), its complement
 ``finished_share``, the live lanes after each block (a host read of
-``sample_i`` between replays, so these frames are not timed), and the
-growth of ``integrator.LANE_ITERATIONS`` over the frame where the tree
-has that counter (else null). Imports no JAX.
+``sample_i`` between replays, so these frames are not timed), the growth
+of ``integrator.LANE_ITERATIONS`` over the frame and the share of those
+lane-iterations the kernels skipped, 1 - segments / lane-iterations, and
+the growth of ``intersect_cuda.SKIP_LAUNCHES`` (the K5 / K6 launches
+that skipped finished lanes), each where the tree has the counter (else
+null). Imports no JAX.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ def main() -> int:
     import torch
     from pbench import modes, spec
 
-    from raytracer_tpu_torch.ops import integrator
+    from raytracer_tpu_torch.ops import integrator, intersect_cuda
     from raytracer_tpu_torch.runtime.renderer import Renderer
 
     cell = spec.load(ROOT, args.workload)
@@ -74,12 +77,14 @@ def main() -> int:
     for _ in range(args.frames):
         blocks.clear()
         before = getattr(integrator, "LANE_ITERATIONS", None)
+        skips = getattr(intersect_cuda, "SKIP_LAUNCHES", None)
         t = time.perf_counter()
         r.render_frame(block=True)
         wall = time.perf_counter() - t
         segs = r.stats_log[-1]["segments"]
         iters = blocks[-1][0] if blocks else 0
         after = getattr(integrator, "LANE_ITERATIONS", None)
+        grown = None if before is None else after - before
         live = segs / (lanes * iters) if iters else None
         lines.append({"workload": args.workload, "frame": r.frame_num,
                       "blocks": {
@@ -88,8 +93,11 @@ def main() -> int:
                           "finished_share": None if live is None
                           else 1.0 - live,
                           "live_after_block": blocks[:],
-                          "lane_iterations": None if before is None
-                          else after - before,
+                          "lane_iterations": grown,
+                          "skipped_share": 1.0 - segs / grown
+                          if grown else None,
+                          "skip_launches": None if skips is None
+                          else intersect_cuda.SKIP_LAUNCHES - skips,
                           "wall_ms_with_reads": wall * 1e3}})
     integrator._RegenGraphs.step = step
     for line in lines:

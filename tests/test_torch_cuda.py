@@ -1429,3 +1429,126 @@ def test_regen_tetra6_graph_replay_matches_eager(dev, monkeypatch):
         torch.cuda.synchronize()
         assert torch.equal(r.accum, accum)
     assert twg.REPLAYS > replays and ic.BLOCKED_LAUNCHES > blocked
+
+
+# -- the hit kernels skip finished regen lanes --------------------------------
+
+SKIP_SCENES = ["scene4", "scene2", "tetra4"]
+
+
+def _skip_scene(dev, name):
+    """(scene, sky, camera position, blocked) of a skip test: K5 on scenes
+    4 and 2, K6 on the level-4 SPD pyramid (1,024 triangles) forced onto
+    the blocked layout."""
+    from raytracer_tpu_torch.models import bench_scenes
+    if name == "tetra4":
+        return (*bench_scenes.spd_tetra_scene(level=4, device=dev),
+                (0.0, 0.0, 0.0), True)
+    if name == "scene4":
+        return (*rtt.build_scene(4, seed=0, device=dev), (0.0, 0.5, -6.0),
+                False)
+    return (*rtt.build_scene(2, device=dev), (0.0, 0.0, 0.0), False)
+
+
+def _skip_mask(n: int, spp: int, seed: int = 11):
+    """The regen loop's ``sample_i`` over ``n`` lanes (n a multiple of 64)
+    and its finished lanes: in the first half about a third finished at
+    random, in the second whole aligned runs of 32 lanes finished (each
+    run at random), so every G meets both mixed and finished warps."""
+    g = torch.Generator().manual_seed(seed)
+    done = torch.rand(n, generator=g) < 0.35
+    half = n // 2
+    done[half:] = (torch.rand(half // 32, generator=g) < 0.5
+                   ).repeat_interleave(32)
+    sample = torch.randint(0, spp, (n,), generator=g, dtype=torch.int32)
+    return torch.where(done, spp, sample).to(torch.int32), done
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("name", SKIP_SCENES)
+def test_hit_kernels_skip_finished_lanes(dev, monkeypatch, name, group):
+    """K5 (scenes 4 and 2, 256x128 camera rays) and K6 (the level-4
+    pyramid, 32,768 rays into it) launched with the regen loop's mask at
+    every G: a live lane's rows bitwise the unmasked launch's, a finished
+    lane's rows still the sentinel its output buffers were filled with
+    (the kernel wrote nothing there), the launch counted in
+    ``SKIP_LAUNCHES``; the plain route with the mask computes every row,
+    the unmasked launch's."""
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    scene, _, pos, blocked = _skip_scene(dev, name)
+    ws = ic.WaveScene(scene, blocked=blocked)
+    if blocked:
+        o, d = _tetra_rays(dev, 1 << 15)
+    else:
+        o, d = _rays(dev, 256, 128, position=pos)
+        d = ic.unit_rays(d)[0]
+    spp = 4
+    sample, done = (x.to(dev) for x in _skip_mask(o.shape[1], spp))
+    want = ic.hit_raw(ws, o, d, _group=group)
+    assert bool((want[0][~done] < tsweep.INF).any())
+    monkeypatch.setattr(ic, "_outs", lambda n, device, dtypes: [
+        torch.full((n,), -7, dtype=dt, device=device) for dt in dtypes])
+    counters = ("BLOCKED_LAUNCHES" if blocked else "LAUNCHES",
+                "SKIP_LAUNCHES")
+    before = [getattr(ic, c) for c in counters]
+    got = ic.hit_raw(ws, o, d, sample_i=sample, spp=spp, _group=group)
+    torch.cuda.synchronize()
+    assert [getattr(ic, c) - b for c, b in zip(counters, before)] == [1, 1]
+    assert len(got) == len(want) == (9 if blocked else 12)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype
+        assert torch.equal(a[~done], w[~done])
+        assert bool((a[done] == -7).all())
+    _bitwise(ic.hit_raw(ws, o, d, plain=True, sample_i=sample, spp=spp),
+             want)
+
+
+SKIP_FRAME_CASES = [("regen", False), ("regen", True), ("rebin", False),
+                    ("lanesort", False)]
+
+
+@pytest.mark.parametrize("name", ["scene4", "tetra4"])
+@pytest.mark.parametrize("sampler,coherent", SKIP_FRAME_CASES)
+def test_masked_graph_frame_matches_plain_route(dev, monkeypatch, sampler,
+                                                coherent, name):
+    """A graph-replayed frame whose hit launches carry the regen loop's
+    mask (64x32, 3 spp, 4 bounces; K5 on scene 4, K6 on the blocked
+    level-4 pyramid; every hit launch of the replays counted in
+    ``SKIP_LAUNCHES``) gives the plain route's film (the pixel sums over
+    spp) and segments bitwise, and so does a fresh capture whose hit
+    launches carry no mask."""
+    from raytracer_tpu_torch.ops import integrator as tint
+    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    scene, sky, pos, blocked = _skip_scene(dev, name)
+    s = rtt.RenderSettings(rays_per_pixel=3, reflect_limit=4,
+                           sampler=sampler, coherent=coherent,
+                           russian_roulette=2).with_sky(sky)
+    o, d = _rays(dev, 64, 32, position=pos)
+    o, d = o.T.contiguous(), d.T.contiguous()
+    idx = torch.as_tensor(tcam.morton_order(64, 32), device=dev)
+    fkey = trng.frame_key(trng.key(1), 0)
+    launches = "BLOCKED_LAUNCHES" if blocked else "LAUNCHES"
+
+    def frame(backend):
+        before = (getattr(ic, launches), ic.SKIP_LAUNCHES,
+                  tint.LANE_ITERATIONS)
+        mean, segs = tint.render_sample_mean(
+            ic.WaveScene(scene, blocked=blocked), s, o, d, fkey,
+            ray_idx=idx, backend=backend)
+        torch.cuda.synchronize()
+        grown = (getattr(ic, launches) - before[0],
+                 ic.SKIP_LAUNCHES - before[1],
+                 (tint.LANE_ITERATIONS - before[2]) // o.shape[0])
+        return mean.clone(), float(segs), grown
+    masked = frame("pallas")
+    assert masked[2][0] == masked[2][1] == masked[2][2] > 0
+    plain = frame("plain")
+    hit_raw = tint.hit_raw
+    monkeypatch.setattr(tint, "hit_raw",
+                        lambda ws, o_, d_, plain=False, **kw:
+                        hit_raw(ws, o_, d_, plain))
+    unmasked = frame("pallas")
+    assert unmasked[2][1] == 0 and unmasked[2][0] == masked[2][0]
+    for other in (plain, unmasked):
+        assert torch.equal(masked[0], other[0])
+        assert masked[1] == other[1] > 0

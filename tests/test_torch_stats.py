@@ -175,8 +175,9 @@ def test_stats_raise_past_fits_smem():
 
 def test_resolve_args_binding_without_nvcc():
     """The ctypes ResolveArgs struct matches RtResolveArgs field by field,
-    the stats pointer and the group size included, and the counting arm
-    is a template argument of every group instance."""
+    the stats pointer, the skip arm's sample pointer and the group size
+    included, and the counting arm is a template argument of every group
+    instance, beside the skip arm's."""
     from raytracer_tpu_torch.kernels import build
     src = (pathlib.Path(ic.__file__).resolve().parents[1] / "csrc" /
            "megakernel.cu").read_text()
@@ -186,5 +187,6 @@ def test_resolve_args_binding_without_nvcc():
              for d in body.split(";") if d.strip()]
     assert names == [f[0] for f in build.ResolveArgs._fields_]
     assert names[-2:] == ["n", "group"]
-    assert "template <int G, bool kStats>" in src
-    assert "hit_resolve_kernel<G, true>" in src
+    assert names[-4:-2] == ["sample", "spp"]
+    assert "template <int G, bool kStats, bool kMask>" in src
+    assert "hit_resolve_kernel<G, true, false>" in src

@@ -735,3 +735,185 @@ def test_lane_iterations_count_the_loop(monkeypatch, eager_graphs, sampler,
     assert len(ran) > 0 and grown == o.shape[0] * len(ran)
     assert 0 < float(segs) < grown
     assert bool(eager_graphs) == (route == "graph")
+
+
+# -- finished lanes: the hit kernels' skip -----------------------------------
+
+MASK_CASES = [("regen", False), ("rebin", False), ("lanesort", False),
+              ("regen", True), ("scan", False), ("trace", False)]
+
+
+@pytest.mark.parametrize("route", ["eager", "graph"])
+@pytest.mark.parametrize("sampler,coherent", MASK_CASES)
+def test_regen_hands_the_hit_kernels_its_mask(monkeypatch, eager_graphs,
+                                              sampler, coherent, route):
+    """Every hit of the regen loop (regen, rebin, lanesort, coherent regen)
+    hands ``hit_raw`` the loop's mask, its lanes' ``sample_i`` ((N,)
+    int32; on the graph route the static tensor itself, so the capture
+    holds its pointer) and ``spp``; the scan sampler's and ``trace``'s
+    hand it none. Scene 4, 64x32, 2 spp, 3 bounces, on the eager plain
+    route and on the graph route (its capture stubbed as above)."""
+    scene, sky = _scene(4)
+    s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=3,
+                           sampler="scan" if sampler == "trace" else sampler,
+                           coherent=coherent).with_sky(sky)
+    o, d, idx = _rays(4, 64, 32)
+    calls = []
+    hit_raw = tint.hit_raw
+
+    def spy(ws, o_, d_, plain=False, **kw):
+        calls.append(kw)
+        return hit_raw(ws, o_, d_, plain, **kw)
+    monkeypatch.setattr(tint, "hit_raw", spy)
+    backend = "pallas" if route == "graph" else "plain"
+    ws = WaveScene(scene)
+    if sampler == "trace":
+        rtt.trace(ws, s, o, d, trng.key(2), ray_idx=idx, backend=backend)
+    else:
+        tint.render_sample_mean(ws, s, o, d, trng.frame_key(trng.key(1), 0),
+                                ray_idx=idx, backend=backend)
+    assert calls and bool(eager_graphs) == (route == "graph")
+    if sampler in ("scan", "trace"):
+        assert all(kw == {} for kw in calls)
+        return
+    static = ws.graphs[("regen", o.shape[0], s, backend)].st["sample_i"] \
+        if route == "graph" else None
+    for kw in calls:
+        assert sorted(kw) == ["sample_i", "spp"] and kw["spp"] == 2
+        assert kw["sample_i"].dtype == torch.int32
+        assert tuple(kw["sample_i"].shape) == (o.shape[0],)
+        assert static is None or kw["sample_i"] is static
+
+
+def _hit_scene(blocked: bool):
+    """(scene, sky, the rays' ``_rays`` scene number) of a K5 test (scene
+    4) or a K6 one: the level-4 SPD pyramid (1,024 triangles) forced onto
+    the blocked layout, seen from the origin."""
+    if blocked:
+        from raytracer_tpu_torch.models import bench_scenes
+        return (*bench_scenes.spd_tetra_scene(level=4, device="cpu"), 1)
+    return (*_scene(4), 4)
+
+
+class _FakeHitLib:
+    """The kernel library's two hit entry points without a card: each call
+    records the mask its arguments carry (sample pointer, spp) and
+    reports a launch."""
+
+    def __init__(self):
+        self.masks = []
+
+    def _launch(self, args, stream):
+        self.masks.append((args._obj.sample, args._obj.spp))
+        return 0
+
+    rt_hit_resolve = rt_hit_resolve_blocked = _launch
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+def test_skip_launches_grow_per_replay(monkeypatch, blocked):
+    """The K5 / K6 wrappers put the regen mask into the kernel's arguments
+    (``sample_i``'s pointer and spp; null and 0 without one) and count a
+    launch that carried it in ``SKIP_LAUNCHES``. A capture of 8 masked
+    launches and 2 without takes its counts back off the counters, and
+    each of 5 replays adds 8 to ``SKIP_LAUNCHES`` and 10 to the kernel's
+    launches (``torch.cuda.CUDAGraph`` and the library stubbed)."""
+    from raytracer_tpu_torch.kernels import build
+
+    class _Capturing:
+        def __init__(self, graph):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+    lib = _FakeHitLib()
+    monkeypatch.setattr(build, "load", lambda: lib)
+    monkeypatch.setattr(build, "stream", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph",
+                        lambda: _EagerGraph(lambda: None))
+    monkeypatch.setattr(torch.cuda, "graph", _Capturing)
+    monkeypatch.setattr(twg, "warm_up", lambda ws, n: None)
+    for mod, name in twg.COUNTERS:
+        monkeypatch.setattr(mod, name, 0)
+    scene, _, num = _hit_scene(blocked)
+    ws = WaveScene(scene, blocked=blocked)
+    o, d, _ = _rays(num)
+    o, d = o.T.contiguous(), tic.unit_rays(d.T.contiguous())[0]
+    n = o.shape[1]
+    sample_i = torch.zeros(n, dtype=torch.int32)
+
+    def launch(**mask):
+        if blocked:
+            return tic._hit_resolve_blocked_cuda(ws.tables, o, d, 1, **mask)
+        return tic._hit_resolve_cuda(ws.packed, o, d, group=1, **mask)
+
+    def body():
+        for _ in range(8):
+            assert len(launch(sample_i=sample_i, spp=3)) == \
+                (9 if blocked else 12)
+        for _ in range(2):
+            launch()
+    g = twg.capture(ws, n, body)
+    assert lib.masks == [(sample_i.data_ptr(), 3)] * 8 + [(None, 0)] * 2
+    assert twg.counts() == [0] * len(twg.COUNTERS)
+    for _ in range(5):
+        g.replay()
+    assert tic.SKIP_LAUNCHES == 40
+    launched = (tic.BLOCKED_LAUNCHES, tic.LAUNCHES)
+    assert launched == ((50, 0) if blocked else (0, 50))
+    assert tic.STATS_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("sampler,coherent", MASK_CASES[:4])
+def test_plain_film_is_the_same_without_the_mask(monkeypatch, sampler,
+                                                 coherent, blocked):
+    """The plain route's frame (the pixel sums over spp, and the
+    segments) is bitwise the same whether the regen loop hands the hit
+    its mask or not: the plain K5 and K6 compute every row. 32x32 (8
+    rows: rebin and lanesort regroup), 2 spp, 3 bounces, russian
+    roulette; K5 on scene 4, K6 on the level-4 pyramid
+    (``_hit_scene``)."""
+    scene, sky, num = _hit_scene(blocked)
+    s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=3,
+                           sampler=sampler, coherent=coherent,
+                           russian_roulette=1).with_sky(sky)
+    o, d, idx = _rays(num, 32, 32)
+    fkey = trng.frame_key(trng.key(3), 0)
+
+    def frame():
+        return tint.render_sample_mean(WaveScene(scene, blocked=blocked), s,
+                                       o, d, fkey, ray_idx=idx,
+                                       backend="plain")
+    masked = frame()
+    hit_raw = tint.hit_raw
+    monkeypatch.setattr(tint, "hit_raw",
+                        lambda ws, o_, d_, plain=False, **kw:
+                        hit_raw(ws, o_, d_, plain))
+    unmasked = frame()
+    assert torch.equal(masked[0], unmasked[0])
+    assert float(masked[1]) == float(unmasked[1]) > 0
+
+
+@pytest.mark.parametrize("bad", ["no_spp", "no_sample", "int64", "short"])
+def test_hit_raw_checks_the_mask(bad):
+    """``hit_raw`` takes ``sample_i`` and ``spp`` together, ``sample_i``
+    a contiguous (N,) int32 tensor on the rays' device, on every route."""
+    scene, _ = _scene(4)
+    ws = WaveScene(scene)
+    o, d, _ = _rays(4)
+    o, d = o.T.contiguous(), tic.unit_rays(d.T.contiguous())[0]
+    n = o.shape[1]
+    mask = {"no_spp": dict(sample_i=torch.zeros(n, dtype=torch.int32)),
+            "no_sample": dict(spp=2),
+            "int64": dict(sample_i=torch.zeros(n, dtype=torch.int64),
+                          spp=2),
+            "short": dict(sample_i=torch.zeros(n - 1, dtype=torch.int32),
+                          spp=2)}[bad]
+    with pytest.raises(ValueError, match="sample_i"):
+        tic.hit_raw(ws, o, d, **mask)
+    assert len(tic.hit_raw(ws, o, d, sample_i=torch.zeros(
+        n, dtype=torch.int32), spp=2)) == 12

@@ -11,9 +11,9 @@ on scenes 4, 2 and 0, bitwise), drives two paths through ``Renderer`` at
 image-texture path (scene 2, the 256x512 earth), then times one frame of
 each bench scene of benchmarks/suite.py through the kernel.
 
-Then the wavefront samplers: ``rt_lane_randoms`` (1M lanes) and the
-iteration's ray set-up ``rt_wave_rays`` (1M and 800,000 lanes; regen,
-scan and coherent arms; phase 8), K5
+Then the wavefront samplers: the iteration's ray set-up
+``rt_wave_rays`` (1M and 800,000 lanes; regen, scan and coherent arms;
+phase 8), K5
 ``rt_hit_resolve`` (65,536 and 1M rays over scenes 4 and 2) and K6
 ``rt_hit_resolve_blocked`` with K5 beside it (65,536 and 1M rays over
 stress100k) against their plain versions, one ``Renderer`` frame of each
@@ -32,7 +32,7 @@ bounces: scene 4 at 20 spp (K5), per lane and with coherent sampling,
 stress100k at 4 spp (K6) and the 1024x2048 earth at 20 spp (K5 + the
 atlas gather), each with its frame ms, the graph replays and kernel
 launches a frame (an iteration: the ray set-up, K5 or K6 and the bounce,
-no lane randoms or tile draws: the coherent ray set-up draws each tile's
+and no other entry point: the coherent ray set-up draws each tile's
 bundle itself), one frame under
 torch.profiler (the device ms of K5 / K6, the ray set-up and
 ``rt_wave_bounce``, the busy share, the kernel and graph launches the
@@ -41,7 +41,9 @@ iteration, the top kernels, and no torch.cat padding or torch resolve
 among them) and its first frame against the plain route at 256x128. On
 the card the wavefront samplers replay their iterations as CUDA graphs
 (ops/wave_graph.py), so the launch counts come from each graph's
-captured launches times its replays.
+captured launches times its replays. Launches are read from the
+program counts (utils/trace.py), which count every entry point, so each
+check of a path's launches also finds any other entry point that ran.
 
 Then the temporal fly-through (phase 13). A temporal frame on the card is
 ``rt_camera_rays`` (the padded primary rays from the camera basis, at a
@@ -51,14 +53,14 @@ blend, and after a move the history gather before it). A 256x128 temporal
 bitwise against the same steps composed from the plain versions, with its
 launches; ``rt_camera_rays`` against its plain version, bitwise, on the
 4K fly camera, bench.py's camera and a 130x70 film (pixpack 1 and 8);
-``rt_gather_history``, ``rt_warp_gather`` (K7) and both arms of
-``rt_temporal_frame`` against their plain versions, bitwise, on the 4K
-move's real projection (K7 also on a full-range pattern), each new kernel
+``rt_warp_gather`` (K7) and both arms of ``rt_temporal_frame`` against
+their plain versions, bitwise, on the 4K move's real projection (K7 also
+on a full-range pattern), each new kernel
 timed as a bare launch, by the profiler and through its wrapper beside
 its bound; benchmarks/suite.py's fly-through, scene 4 at 3840x2160, 1
 spp, 5 bounces, 16 camera moves each followed by a frame, timed with one
-final sync, with its launches (16 of each of the three kernels, 0 history
-gathers or K7), then a static and a warp frame in CUDA events; and, in a
+final sync, with its launches (16 of each of the three kernels, no K7 or
+other entry point), then a static and a warp frame in CUDA events; and, in a
 fresh process, a static frame, a warp frame and the 16-frame fly window
 under torch.profiler: device ms by kernel, device ops, the busy share,
 and no kernel but the three and the segment count's sum (no torch.cat,
@@ -66,12 +68,9 @@ rsqrt, norm, mul, add, div or fill) in the fly window.
 
 Then coherent sampling and K5's counters (phase 14): (a) the coherent arm
 of ``rt_megakernel`` against ``mega_reference``'s on scenes 4, 2 and 0 at
-256x128, pixpack 1 and 8; (b) ``rt_tile_randoms`` (the coherent tile
-draw, which no path launches since ``rt_wave_rays`` draws the bundles)
-against its plain version on 800,000 lanes and, in both of its arms, at
-every n % 4, timed beside its bound and ``torch.repeat_interleave``'s
-expansion of the drawn table, and a coherent 256x128 regen ``Renderer``
-frame (no tile draws) against the plain route; (c) coherent against
+256x128, pixpack 1 and 8; (b) a coherent 256x128 regen ``Renderer``
+frame (the ray set-up drawing the tile bundles) against the plain route;
+(c) coherent against
 per-lane sampling through ``Renderer`` at 1000x800, alternating, on the
 scene-4 and stress10k megakernel paths (20 spp, pixpack 8) and the
 scene-4 (20 spp, K5) and stress100k (4 spp, K6) regen paths, each
@@ -94,11 +93,10 @@ against the unsharded scene-4 frame at 1024x1024, 20 spp (and the regen
 sampler at 256x128), with each rank's ms and the max/mean over ranks,
 rank 1 of the pixpack-8 pair also bitwise against ``mega_reference`` at
 its tile offset, and the launches of the ranks' own local steps; (c)
-``dryrun_multichip(1)`` in a spawned NCCL process. K4,
-``rt_lane_randoms``, ``rt_wave_rays`` and ``rt_tile_randoms`` are timed
-as bare launches
-on prebuilt arguments (``ms``; ``profiled_ms`` the profiler's device
-time a launch) beside their wrappers (``wrapper_ms``).
+``dryrun_multichip(1)`` in a spawned NCCL process. K4 and
+``rt_wave_rays`` are timed as bare launches on prebuilt arguments
+(``ms``; ``profiled_ms`` the profiler's device time a launch) beside
+their wrappers (``wrapper_ms``).
 
 Then the goldens and the rest of the public API (phases 17-18): scenes
 0-4 at the goldens' settings (48x32, 24 spp) through the regen sampler's
@@ -147,6 +145,7 @@ their error against the plain version and their times.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import functools
 import json
@@ -200,7 +199,6 @@ OPS_LANE = 1500      # 18 threefry evaluations (~77 ops) + 3 erfinv
 OPS_RAYS = OPS_LANE + 30  # rt_wave_rays: the draw, jitter, 2 normalisations
 OPS_TILE_VALUE = 190  # one tile draw value: 2 threefry evaluations + erfinv
 OPS_COHERENT_LANE = 30  # rt_wave_rays' coherent arm a lane: jitter, 2 norms
-OPS_HISTORY = 80     # rt_gather_history: projection, floor, pack, weight
 OPS_CAMERA = 40      # rt_camera_rays: the screen point, two normalisations
 OPS_FRAME = 120      # rt_temporal_frame's warp arm: the ray, the gather, blend
 OPS_BLEND = 5        # its static arm: the blend of a pixel
@@ -250,8 +248,7 @@ def kernel_name(mangled: str) -> str:
     if m:
         return f"wave_rays_kernel<{('lane', 'coherent')[int(m.group(1))]}>"
     return next((k for k in (
-        "fetch_image_kernel", "lane_randoms_kernel", "tile_randoms_kernel",
-        "gather_history_kernel", "warp_gather_kernel", "wave_rays_kernel",
+        "fetch_image_kernel", "warp_gather_kernel", "wave_rays_kernel",
         "camera_rays_kernel") if k in mangled), mangled)
 
 
@@ -578,7 +575,7 @@ def mega_vs_plain(ms, settings, o, d, frame_key, pixpack=None) -> dict:
     segs_ref = float(ref[3, :n].double().sum())
     out = {}
     for g in GROUP_ARMS:
-        before = mk.COHERENT_LAUNCHES
+        before = _counts()
         with forced_group(g):
             mean, segs, depth = mk.render_sample_mean_mega(
                 ms, settings, o, d, frame_key, want_depth=True,
@@ -592,7 +589,8 @@ def mega_vs_plain(ms, settings, o, d, frame_key, pixpack=None) -> dict:
         stats["bitwise"] = bool(torch.equal(mean, ref[:3, :n])
                                 and torch.equal(depth, ref[4, :n])
                                 and float(segs) == segs_ref)
-        stats["coherent_launches"] = mk.COHERENT_LAUNCHES - before
+        stats["coherent_launches"] = (_counts() - before)[
+            "rt_megakernel.coherent"]
         out[str(g)] = stats
     return out
 
@@ -681,7 +679,7 @@ def check_frame(stats: dict, what: str) -> None:
 
 def phase_path(dev, num: int, width: int, height: int, spp: int) -> dict:
     """One path: Renderer on scene ``num``, one warm-up frame + 5 frames,
-    with the launch counts set to 0 just before and read just after; its
+    with the launch counts taken just before and read just after; its
     first frame bitwise against mega_reference; one full-size kernel
     frame timed at the rule's G."""
     import torch
@@ -696,11 +694,12 @@ def phase_path(dev, num: int, width: int, height: int, spp: int) -> dict:
     cam = rtt.CameraConfig(width=width, height=height)
 
     r = rtt.Renderer(scene, cam, settings, seed=0, device=dev)
-    mk.LAUNCHES = mk.IMAGE_LAUNCHES = mk.FETCH_LAUNCHES = 0
+    before = _counts()
     r.render_frame(block=True)
     first = r.accum.clone()
     rec = r.render_frames(5)
-    launches, image_launches = mk.LAUNCHES, mk.IMAGE_LAUNCHES
+    c = _counts() - before
+    launches, image_launches = c["rt_megakernel"], c["rt_megakernel.image"]
     r.check_health()
     out = {"scene": num, "img_rows": r._mega.img_rows,
            "pixpack": r.settings.pixpack, "launches": launches,
@@ -874,53 +873,6 @@ def field_rays(dev, n: int, seed: int, scene):
     d /= np.linalg.norm(d, axis=0, keepdims=True)
     return (torch.as_tensor(o.astype(np.float32), device=dev),
             torch.as_tensor(d.astype(np.float32), device=dev))
-
-
-def phase_lane_randoms(dev, n: int) -> dict:
-    """rt_lane_randoms against its plain version on n lanes: the per-lane
-    keys of a frame, random samples and bounces, with the russian-roulette
-    draw. Timed bare (``ms``, ``profiled_ms``) and through the wrapper
-    (``wrapper_ms``)."""
-    import torch
-
-    from raytracer_tpu_torch.kernels import build
-    from raytracer_tpu_torch.ops import rng
-    g = np.random.default_rng(6)
-    keys = rng.per_ray_keys(rng.frame_key(rng.key(0), 0),
-                            torch.arange(n, device=dev))
-    s = torch.as_tensor(g.integers(0, 20, n).astype(np.int32), device=dev)
-    b = torch.as_tensor(g.integers(0, 5, n).astype(np.int32), device=dev)
-    got = torch.cat([x.reshape(-1, n) for x in rng.lane_randoms(
-        keys, s, b, with_rr=True)])
-    want = rng.lane_randoms_reference(keys, s, b, with_rr=True)
-    uni = [0, 1, 2, 6, 7]
-    rec = {"lanes": n, "uniforms_bitwise": bool(torch.equal(got[uni],
-                                                            want[uni])),
-           "normals_bitwise": bool(torch.equal(got[3:6], want[3:6])),
-           "normals_equal_share": float((got[3:6] == want[3:6]).float()
-                                        .mean()),
-           "max_abs_err": float((got - want).abs().max())}
-    out = torch.empty_like(want)
-    keys = keys.contiguous()
-    args = build.LaneArgs(keys=keys.data_ptr(), sample=s.data_ptr(),
-                          bounce=b.data_ptr(), out=out.data_ptr(), n=n,
-                          rows=8)
-    rec.update(bare_times("rt_lane_randoms", args, dev,
-                          "lane_randoms_kernel"))
-    rec["bare_launch_bitwise"] = bool(torch.equal(out, got))
-    rec.update(wrapper_ms=cuda_ms(lambda: rng.lane_randoms(keys, s, b, True),
-                                  20),
-               plain_ms=cuda_ms(lambda: rng.lane_randoms_reference(
-                   keys, s, b, True), 3), library_ms=None)
-    rec.update(bound(n * (16 + 4 + 4 + 8 * 4), n * OPS_LANE))
-    rec["bound_ms_int32_rate"] = n * OPS_LANE / (PEAK_OPS_PER_S / 2) * 1e3
-    print("phase 8 rt_lane_randoms vs plain:", json.dumps(rec), flush=True)
-    check(rec["uniforms_bitwise"], "rt_lane_randoms uniforms differ")
-    check(rec["bare_launch_bitwise"], "rt_lane_randoms' bare launch differs")
-    check(rec["normals_bitwise"],
-          f"rt_lane_randoms normals differ: {rec['normals_equal_share']} "
-          f"equal, max |d| {rec['max_abs_err']}")
-    return rec
 
 
 RAYS_FIELDS = ("dj", "unit", "inv_len", "gauss", "fresnel", "rr")
@@ -1214,7 +1166,7 @@ def phase_k6(dev, n_check: int, n_time: int) -> dict:
 
 def phase_samplers(dev, width: int, height: int) -> dict:
     """One frame of each wavefront sampler through Renderer on the card
-    (scene 4, 4 spp), counts set to 0 just before and read just after;
+    (scene 4, 4 spp), counts taken just before and read just after;
     each frame against the plain route on the same rays and key, rebin
     and lanesort bitwise equal to regen, and a checkpoint round trip."""
     import torch
@@ -1231,9 +1183,9 @@ def phase_samplers(dev, width: int, height: int) -> dict:
                                       antialias=True,
                                       sampler=s).with_sky(sky)
         r = rtt.Renderer(scene, cam, settings, seed=0, device=dev)
-        _zero_counts()
+        before = _counts()
         r.render_frame(block=True)
-        launches = _wave_counts()
+        launches = _launches(before)
         r.check_health()
         frames[s] = r.accum.clone()
         ref, ref_segs = integ.render_sample_mean(
@@ -1255,7 +1207,7 @@ def phase_samplers(dev, width: int, height: int) -> dict:
         check(launches["rt_hit_resolve"] > 0
               and launches["rt_wave_rays"] == launches["rt_hit_resolve"]
               and launches["rt_wave_bounce"] == launches["rt_hit_resolve"]
-              and launches["rt_lane_randoms"] == 0,
+              and set(launches) == set(WAVE_ENTRIES),
               f"sampler {s}: the Renderer frame launched {launches}")
         check_pixels(stats, f"sampler {s} frame vs the plain route")
         check(stats["segs_rel"] <= SEGS_REL_MAX,
@@ -1274,33 +1226,30 @@ def phase_samplers(dev, width: int, height: int) -> dict:
     return recs
 
 
-def _wave_counts():
-    from raytracer_tpu_torch.ops import bounce
-    from raytracer_tpu_torch.ops import intersect_cuda as ic
-    from raytracer_tpu_torch.ops import rays
-    from raytracer_tpu_torch.ops import rng
-    return {"rt_hit_resolve": ic.LAUNCHES,
-            "rt_hit_resolve_blocked": ic.BLOCKED_LAUNCHES,
-            "rt_lane_randoms": rng.LAUNCHES,
-            "rt_tile_randoms": rng.TILE_LAUNCHES,
-            "rt_wave_rays": rays.LAUNCHES,
-            "rt_wave_bounce": bounce.LAUNCHES}
+# the entry points of a wavefront iteration and of a temporal frame
+WAVE_ENTRIES = ("rt_hit_resolve", "rt_hit_resolve_blocked", "rt_wave_rays",
+                "rt_wave_bounce")
+TEMPORAL_ENTRIES = ("rt_megakernel", "rt_camera_rays", "rt_temporal_frame",
+                    "rt_warp_gather")
 
 
-def _zero_counts() -> None:
-    from raytracer_tpu_torch.models import camera
-    from raytracer_tpu_torch.ops import bounce
-    from raytracer_tpu_torch.ops import intersect_cuda as ic
-    from raytracer_tpu_torch.ops import megakernel as mk
-    from raytracer_tpu_torch.ops import rays
-    from raytracer_tpu_torch.ops import rng
-    from raytracer_tpu_torch.ops import warp
-    ic.LAUNCHES = ic.STATS_LAUNCHES = ic.BLOCKED_LAUNCHES = rng.LAUNCHES = 0
-    ic.SKIP_LAUNCHES = 0
-    rng.TILE_LAUNCHES = bounce.LAUNCHES = rays.LAUNCHES = 0
-    mk.LAUNCHES = mk.IMAGE_LAUNCHES = mk.FETCH_LAUNCHES = 0
-    mk.COHERENT_LAUNCHES = camera.LAUNCHES = warp.FRAME_LAUNCHES = 0
-    warp.GATHER_LAUNCHES = warp.HISTORY_LAUNCHES = 0
+def _counts():
+    """The program counts so far (utils/trace.py): the launches by entry
+    point (``rt_X``) and arm (``rt_X.arm``), the graph replays and
+    captures and the regen loop's lane-iterations."""
+    from raytracer_tpu_torch.utils import trace
+    return trace.counts()
+
+
+def _launches(before, entries=WAVE_ENTRIES) -> dict:
+    """The launches since ``before`` (a ``_counts()``) by entry point: each
+    of ``entries``, 0 where it did not launch, and every other entry point
+    that launched, so that a check of a path's launches also finds any
+    other kernel."""
+    out = dict.fromkeys(entries, 0)
+    out.update((k, v) for k, v in (_counts() - before).items()
+               if k.startswith("rt_") and "." not in k)
+    return out
 
 
 def device_shares(fn, names, absent=(), all_ops=False) -> dict:
@@ -1370,11 +1319,11 @@ def phase_wave_path(dev, name: str, scene, sky, spp: int, pos,
                     width=1000, height=800, check_size=(256, 128),
                     coherent: bool = False) -> dict:
     """One regen path through Renderer (``coherent``: coherent sampling):
-    a warm-up frame (it captures the graphs) and 5 frames, counts set to 0
+    a warm-up frame (it captures the graphs) and 5 frames, counts taken
     just before and read just after, with the graph replays the host
     issued: an iteration launches rt_wave_rays, K5 / K6 and rt_wave_bounce
-    once each and no lane randoms or tile draws (the coherent ray set-up
-    draws the tile bundles itself). One more frame under torch.profiler:
+    once each and no other entry point (the coherent ray set-up draws the
+    tile bundles itself). One more frame under torch.profiler:
     the device ms of K5 /
     K6, the ray set-up and rt_wave_bounce and their shares, the device's
     busy share, the kernel and graph launches the host issued against the
@@ -1386,18 +1335,16 @@ def phase_wave_path(dev, name: str, scene, sky, spp: int, pos,
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.ops import integrator as integ
     from raytracer_tpu_torch.ops import rng
-    from raytracer_tpu_torch.ops import wave_graph
     settings = rtt.RenderSettings(rays_per_pixel=spp, reflect_limit=5,
                                   antialias=True, sampler="regen",
                                   coherent=coherent).with_sky(sky)
     cam = rtt.CameraConfig(width=width, height=height, position=pos)
     r = rtt.Renderer(scene, cam, settings, seed=0, device=dev)
-    _zero_counts()
-    replays = wave_graph.REPLAYS
+    before = _counts()
     r.render_frame(block=True)
     rec = r.render_frames(5)
-    launches = _wave_counts()
-    replays = wave_graph.REPLAYS - replays
+    launches = _launches(before)
+    replays = (_counts() - before)["graph.replay"]
     r.check_health()
     out = {"path": name, "spp": spp, "coherent": coherent,
            "blocked": r.packed_scene.blocked, "launches": launches,
@@ -1413,15 +1360,13 @@ def phase_wave_path(dev, name: str, scene, sky, spp: int, pos,
     check(launches[hit_kernel] > 0
           and launches["rt_wave_rays"] == launches[hit_kernel]
           and launches["rt_wave_bounce"] == launches[hit_kernel]
-          and launches["rt_lane_randoms"] == 0
-          and launches["rt_tile_randoms"] == 0,
+          and set(launches) == set(WAVE_ENTRIES),
           f"{name}: the path launched {launches}")
     iterations = launches[hit_kernel] / (rec["frames"] + 1)
     prof = device_shares(
         lambda: r.render_frame(block=True),
         ("hit_resolve_blocked_kernel", "hit_resolve_kernel",
-         "wave_rays_kernel", "wave_bounce_kernel", "lane_randoms_kernel",
-         "tile_randoms_kernel"),
+         "wave_rays_kernel", "wave_bounce_kernel"),
         absent=RESOLVE_OPS, all_ops=coherent)
     prof.update(iterations=iterations,
                 device_ops_per_iteration=prof["device_ops"] / iterations)
@@ -2015,14 +1960,13 @@ def bare_times(name: str, args, dev, kernel: str) -> dict:
 
 
 def phase_history(dev, args, width, height) -> tuple:
-    """rt_gather_history against its plain version on a real move's
-    projection (bitwise on valid and the source pixel, read through
-    ``index_history``, and on w and hist * w over the real accumulation),
-    then rt_warp_gather (K7 alone) on the same move's indices (a coherent
-    band) and on a full-range random pattern, each against its plain
-    version, bitwise. Times: the bare kernel launch on prebuilt arguments
-    (``ms``), the same through the wrapper (``wrapper_ms``), the plain
-    version and, for K7, index_select."""
+    """The source pixels of a real move's projection (the plain history
+    gather over ``index_history``), then rt_warp_gather (K7 alone) on that
+    move's indices (a coherent band) and on a full-range random pattern,
+    each against its plain version, bitwise. Times: the bare kernel launch
+    on prebuilt arguments (``ms``), the same through the wrapper
+    (``wrapper_ms``), the plain version and index_select. Returns the
+    move's valid share and source pixels, and K7's records."""
     import torch
 
     from raytracer_tpu_torch.ops import warp
@@ -2030,39 +1974,9 @@ def phase_history(dev, args, width, height) -> tuple:
     # the source pixels: the same move over the index accumulation
     by_index = (*args[:3], *index_history(n, dev), *args[6:])
     idx = source_pixels(*warp.gather_history(width, height, *by_index))
-    ridx = source_pixels(*warp.gather_history_reference(
-        width, height, *by_index))
-    hist, w = warp.gather_history(width, height, *args)
-    rh, rw = warp.gather_history_reference(width, height, *args)
-    hk, wk = torch.empty_like(hist), torch.empty_like(w)
-    hargs = warp._history_args(width, height, *args[:6], hk, wk, *args[6:])
-    kernel_ms = launch_ms("rt_gather_history", hargs, dev)
     flat = idx.clamp(min=0)
-    sources = int(torch.unique(idx[idx >= 0]).numel())
     hrec = {"pixels": n, "valid_share": float((idx >= 0).float().mean()),
-            "source_pixels": sources,
-            "index_bitwise": bool(torch.equal(idx, ridx)),
-            "w_bitwise": bool(torch.equal(w, rw)),
-            "hist_w_bitwise": bool(torch.equal(hist * w[:, None],
-                                               rh * rw[:, None])),
-            "bare_launch_bitwise": bool(torch.equal(hk, hist)
-                                        and torch.equal(wk, w)),
-            "max_abs_err": max(float((hist - rh).abs().max()),
-                               float((w - rw).abs().max())),
-            "ms": kernel_ms,
-            "wrapper_ms": cuda_ms(lambda: warp.gather_history(
-                width, height, *args), 20),
-            "plain_ms": cuda_ms(lambda: warp.gather_history_reference(
-                width, height, *args), 3),
-            "library_ms": None}
-    # o, d, depth and the outputs once; the old accumulation and weight
-    # only at the source pixels read
-    hrec.update(bound(n * (24 + 4 + 16) + sources * 16, n * OPS_HISTORY))
-    print(f"phase 13 rt_gather_history vs plain, {width}x{height} move:",
-          json.dumps(hrec), flush=True)
-    for key in ("index_bitwise", "w_bitwise", "hist_w_bitwise",
-                "bare_launch_bitwise"):
-        check(hrec[key], f"rt_gather_history: {key} failed")
+            "source_pixels": int(torch.unique(idx[idx >= 0]).numel())}
 
     g = np.random.default_rng(13)
     values = torch.as_tensor(g.integers(-2**31, 2**31 - 1, n,
@@ -2168,7 +2082,7 @@ def phase_temporal_frame(dev, out, accum, wpix, old, new, width, height,
     the fly-through's 4K frame (the megakernel's output ``out``), bitwise
     with the segment count: the static arm over the accumulation and
     weights, and the warp arm gathering them from the old camera ``old``
-    into ``new`` (the move phase_history checks, whose ``sources`` old
+    into ``new`` (the move phase_history projects, whose ``sources`` old
     pixels it reads). Each arm timed as a bare launch on
     prebuilt arguments (``ms``), by the profiler and through the wrapper;
     the plain version beside it."""
@@ -2235,7 +2149,7 @@ def phase_temporal_vs_plain(dev, width, height) -> dict:
     the plain versions (camera_rays_reference, mega_reference,
     temporal_frame_reference) on the same keys, bitwise; each frame is
     rt_camera_rays (at a camera's first frame), rt_megakernel and
-    rt_temporal_frame, and no rt_gather_history."""
+    rt_temporal_frame, and no other entry point."""
     import torch
 
     import raytracer_tpu_torch as rtt
@@ -2246,14 +2160,14 @@ def phase_temporal_vs_plain(dev, width, height) -> dict:
     cams = [fly_camera(i, width, height) for i in range(4)]
     r = rtt.Renderer(scene, cams[0], settings, seed=0, device=dev,
                      temporal=True)
-    _zero_counts()
+    before = _counts()
     r.render_frame(block=True)
     r.move_camera(cams[1])
     r.render_frame(block=True)
     r.move_camera(cams[2])
     r.move_camera(cams[3])
     r.render_frame(block=True)
-    launches = _temporal_counts()
+    launches = _launches(before, TEMPORAL_ENTRIES)
     n = width * height
     accum = torch.zeros((n, 3), device=dev)
     wpix = torch.zeros(n, device=dev)
@@ -2281,21 +2195,10 @@ def phase_temporal_vs_plain(dev, width, height) -> dict:
           f"warp frame, {width}x{height}, vs the plain steps:",
           json.dumps(rec), flush=True)
     check(launches == {"rt_megakernel": 3, "rt_camera_rays": 3,
-                       "rt_temporal_frame": 3, "rt_gather_history": 0,
-                       "rt_warp_gather": 0},
+                       "rt_temporal_frame": 3, "rt_warp_gather": 0},
           f"temporal frames launched {launches}")
     check(stats["bitwise"], "temporal frames differ from the plain steps")
     return rec
-
-
-def _temporal_counts() -> dict:
-    from raytracer_tpu_torch.models import camera
-    from raytracer_tpu_torch.ops import megakernel as mk
-    from raytracer_tpu_torch.ops import warp
-    return {"rt_megakernel": mk.LAUNCHES, "rt_camera_rays": camera.LAUNCHES,
-            "rt_temporal_frame": warp.FRAME_LAUNCHES,
-            "rt_gather_history": warp.HISTORY_LAUNCHES,
-            "rt_warp_gather": warp.GATHER_LAUNCHES}
 
 
 # device ops a temporal frame may run on the card: the camera rays (at a
@@ -2306,7 +2209,7 @@ def _temporal_counts() -> dict:
 TEMPORAL_KERNELS = ("camera_rays_kernel", "megakernel",
                     "temporal_frame_kernel")
 # the kernels whose device time phase 13 reads, the parent's too
-TEMPORAL_NAMES = TEMPORAL_KERNELS + ("gather_history_kernel", "sum_functor")
+TEMPORAL_NAMES = TEMPORAL_KERNELS + ("sum_functor",)
 
 
 def fly_profile_leg() -> dict:
@@ -2376,9 +2279,9 @@ def phase_flythrough(dev) -> dict:
     """benchmarks/suite.py:66-109 on the port: scene 4 at 4K, 1 spp, 5
     bounces, a temporal Renderer; a warm frame and a warm move, then
     FLY_MOVES moves each followed by a frame, one final sync, counts set
-    to 0 just before and read just after. The kernel checks of the new
-    kernels, rt_gather_history and K7 run on this run's first real move,
-    before the timed loop; the profiled frames after it."""
+    taken just before and read just after. The kernel checks of the new
+    kernels and K7 run on this run's first real move, before the timed
+    loop; the profiled frames after it."""
     import torch
 
     import raytracer_tpu_torch as rtt
@@ -2399,7 +2302,7 @@ def phase_flythrough(dev) -> dict:
         hrec["source_pixels"])
     del args, out
 
-    _zero_counts()
+    before = _counts()
     t0 = time.perf_counter()
     segs = []
     for i in range(FLY_MOVES):
@@ -2407,7 +2310,7 @@ def phase_flythrough(dev) -> dict:
         r.render_frame(block=(i == FLY_MOVES - 1))
         segs.append(r._last_segs)
     dt = time.perf_counter() - t0
-    launches = _temporal_counts()
+    launches = _launches(before, TEMPORAL_ENTRIES)
     hits = r._depth < mk.INF
     kept = float((r._wpix[hits] > 1).float().mean())
     r.check_health()
@@ -2432,8 +2335,7 @@ def phase_flythrough(dev) -> dict:
           json.dumps(rec), flush=True)
     check(launches == {"rt_megakernel": FLY_MOVES,
                        "rt_camera_rays": FLY_MOVES,
-                       "rt_temporal_frame": FLY_MOVES,
-                       "rt_gather_history": 0, "rt_warp_gather": 0},
+                       "rt_temporal_frame": FLY_MOVES, "rt_warp_gather": 0},
           f"fly-through launched {launches}")
     check(kept > W_KEPT_MIN, f"(w > 1) on {kept} of the hit pixels after "
           f"the last move (need > {W_KEPT_MIN})")
@@ -2446,96 +2348,11 @@ def phase_flythrough(dev) -> dict:
 
 # -- phase 14: coherent sampling, K5's counters, elastic recovery ------------
 
-def phase_tile_randoms(dev, n: int) -> dict:
-    """(b) rt_tile_randoms against its plain version on the card, every
-    row bitwise, with and without the russian-roulette row: on n lanes
-    (the coherent regen paths' frame) and, for both arms of the kernel
-    and every n % 4, on 200,000, 4101 and 8195 lanes at tiles of 1024 (a
-    block draws its tile's bundle once), 300 and 1 (each lane draws its
-    own). Timed on n lanes with the russian-roulette row: bare (``ms``,
-    ``profiled_ms``), through the wrapper (``wrapper_ms``), beside the
-    plain version, a draw on the host (each tile's values drawn there by
-    the plain version, copied to the card and repeated over the tile's
-    lanes on it) and ``library_ms``: torch.repeat_interleave of the drawn
-    (8, nt) table over 1024 lanes into a contiguous (8, nt * 1024)
-    tensor, the expansion half of the kernel's work."""
-    import torch
-
-    from raytracer_tpu_torch.kernels import build
-    from raytracer_tpu_torch.ops import rng
-    key = rng.fold_in(rng.fold_in(rng.frame_key(rng.key(0), 0), 0), 5)
-    nt = -(-n // 1024)
-
-    def host_draw():
-        rows = rng.tile_randoms_reference(key, nt, tile=1, with_rr=True)
-        rows = rows.to(dev)
-        return rows[:, :, None].expand(-1, nt, 1024).reshape(
-            -1, nt * 1024)[:, :n]
-
-    rec = {"lanes": n}
-    for rr in (False, True):
-        got = torch.cat([x.reshape(-1, n) for x in rng.tile_randoms(
-            key, n, with_rr=rr, device=dev)])
-        want = rng.tile_randoms_reference(key, n, with_rr=rr, device=dev)
-        rec[f"bitwise_rr{int(rr)}"] = bool(torch.equal(got, want))
-        rec[f"max_abs_err_rr{int(rr)}"] = float((got - want).abs().max())
-    arms = {}
-    for lanes in (200_000, 4101, 8195):
-        for tile in (1024, 300, 1):
-            got = rng.tile_rows(key, lanes, tile, with_rr=True, device=dev)
-            want = rng.tile_randoms_reference(key, lanes, tile,
-                                              with_rr=True, device=dev)
-            arms[f"n{lanes}_mod4_{lanes % 4}_tile{tile}"] = {
-                "bitwise": bool(torch.equal(got, want)),
-                "max_abs_err": float((got - want).abs().max())}
-    rec["arms"] = arms
-    rec["max_abs_err"] = max([rec["max_abs_err_rr0"], rec["max_abs_err_rr1"]]
-                             + [a["max_abs_err"] for a in arms.values()])
-    out = torch.empty((8, n), dtype=torch.float32, device=dev)
-    kd = rng.key_data(key)
-    args = build.TileArgs(key0=int(kd[0]), key1=int(kd[1]),
-                          out=out.data_ptr(), n=n, rows=8, tile=1024)
-    rec.update(bare_times("rt_tile_randoms", args, dev,
-                          "tile_randoms_kernel"))
-    want = rng.tile_randoms_reference(key, n, with_rr=True, device=dev)
-    rec["bare_launch_bitwise"] = bool(torch.equal(out, want))
-    rec["wrapper_ms"] = cuda_ms(lambda: rng.tile_randoms(
-        key, n, with_rr=True, device=dev), 20)
-    rec["plain_ms"] = cuda_ms(lambda: rng.tile_randoms_reference(
-        key, n, with_rr=True, device=dev), 5)
-    rec["host_draw_ms"] = cuda_ms(host_draw, 5)
-    # CPU and card conversions of the same bits may differ by an ulp
-    rec["host_draw_max_abs_err"] = float((host_draw() - want).abs().max())
-    table = rng.tile_randoms_reference(key, nt, tile=1, with_rr=True,
-                                       device=dev)
-    expanded = torch.repeat_interleave(table, 1024, dim=1)
-    rec["library_expansion_bitwise"] = bool(torch.equal(expanded[:, :n],
-                                                        want))
-    rec["library_ms"] = cuda_ms(
-        lambda: torch.repeat_interleave(table, 1024, dim=1), 20)
-    rec["library_call"] = ("torch.repeat_interleave(table, 1024, dim=1) of "
-                           f"the drawn (8, {nt}) table")
-    rec.update(bound(8 * n * 4, 8 * nt * OPS_TILE_VALUE))
-    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-    rec["half_bound_met"] = rec["ms"] <= 2 * rec["bound_ms"]
-    rec["no_slower_than_library"] = rec["ms"] <= rec["library_ms"]
-    print("phase 14b rt_tile_randoms vs plain:", json.dumps(rec), flush=True)
-    check(rec["bitwise_rr0"] and rec["bitwise_rr1"]
-          and all(a["bitwise"] for a in arms.values()),
-          f"rt_tile_randoms differs from its plain version: {rec}")
-    check(rec["bare_launch_bitwise"], "rt_tile_randoms' bare launch differs")
-    # library_ms times the same rows only if the yardstick computes them;
-    # half_bound_met and no_slower_than_library are reported, not checked
-    check(rec["library_expansion_bitwise"],
-          "repeat_interleave of the drawn table differs from the rows")
-    return rec
-
-
 def phase_coherent_regen(dev, width: int, height: int) -> dict:
     """(b) One coherent regen frame through Renderer on the card (scene 4,
-    4 spp): K5 and rt_wave_rays once an iteration, the ray set-up drawing
-    the tile bundles itself (no tile draws, no lane randoms); against the
-    plain route on the same rays and key."""
+    4 spp): K5, rt_wave_rays and rt_wave_bounce once an iteration and no
+    other entry point, the ray set-up drawing the tile bundles itself;
+    against the plain route on the same rays and key."""
     import raytracer_tpu_torch as rtt
     from raytracer_tpu_torch.ops import integrator as integ
     from raytracer_tpu_torch.ops import rng
@@ -2546,9 +2363,9 @@ def phase_coherent_regen(dev, width: int, height: int) -> dict:
                                   antialias=True, sampler="regen",
                                   coherent=True).with_sky(sky)
     r = rtt.Renderer(scene, cam, settings, seed=0, device=dev)
-    _zero_counts()
+    before = _counts()
     r.render_frame(block=True)
-    launches = _wave_counts()
+    launches = _launches(before)
     r.check_health()
     ref, ref_segs = integ.render_sample_mean(
         r.packed_scene, settings, r._o, r._d, rng.frame_key(r.base_key, 0),
@@ -2561,10 +2378,9 @@ def phase_coherent_regen(dev, width: int, height: int) -> dict:
     print(f"phase 14b coherent regen Renderer frame, scene 4 {width}x"
           f"{height} spp 4, vs the plain route:", json.dumps(rec), flush=True)
     check(launches["rt_hit_resolve"] > 0
-          and launches["rt_tile_randoms"] == 0
           and launches["rt_wave_rays"] == launches["rt_hit_resolve"]
           and launches["rt_wave_bounce"] == launches["rt_hit_resolve"]
-          and launches["rt_lane_randoms"] == 0,
+          and set(launches) == set(WAVE_ENTRIES),
           f"coherent regen frame launched {launches}")
     check_pixels(stats, "coherent regen frame vs the plain route")
     check(stats["segs_rel"] <= SEGS_REL_MAX,
@@ -2572,10 +2388,11 @@ def phase_coherent_regen(dev, width: int, height: int) -> dict:
     return rec
 
 
-def _path_counts() -> dict:
-    from raytracer_tpu_torch.ops import megakernel as mk
-    out = _wave_counts()
-    out.update(rt_megakernel=mk.LAUNCHES, coherent_arm=mk.COHERENT_LAUNCHES)
+def _path_counts(before) -> dict:
+    """The launches since ``before`` (``_launches``), K1's among them, and
+    of those K1's coherent arm's."""
+    out = _launches(before, WAVE_ENTRIES + ("rt_megakernel",))
+    out["coherent_arm"] = (_counts() - before)["rt_megakernel.coherent"]
     return out
 
 
@@ -2618,7 +2435,7 @@ def phase_coherent_paths(dev, width: int = 1000, height: int = 800) -> list:
     """(c) Coherent against per-lane sampling through Renderer at
     1000x800, 5 bounces: a warm-up frame each, then timed runs of
     render_frames in turns (per-lane, coherent, coherent, per-lane), the
-    counts set to 0 just before each run and read just after. Then the
+    counts taken just before each run and read just after. Then the
     coherent Renderer's warm-up frame against the plain version: scene 4's
     whole frame against mega_reference; two megakernel tiles from the
     middle of stress10k's frame (at the path's pixpack, with their tile
@@ -2627,7 +2444,7 @@ def phase_coherent_paths(dev, width: int = 1000, height: int = 800) -> list:
     against plain route (the plain versions are too slow for the whole
     frame). A coherent regen iteration is three kernels, as a per-lane one
     is: rt_wave_rays (drawing the tile bundles), K5 / K6, rt_wave_bounce;
-    no tile draws."""
+    no other entry point."""
     import torch
 
     import raytracer_tpu_torch as rtt
@@ -2654,12 +2471,12 @@ def phase_coherent_paths(dev, width: int = 1000, height: int = 800) -> list:
         mega = sampler != "regen"
         runs = {False: [], True: []}
         for coherent in (False, True, True, False):
-            _zero_counts()
+            before = _counts()
             stat = rs[coherent].render_frames(frames)
             runs[coherent].append({"frame_ms": stat["frame_ms"]
                                    / stat["frames"],
                                    "mrays_per_sec": stat["mrays_per_sec"],
-                                   "launches": _path_counts()})
+                                   "launches": _path_counts(before)})
         rec = {"path": name, "spp": spp, "frames_per_run": frames,
                "pixpack": rs[True].settings.pixpack}
         if mega:
@@ -2695,10 +2512,11 @@ def phase_coherent_paths(dev, width: int = 1000, height: int = 800) -> list:
         coh = rec["coherent"]["launches"]
         if sampler == "regen":
             hit = coh["rt_hit_resolve_blocked"] + coh["rt_hit_resolve"]
-            check(hit > 0 and coh["rt_tile_randoms"] == 0
-                  and coh["rt_wave_rays"] == hit
+            check(hit > 0 and coh["rt_wave_rays"] == hit
                   and coh["rt_wave_bounce"] == hit
-                  and coh["rt_lane_randoms"] == 0,
+                  and set(coh) == set(WAVE_ENTRIES) | {
+                      "rt_megakernel", "coherent_arm"}
+                  and coh["rt_megakernel"] == 0,
                   f"{name}: the coherent runs launched {coh}")
         else:
             check(coh["rt_megakernel"] == frames
@@ -2779,9 +2597,10 @@ def phase_counters(dev, n_check: int, n_mean: int,
             if num == 4 else rtt.build_scene(num, device=dev)
         ps = sweep.pack(scene)
         o, d = field_rays(dev, n_check, 17 + num, scene)
-        before = (ic.LAUNCHES, ic.STATS_LAUNCHES)
+        before = _counts()
         got = ic.hit_resolve_counted(ps, o, d)
-        launched = (ic.LAUNCHES - before[0], ic.STATS_LAUNCHES - before[1])
+        c = _counts() - before
+        launched = (c["rt_hit_resolve"], c["rt_hit_resolve.stats"])
         want = ic.hit_resolve_counted(ps, o, d, plain=True)
         r = _hit_agreement(got[:12], want[:12])
         r["counts_equal"] = bool(torch.equal(got[12], want[12]))
@@ -2954,13 +2773,12 @@ def phase_shard_group(dev, width: int = 1000, height: int = 800,
     through ``render_frames``,
     in turns with the unsharded Renderer (sharded, plain, plain,
     sharded), ``frames`` frames a turn, the film bitwise after each pair;
-    the frame ms of both is the collectives' cost at world 1. Counts set
-    to 0 before the sharded turns and read after each."""
+    the frame ms of both is the collectives' cost at world 1. Counts taken
+    before the sharded turns and read after each."""
     import torch
     import torch.distributed as dist
 
     import raytracer_tpu_torch as rtt
-    from raytracer_tpu_torch.ops import megakernel as mk
     from raytracer_tpu_torch.parallel import distributed, dryrun, mesh
     dryrun.join_env(0, 1, dryrun.free_port())
     distributed.initialize()
@@ -2981,11 +2799,10 @@ def phase_shard_group(dev, width: int = 1000, height: int = 800,
         for order in ((rs, ru), (ru, rs)):
             for r in order:
                 sharded = r is rs
-                if sharded:
-                    _zero_counts()
+                before = _counts()
                 rec = r.render_frames(frames)
                 if sharded:
-                    launches += mk.LAUNCHES
+                    launches += (_counts() - before)["rt_megakernel"]
                 ms["sharded" if sharded else "unsharded"].append(
                     rec["frame_ms"] / rec["frames"])
             equal.append(bool(torch.equal(
@@ -3024,7 +2841,7 @@ def phase_shard_ranks(dev, width: int = 1024, height: int = 1024,
     Rank 1 of world 2 at pixpack 8 (a nonzero tile offset) is also held
     bitwise against ``mega_reference``, the plain K1, on its own slice at
     the offset its step gives it. The launches are those of the ranks'
-    local steps alone: the counts are set to 0 just before each rank's
+    local steps alone: the counts are taken just before each rank's
     untimed call and read just after it; the unsharded references, the
     plain check and the timing repeats run outside those windows."""
     import torch
@@ -3053,16 +2870,15 @@ def phase_shard_ranks(dev, width: int = 1024, height: int = 1024,
                              else rng.fold_in(key, spp_rank), 0)
         return integ.render_sample_mean(packed, s, o, d, fkey, ray_idx=idx)
 
-    launches = {"rt_megakernel": 0, **{k: 0 for k in _wave_counts()}}
+    launches = collections.Counter(dict.fromkeys(
+        ("rt_megakernel",) + WAVE_ENTRIES, 0))
 
     def counted(call):
-        """``call()`` with the counts set to 0 just before it and read just
-        after it, added to ``launches``."""
-        _zero_counts()
+        """``call()`` with its launches (``_launches`` from just before it
+        to just after it) added to ``launches``."""
+        before = _counts()
         out = call()
-        for k, v in {"rt_megakernel": mk.LAUNCHES,
-                     **_wave_counts()}.items():
-            launches[k] += v
+        launches.update(_launches(before, ("rt_megakernel",) + WAVE_ENTRIES))
         return out
 
     def ranks(packed, s, idx, o, d, world, spp=None):
@@ -3196,7 +3012,7 @@ def phase_goldens(dev) -> dict:
     from raytracer_tpu_torch.ops.intersect_cuda import WaveScene
     goldens = pathlib.Path(__file__).resolve().parent / "tests" / "goldens"
     w, h = GOLDEN_SIZE
-    launches = dict.fromkeys(_wave_counts(), 0)
+    launches = dict.fromkeys(WAVE_ENTRIES, 0)
     out = {}
     for num in range(5):
         pos = (0.0, 0.5, -6.0) if num == 4 else (0.0, 0.0, 0.0)
@@ -3208,11 +3024,11 @@ def phase_goldens(dev) -> dict:
         o, d = rtt.primary_rays(rtt.build_camera(rtt.CameraConfig(
             width=w, height=h, position=pos)), w, h, device=dev)
         ws = WaveScene(scene)
-        _zero_counts()
+        before = _counts()
         mean, segs = integ.render_sample_mean(ws, settings, o, d,
                                               rng.key(0))
         _sync(dev)
-        counts = _wave_counts()
+        counts = _launches(before)
         launches = {k: launches[k] + counts[k] for k in launches}
         ref, ref_segs = integ.render_sample_mean(ws, settings, o, d,
                                                  rng.key(0), backend="plain")
@@ -3229,7 +3045,7 @@ def phase_goldens(dev) -> dict:
         check(counts["rt_hit_resolve"] > 0
               and counts["rt_wave_rays"] == counts["rt_hit_resolve"]
               and counts["rt_wave_bounce"] == counts["rt_hit_resolve"]
-              and counts["rt_lane_randoms"] == 0,
+              and set(counts) == set(WAVE_ENTRIES),
               f"golden scene {num}: the kernel route launched {counts}")
     print(f"phase 17 goldens {w}x{h} {GOLDEN_SPP} spp, kernel route vs "
           "plain and PSNR vs tests/goldens:", json.dumps(out), flush=True)
@@ -3274,7 +3090,6 @@ def profile_leg(width: int, height: int) -> dict:
     import torch
 
     import raytracer_tpu_torch as rtt
-    from raytracer_tpu_torch.ops import megakernel as mk
     dev = torch.device("cuda", 0)
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
     bench = rtt.RenderSettings(rays_per_pixel=20, reflect_limit=5,
@@ -3283,9 +3098,9 @@ def profile_leg(width: int, height: int) -> dict:
                      bench, seed=0, device=dev)
     r.render_frame(block=True)
     with tempfile.TemporaryDirectory() as tmp:
-        _zero_counts()
+        before = _counts()
         path = r.profile_frame(f"{tmp}/trace")
-        launches = mk.LAUNCHES
+        launches = (_counts() - before)["rt_megakernel"]
         prof = trace_events(path, "megakernel")
     r.check_health()
     prof.update(launches=launches, frame=r.frame_num - 1)
@@ -3318,7 +3133,7 @@ def phase_trace(dev, width: int = 1000, height: int = 800) -> dict:
     """Phase 18a: ``trace`` on scene 4 at bench.py's camera, one sample,
     5 bounces, through the kernel route (rt_wave_rays, K5 and
     rt_wave_bounce every bounce, replayed from the graph the WaveScene
-    caches: the warm-up call captures it; counts set to 0 just before and
+    caches: the warm-up call captures it; counts taken just before and
     read just after the timed call) against ``backend="plain"`` on the
     same rays and key, bitwise, both timed."""
     import torch
@@ -3338,12 +3153,12 @@ def phase_trace(dev, width: int = 1000, height: int = 800) -> dict:
     key = rng.sample_key(rng.frame_key(rng.key(0), 0), 0)
     rtt.trace(scene, settings, o, d, key, ray_idx=order)   # warm-up
     _sync(dev)
-    _zero_counts()
+    before = _counts()
     t0 = time.perf_counter()
     rad, segs = rtt.trace(scene, settings, o, d, key, ray_idx=order)
     _sync(dev)
     trace_ms = (time.perf_counter() - t0) * 1e3
-    trace_launches = _wave_counts()
+    trace_launches = _launches(before)
     t0 = time.perf_counter()
     ref, ref_segs = rtt.trace(scene, settings, o, d, key, ray_idx=order,
                               backend="plain")
@@ -3362,7 +3177,7 @@ def phase_trace(dev, width: int = 1000, height: int = 800) -> dict:
     check(trace_launches["rt_hit_resolve"] == 5
           and trace_launches["rt_wave_rays"] == 5
           and trace_launches["rt_wave_bounce"] == 5
-          and trace_launches["rt_lane_randoms"] == 0,
+          and set(trace_launches) == set(WAVE_ENTRIES),
           f"trace launched {trace_launches}, expected the ray set-up, K5 "
           "and rt_wave_bounce once a bounce")
     return tr
@@ -3478,7 +3293,6 @@ def main() -> int:
     main_rec = phase_path(dev, 4, 1000, 800, 20)
     slice_rec = phase_path(dev, 2, 1000, 800, 20)
     phase_bench(dev)
-    lane_rec = phase_lane_randoms(dev, 1 << 20)
     rays_recs = phase_wave_rays(dev)
     k5_rec = phase_k5(dev)
     k6_rec = phase_k6(dev, 1 << 16, 1 << 20)
@@ -3491,7 +3305,6 @@ def main() -> int:
     fly = phase_flythrough(dev)
     for num in (4, 2, 0):
         phase_mega_small(dev, num, 256, 128, coherent=True)
-    tile_rec = phase_tile_randoms(dev, 1000 * 800)
     coh_regen = phase_coherent_regen(dev, 256, 128)
     coh_paths = {p["path"]: p for p in phase_coherent_paths(dev)}
     counts = phase_counters(dev, 1 << 16, 1 << 20)
@@ -3516,7 +3329,7 @@ def main() -> int:
         by_path[f"{p}_coherent_14c"] = coh_paths[p]["coherent"]["launches"]
     shard_launches = shard_legs[-1]
     by_path["sharded_virtual_ranks"] = {k: shard_launches[k]
-                                        for k in _wave_counts()}
+                                        for k in WAVE_ENTRIES}
     by_path["goldens_48x32"] = golden_launches
     by_path["trace_scene4_1000x800"] = api["trace"]["launches"]
 
@@ -3678,18 +3491,6 @@ def main() -> int:
              "stress100k_regen", "hit_resolve_blocked_kernel"),
          "coherent_vs_per_lane": coherent_summary("stress100k_regen"),
          "timed": "1M rays over stress100k"},
-        {"name": "rt_lane_randoms", "route": "cuda",
-         "source": WAVEFRONT_SOURCE,
-         "replaces": "raytracer_tpu/ops/rng.py:75 (XLA, not a TPU kernel)",
-         "launches": total("rt_lane_randoms"),
-         "launches_by_path": {k: v["rt_lane_randoms"]
-                              for k, v in by_path.items()},
-         "on_paths": "none: the iteration draws inside rt_wave_rays; "
-                     "rng.lane_randoms launches it for callers that want "
-                     "the rows (phase 8)",
-         "max_abs_err": lane_rec["max_abs_err"], **timing(lane_rec),
-         "bound_ms_int32_rate": lane_rec["bound_ms_int32_rate"],
-         "timed": "1M lanes"},
         {"name": "rt_wave_rays", "route": "cuda", "source": RAYS_SOURCE,
          "replaces": "raytracer_tpu/ops/rng.py:75, ops/scatter.py:34 and "
                      "ops/intersect_pallas.py:737 (XLA's fusion before "
@@ -3714,22 +3515,6 @@ def main() -> int:
                       "kernel"},
          "timed": "800,000 lanes (the 1000x800 regen frames), regen arm "
                   "with antialias and russian roulette"},
-        {"name": "rt_tile_randoms", "route": "cuda",
-         "source": RAYS_SOURCE,
-         "replaces": "raytracer_tpu/ops/rng.py:104 (XLA, not a TPU kernel)",
-         "launches": total("rt_tile_randoms"),
-         "launches_by_path": {k: v["rt_tile_randoms"]
-                              for k, v in by_path.items()},
-         "on_paths": "none: rt_wave_rays draws the tile bundles itself; "
-                     "rng.tile_rows launches it for callers that want the "
-                     "rows (phase 14b)",
-         "max_abs_err": tile_rec["max_abs_err"],
-         **timing(tile_rec, tile_rec["library_ms"]),
-         "library_call": tile_rec["library_call"],
-         "bound_share": tile_rec["bound_share"],
-         "host_draw_ms": tile_rec["host_draw_ms"],
-         "timed": f"{tile_rec['lanes']} lanes, 1024-lane tiles, with the "
-                  "russian-roulette row"},
         {"name": "rt_wave_bounce", "route": "cuda", "source": BOUNCE_SOURCE,
          "replaces": "raytracer_tpu/ops/integrator.py:59 (XLA's fusion of "
                      ":59-126 and :251-355, not a TPU kernel)",
@@ -3766,23 +3551,10 @@ def main() -> int:
          "static_arm": timing(fly["frame"]["static"]),
          "timed": f"one {FLY_W}x{FLY_H} frame of the fly-through: the warp "
                   "arm (a move's first frame; static_arm: the others)"},
-        {"name": "rt_gather_history", "route": "cuda", "source": WARP_SOURCE,
-         "replaces": "raytracer_tpu/ops/warp.py:52 (with "
-                     "raytracer_tpu/runtime/renderer.py:53 and :71 fused)",
-         "launches": fly_launches["rt_gather_history"],
-         "launches_by_path": {k: v["rt_gather_history"]
-                              for k, v in temporal_paths.items()},
-         "on_paths": "none: its per-pixel body (csrc/warp.cuh) runs inside "
-                     "rt_temporal_frame's warp arm; warp.gather_history "
-                     "launches it for callers that want the history "
-                     "(phase 13)",
-         "max_abs_err": fly["history"]["max_abs_err"],
-         **timing(fly["history"]),
-         "timed": f"one {FLY_W}x{FLY_H} move of the fly-through"},
         {"name": "rt_warp_gather", "route": "cuda", "source": WARP_SOURCE,
          "replaces": "raytracer_tpu/ops/warp.py:52",
          "launches": fly_launches["rt_warp_gather"],
-         "fused_into": "rt_temporal_frame (and rt_gather_history)",
+         "fused_into": "rt_temporal_frame",
          "fused_launches": fly_launches["rt_temporal_frame"],
          "max_abs_err": max(r["max_abs_err"]
                             for r in fly["gather"].values()),

@@ -2,8 +2,7 @@
 // as jax.random uses it, its uniforms and normals (XLA's float32 erfinv,
 // op for op), one lane's key and draw (raytracer_tpu/ops/rng.py:42-101)
 // and coherent sampling's tile key and tile value (rng.py:104-127).
-// rt_lane_randoms and rt_tile_randoms (wavefront.cu) and rt_wave_rays
-// (rays.cu) draw with them. Plain versions: ops/rng.py.
+// rt_wave_rays (rays.cu) draws with them. Plain versions: ops/rng.py.
 
 #pragma once
 

@@ -1,14 +1,13 @@
-// The wavefront iteration's ray set-up before K5 / K6, and coherent
-// sampling's tile draw as rows (sm_90a).
+// The wavefront iteration's ray set-up before K5 / K6 (sm_90a).
 //
 // rt_wave_rays is not a TPU kernel. In the JAX package XLA fuses its work
 // around the Pallas hit kernel inside the jitted loop: the lane draw
 // (raytracer_tpu/ops/rng.py:75-101) or coherent sampling's tile draw
 // (:104-127), the antialias jitter (ops/scatter.py:34) and the padding and
 // normalisation before the hit (ops/intersect_pallas.py:728-741). One
-// thread a lane: it draws in registers (draw.cuh's lane_key and lane_draw,
-// as rt_lane_randoms does), or, in the coherent arm, takes its tile's
-// bundle (draw.cuh's tile_key and tile_value, as rt_tile_randoms does):
+// thread a lane: it draws in registers (draw.cuh's lane_key and lane_draw),
+// or, in the coherent arm, takes its tile's bundle (draw.cuh's tile_key
+// and tile_value):
 // the tile is JAX's 1024 lanes, so a block of 256 lies in one tile and its
 // first threads draw the bundle once into shared memory. It jitters the
 // direction and renormalises it (scatter.antialias_jitter), or passes it
@@ -40,27 +39,6 @@
 // threefry calls a block, so that arm is bound by its bytes; it is the
 // kernel's second instance (kCoherent), so the per-lane one carries none
 // of it.
-//
-// rt_tile_randoms is not a TPU kernel either: coherent sampling's draw
-// (raytracer_tpu/ops/rng.py:104-127), one bundle of 7 or 8 values per
-// `tile` consecutive lanes, which JAX draws in XLA, written as (7|8, n)
-// rows, each value repeated over its tile's lanes. No path launches it:
-// rt_wave_rays draws the bundle itself (above); it stays for callers
-// that want the rows (ops/rng.py tile_rows, tile_randoms, tile_rows_at).
-// Plain version: ops/rng.py::tile_randoms_reference. Under a replayed
-// CUDA graph the key is the tile key in device memory folded with the
-// iteration counter there (draw.cuh's tile_key).
-//
-// What bounds it on an H100: the bytes it writes, 4 a lane and row (the
-// bundle's 3 threefry calls a value are ~6,000 values on 800,000 lanes).
-// What the design does about it: a block covers 1024 lanes (4 a thread).
-// Where `tile` is a multiple of that span the block lies in one tile: its
-// first `rows` threads draw the bundle once into shared memory (draw.cuh's
-// tile_key and tile_value) and every thread stores it over its 4 lanes of
-// each row, as one 16-byte store where the rows start 16-byte aligned
-// (n % 4 == 0), else as 4 coalesced scalar stores; the last tile is cut
-// at n. Where it is not (a small tile), each lane draws its own tile's
-// values with the same functions, in the same kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,17 +72,6 @@ struct RtRaysArgs {
   unsigned int key0, key1;
   int n, rows, bounce_const, spp, antialias;
   float jitter_scale;     // 2 * ANTIALIAS_OFFSET_RANGE as float32
-};
-
-struct RtTileArgs {
-  unsigned int key0, key1;  // the iteration's key, unless key_dev is set
-  float* out;               // (rows, n)
-  int n, rows, tile;        // rows 7, or 8 with the russian-roulette draw
-  // Set under CUDA-graph replay: the iteration's key is
-  // fold_in((key_dev[0], key_dev[1]), iter_dev[0]), read when the kernel
-  // runs (uint32 values held in int64), not when it was captured.
-  const long long* key_dev;
-  const long long* iter_dev;
 };
 
 }  // extern "C"
@@ -226,55 +193,6 @@ __global__ void __launch_bounds__(kThreads) wave_rays_kernel(
   a.inv_len[i] = inv;
 }
 
-// rt_tile_randoms: a block of kTileSpan lanes (the top of this file).
-constexpr int kTileLanes = 4;                     // lanes a thread
-constexpr int kTileSpan = kTileLanes * kThreads;  // lanes a block
-
-__global__ void __launch_bounds__(kThreads)
-    tile_randoms_kernel(const RtTileArgs a) {
-  const size_t n = static_cast<size_t>(a.n);
-  const uint32_t nt = static_cast<uint32_t>((a.n + a.tile - 1) / a.tile);
-  const int base = blockIdx.x * kTileSpan;
-  if (a.tile % kTileSpan != 0) {  // a small tile: each lane draws its own
-    uint32_t k0, k1;
-    tile_key(a.key_dev, a.iter_dev, a.key0, a.key1, k0, k1);
-    for (int j = 0; j < kTileLanes; ++j) {
-      const int i = base + j * kThreads + threadIdx.x;
-      if (i >= a.n) break;
-      const uint32_t t = static_cast<uint32_t>(i / a.tile);
-      for (int row = 0; row < a.rows; ++row)
-        a.out[row * n + i] = tile_value(k0, k1, row, nt, t);
-    }
-    return;
-  }
-  // the block lies in one tile: draw its bundle once
-  __shared__ float bundle[8];
-  if (threadIdx.x < a.rows) {
-    uint32_t k0, k1;
-    tile_key(a.key_dev, a.iter_dev, a.key0, a.key1, k0, k1);
-    bundle[threadIdx.x] = tile_value(k0, k1, threadIdx.x, nt,
-                                     static_cast<uint32_t>(base / a.tile));
-  }
-  __syncthreads();
-  const bool vec = (a.n & 3) == 0 &&
-                   (reinterpret_cast<uintptr_t>(a.out) & 15) == 0;
-  if (vec) {  // n % 4 == 0: the thread's 4 lanes lie inside the frame
-    const int i = base + kTileLanes * threadIdx.x;
-    if (i >= a.n) return;
-    for (int row = 0; row < a.rows; ++row) {
-      const float v = bundle[row];
-      *reinterpret_cast<float4*>(a.out + row * n + i) =
-          make_float4(v, v, v, v);
-    }
-    return;
-  }
-  for (int j = 0; j < kTileLanes; ++j) {
-    const int i = base + j * kThreads + threadIdx.x;
-    if (i >= a.n) return;
-    for (int row = 0; row < a.rows; ++row) a.out[row * n + i] = bundle[row];
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -287,16 +205,6 @@ int rt_wave_rays(const RtRaysArgs* args, void* stream) {
     wave_rays_kernel<false><<<blocks, kThreads, 0, st>>>(*args);
   else
     wave_rays_kernel<true><<<blocks, kThreads, 0, st>>>(*args);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int rt_tile_randoms(const RtTileArgs* args, void* stream) {
-  if (args->n <= 0) return 0;
-  if (args->tile <= 0 || args->rows < 7 || args->rows > 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (args->n + kTileSpan - 1) / kTileSpan;
-  tile_randoms_kernel<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,5 @@
-// Temporal-history kernels for Hopper (sm_90a): the warp gather (K7), the
-// fused history reprojection and the temporal frame's epilogue.
+// Temporal-history kernels for Hopper (sm_90a): the warp gather (K7) and
+// the temporal frame's epilogue with its fused history reprojection.
 //
 // rt_warp_gather replaces K7 of raytracer_tpu,
 //   ops/warp.py:52-101  _kernel, via banded_gather :104 (pallas_call :129):
@@ -10,11 +10,6 @@
 // (warp.py:9-24). A GPU thread loads its own word, so there is no band,
 // page or sweep here: one thread per query, one 4-byte load.
 //
-// rt_gather_history is raytracer_tpu/runtime/renderer.py:53-122
-// (_pack_history_body, then _gather_history) fused per current pixel
-// (warp.cuh's gather_pixel) over given (n, 3) primary rays: it writes
-// hist (N, 3) and w (N,).
-//
 // rt_temporal_frame is not a TPU kernel: it is XLA's fusion after the
 // megakernel in the JAX temporal step (renderer.py:355-391, _tstep and
 // _tstep_warp), one thread a pixel, reading K1's (5, n_pad) output in
@@ -24,28 +19,25 @@
 // pixel's primary ray from the current camera basis (camera.cuh's
 // camera_ray: the first normalisation, the rays _gather_history takes, so
 // no ray array is read), its depth (row 4), the history gather
-// (gather_pixel, K7's load inside) and the blend, written to a fresh
-// accumulation and weight plane, never the one it reads from. Both arms
-// also add up the frame's segment count (row 3, the pixels [0, n)), as the
-// plain version's out[3, :n].sum(dtype=float64) does: exactly, since the
-// counts are integers. Scanline pixel order only: pixel i is screen pixel
-// (i % width, i / width).
-// Plain versions: ops/warp.py::warp_gather_reference,
-// gather_history_reference (pack_history over the whole plane, then the
-// gather) and temporal_frame_reference (gather_history_reference, then
-// film.temporal_update).
+// (warp.cuh's gather_pixel: renderer.py:53-122, _pack_history_body then
+// _gather_history, fused per pixel, K7's load inside) and the blend,
+// written to a fresh accumulation and weight plane, never the one it
+// reads from. Both arms also add up the frame's segment count (row 3, the
+// pixels [0, n)), as the plain version's out[3, :n].sum(dtype=float64)
+// does: exactly, since the counts are integers. Scanline pixel order
+// only: pixel i is screen pixel (i % width, i / width).
+// Plain versions: ops/warp.py::warp_gather_reference and
+// temporal_frame_reference (gather_history_reference: pack_history over
+// the whole plane, then the gather; then film.temporal_update).
 //
-// What bounds them on an H100: bytes. rt_gather_history reads o and d
-// (24 B), depth (4 B), the old accumulation and weight (16 B), and writes
-// hist and w (16 B): 60 B a pixel, 498 MB at 3840x2160, 0.149 ms at
-// 3.35 TB/s. rt_temporal_frame moves 48 B a pixel in the static arm (mean
-// and segments, accumulation and weight read, the last two written) and
-// 52 B in the warp arm (mean, segments and depth read, 16 B of old pixel,
-// 16 B written): 398 and 431 MB at 3840x2160, 0.119 and 0.129 ms; the warp
-// arm's ~120 float operations a pixel are far below the 67 TFLOP/s line.
-// rt_warp_gather moves 13 B a query. Under a small camera move neighbouring threads read
-// neighbouring source pixels, so the "random" loads coalesce much as a
-// stream does.
+// What bounds them on an H100: bytes. rt_temporal_frame moves 48 B a
+// pixel in the static arm (mean and segments, accumulation and weight
+// read, the last two written) and 52 B in the warp arm (mean, segments
+// and depth read, 16 B of old pixel, 16 B written): 398 and 431 MB at
+// 3840x2160, 0.119 and 0.129 ms; the warp arm's ~120 float operations a
+// pixel are far below the 67 TFLOP/s line. rt_warp_gather moves 13 B a
+// query. Under a small camera move neighbouring threads read neighbouring
+// source pixels, so the "random" loads coalesce much as a stream does.
 // What the design does about that: one pass, no intermediate in device
 // memory (the warp frame's rays, packed plane and gathered history never
 // leave registers), each output written once; loads are not vectorised.
@@ -68,21 +60,6 @@ struct RtWarpGatherArgs {
   const unsigned char* valid;  // (n,) bool
   int* out;                    // (n,)
   int m, n;
-};
-
-struct RtHistoryArgs {
-  const float* o;      // (n, 3) current primary rays, scanline order
-  const float* d;      // (n, 3)
-  const float* depth;  // (n,) primary-hit t, >= 1e29 on a miss
-  const float* accum;  // (n, 3) old accumulation, scanline order
-  const float* wpix;   // (n,) old per-pixel weights
-  float* hist;         // (n, 3) out
-  float* w;            // (n,) out
-  float pos[3], tl[3], du[3], dv[3], nrm[3];  // the old pinhole
-  float focal, dudu, dvdv;
-  float history;       // the history cap on the old weights
-  float scale;         // HIST_MAX / 511^2: radiance per squared code
-  int width, height;
 };
 
 struct RtTemporalArgs {
@@ -116,18 +93,6 @@ __global__ void __launch_bounds__(kThreads)
   if (i >= a.n) return;
   a.out[i] =
       a.valid[i] ? __ldg(a.values + warp::clamp_index(a.idx[i], a.m)) : 0;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    gather_history_kernel(const RtHistoryArgs a) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= a.width * a.height) return;
-  const size_t i3 = 3 * static_cast<size_t>(i);
-  float hist[3], w;
-  warp::gather_pixel(a, i, a.o + i3, a.d + i3, a.depth[i], hist, w);
-  a.w[i] = w;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) a.hist[i3 + c] = hist[c];
 }
 
 // The frame's segment count: the threads' sums of the lanes' counts
@@ -208,15 +173,6 @@ int rt_warp_gather(const RtWarpGatherArgs* args, void* stream) {
   const int blocks = (args->n + kThreads - 1) / kThreads;
   warp_gather_kernel<<<blocks, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(*args);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int rt_gather_history(const RtHistoryArgs* args, void* stream) {
-  const int n = args->width * args->height;
-  if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  gather_history_kernel<<<blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
 

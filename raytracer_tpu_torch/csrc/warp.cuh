@@ -1,5 +1,5 @@
-// The history gather of one pixel (sm_90a), shared by warp.cu's
-// rt_gather_history and rt_temporal_frame.
+// The history gather of one pixel (sm_90a), for warp.cu's
+// rt_temporal_frame.
 //
 // raytracer_tpu/runtime/renderer.py:53-122 (_pack_history_body, then
 // _gather_history) for current pixel i, scanline order: the primary hit

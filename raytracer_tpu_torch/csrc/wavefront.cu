@@ -1,5 +1,5 @@
-// Wavefront-sampler kernels for Hopper (sm_90a): the blocked nearest hit
-// (K6) and the per-lane random draws.
+// Wavefront-sampler kernel for Hopper (sm_90a): the blocked nearest hit
+// (K6).
 //
 // rt_hit_resolve_blocked replaces K6 of raytracer_tpu,
 //   ops/intersect_pallas.py:150-440  _kernel_blocked (pallas_call :688):
@@ -40,21 +40,10 @@
 // its own best t and never waits for other rays; the block unions give a
 // gate level above the per-block supers; and G threads a ray cut the
 // chain by about G where the card has threads to spare.
-//
-// rt_lane_randoms is not a TPU kernel: JAX draws the wavefront samplers'
-// randoms in XLA (raytracer_tpu/ops/rng.py:42-101). Per lane it folds the
-// lane's key with its sample and bounce, splits it into 7 or 8 subkeys
-// (split(k, n)[i] == fold_in(k, i) under jax_threefry_partitionable) and
-// draws one uniform or normal from each, all in registers (draw.cuh's
-// lane_key and lane_draw, which rt_wave_rays shares): in plain torch the ~18 threefry
-// passes of ~200 elementwise ops each would dominate a bounce. It writes
-// the (7|8, n) rows for callers that want them. Plain version:
-// ops/rng.py::lane_randoms_reference.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "draw.cuh"
 #include "sweep.cuh"
 
 extern "C" {
@@ -81,14 +70,6 @@ struct RtBlockedArgs {
   int spp;
   int n;
   int group;          // threads per ray: 1, 2, 4 or 8
-};
-
-struct RtLaneArgs {
-  const long long* keys;  // (2, n) uint32 key words held in int64
-  const int* sample;      // (n,) or null: no sample fold
-  const int* bounce;      // (n,)
-  float* out;             // (rows, n)
-  int n, rows;            // rows 7, or 8 with the russian-roulette draw
 };
 
 }  // extern "C"
@@ -182,19 +163,6 @@ int launch_blocked(const RtBlockedArgs& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// -- the lane randoms (draw.cuh) -------------------------------------------
-
-__global__ void __launch_bounds__(256)
-    lane_randoms_kernel(const RtLaneArgs a) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
-  uint32_t k0, k1;
-  lane_key(a.keys, a.n, i, a.sample, static_cast<uint32_t>(a.bounce[i]), k0,
-           k1);
-  for (int row = 0; row < a.rows; ++row)
-    a.out[static_cast<size_t>(row) * a.n + i] = lane_draw(k0, k1, row);
-}
-
 }  // namespace
 
 extern "C" {
@@ -221,14 +189,6 @@ const void* rt_blocked_kernel(int group) {
     case 8: return (const void*)hit_resolve_blocked_kernel<8, false>;
     default: return nullptr;
   }
-}
-
-int rt_lane_randoms(const RtLaneArgs* args, void* stream) {
-  if (args->n <= 0) return 0;
-  const int blocks = (args->n + 255) / 256;
-  lane_randoms_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      *args);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

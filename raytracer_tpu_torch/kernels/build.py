@@ -12,6 +12,9 @@ nvcc.
 The C interface: each entry point takes a pointer to an argument struct
 (mirrored below as ctypes Structures) and a CUDA stream, launches on that
 stream, and returns the launch's ``cudaError_t`` (0 = launched).
+``launch(name, args, device)`` is the one way the port calls an entry
+point: on the device's current stream, raising on an error, and counting
+the launch under ``name`` in the program counts (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import subprocess
 import time
 
 import torch
+
+from ..utils import trace
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("megakernel.cu", "wavefront.cu", "warp.cu", "bounce.cu",
@@ -138,12 +143,6 @@ class BlockedArgs(ctypes.Structure):
            ("group", ctypes.c_int)])
 
 
-class LaneArgs(ctypes.Structure):
-    _fields_ = [("keys", ctypes.c_void_p), ("sample", ctypes.c_void_p),
-                ("bounce", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("n", ctypes.c_int), ("rows", ctypes.c_int)]
-
-
 _P3 = ctypes.c_void_p * 3
 
 
@@ -157,13 +156,6 @@ class RaysArgs(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in (
                     "n", "rows", "bounce_const", "spp", "antialias")]
                 + [("jitter_scale", ctypes.c_float)])
-
-
-class TileArgs(ctypes.Structure):
-    _fields_ = [("key0", ctypes.c_uint), ("key1", ctypes.c_uint),
-                ("out", ctypes.c_void_p), ("n", ctypes.c_int),
-                ("rows", ctypes.c_int), ("tile", ctypes.c_int),
-                ("key_dev", ctypes.c_void_p), ("iter_dev", ctypes.c_void_p)]
 
 
 class MegaArgs(ctypes.Structure):
@@ -195,15 +187,6 @@ class WarpGatherArgs(ctypes.Structure):
     _fields_ = [("values", ctypes.c_void_p), ("idx", ctypes.c_void_p),
                 ("valid", ctypes.c_void_p), ("out", ctypes.c_void_p),
                 ("m", ctypes.c_int), ("n", ctypes.c_int)]
-
-
-class HistoryArgs(ctypes.Structure):
-    _fields_ = ([(n, ctypes.c_void_p) for n in (
-        "o", "d", "depth", "accum", "wpix", "hist", "w")]
-        + [(n, ctypes.c_float * 3) for n in ("pos", "tl", "du", "dv", "nrm")]
-        + [(n, ctypes.c_float) for n in ("focal", "dudu", "dvdv", "history",
-                                         "scale")]
-        + [("width", ctypes.c_int), ("height", ctypes.c_int)])
 
 
 class TemporalArgs(ctypes.Structure):
@@ -279,10 +262,7 @@ def load() -> ctypes.CDLL:
                            ("rt_megakernel", MegaArgs),
                            ("rt_fetch_image", FetchArgs),
                            ("rt_hit_resolve_blocked", BlockedArgs),
-                           ("rt_lane_randoms", LaneArgs),
-                           ("rt_tile_randoms", TileArgs),
                            ("rt_warp_gather", WarpGatherArgs),
-                           ("rt_gather_history", HistoryArgs),
                            ("rt_temporal_frame", TemporalArgs),
                            ("rt_camera_rays", CameraRaysArgs),
                            ("rt_wave_bounce", BounceArgs),
@@ -323,3 +303,14 @@ def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.rt_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: cudaError {rc} ({msg})")
+
+
+def launch(name: str, args: ctypes.Structure, device: torch.device) -> None:
+    """Call entry point ``name`` with its argument struct ``args`` on
+    ``device``'s current stream (the caller keeps the tensors ``args``
+    points at alive across the launch); raise if it returned an error,
+    else count ``name`` in the program counts."""
+    lib = load()
+    check(lib, getattr(lib, name)(ctypes.byref(args),
+                                  ctypes.c_void_p(stream(device))), name)
+    trace.count(name)

@@ -21,12 +21,10 @@ import numpy as np
 import torch
 
 from ..config import CameraConfig
+from ..kernels import build
 from ..ops.megakernel import MEGA_TILE, PaddedRays, pad_rays
 from ..utils import matrix as hm
 from ..utils.device import resolve_device
-
-# Launches of rt_camera_rays by ``camera_rays``.
-LAUNCHES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,19 +131,13 @@ def camera_rays(cam: CameraArrays, width: int, height: int, pixpack: int,
         return camera_rays_reference(cam, width, height, pixpack, device)
     if device.type != "cuda":
         raise ValueError(f"no camera rays for device {device}")
-    from ..kernels import build
     n = width * height
     tile = MEGA_TILE * pixpack
     n_pad = max(tile, -(-n // tile) * tile)
     o = torch.empty((3, n_pad), dtype=torch.float32, device=device)
     d = torch.empty((3, n_pad), dtype=torch.float32, device=device)
-    args = _camera_args(cam, o, d, n, width)
-    lib = build.load()
-    rc = lib.rt_camera_rays(ctypes.byref(args),
-                            ctypes.c_void_p(build.stream(device)))
-    build.check(lib, rc, "rt_camera_rays")
-    global LAUNCHES
-    LAUNCHES += 1
+    build.launch("rt_camera_rays", _camera_args(cam, o, d, n, width),
+                 device)
     return PaddedRays(o, d, n, pixpack)
 
 
@@ -153,7 +145,6 @@ def _camera_args(cam: CameraArrays, o: torch.Tensor, d: torch.Tensor,
                 n: int, width: int):
     """rt_camera_rays' arguments over (3, n_pad) contiguous CUDA outputs
     (the caller keeps them alive across the launch)."""
-    from ..kernels import build
     return build.CameraRaysArgs(
         o=o.data_ptr(), d=d.data_ptr(), pos=f3(cam.position),
         tl=f3(cam.tl_pixel), du=f3(cam.delta_u), dv=f3(cam.delta_v), n=n,

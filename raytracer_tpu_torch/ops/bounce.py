@@ -34,19 +34,16 @@ its static buffers) or in copies; it raises rather than fall back.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
+from ..kernels import build
 from ..models.materials import MAT_EMISSIVE
 from .intersect_cuda import _K5_DTYPES, _K6_DTYPES, resolve
 from .scatter import scatter
 from .tables import lookup_material
 from .textures import sample_texture
 
-# Launches of rt_wave_bounce.
-LAUNCHES = 0
 PARK_ORIGIN = 1e13
 # the state keys each arm writes
 _WRITES = {False: ("o", "d", "thru", "rad", "cur_ior", "alive"),
@@ -190,7 +187,6 @@ def bounce_args(scene, settings, st, dj, raw, inv_len, gauss, fresnel_u,
     """``rt_wave_bounce``'s argument struct over the state ``st`` (updated
     in place by the launch) and this bounce's inputs; checks what the
     kernel reads. The caller keeps the tensors alive across the launch."""
-    from ..kernels import build
     f32, i32 = torch.float32, torch.int32
     n = st["o"].shape[1]
     if len(raw) not in _RAW_DTYPES:
@@ -250,14 +246,8 @@ def bounce_args(scene, settings, st, dj, raw, inv_len, gauss, fresnel_u,
 
 def _wave_bounce_cuda(scene, settings, st, *args, **kw) -> None:
     """Launch rt_wave_bounce (``bounce_args``' arguments), in place."""
-    from ..kernels import build
     a = bounce_args(scene, settings, st, *args, **kw)
-    lib = build.load()
-    stream = ctypes.c_void_p(build.stream(st["o"].device))
-    build.check(lib, lib.rt_wave_bounce(ctypes.byref(a), stream),
-                "rt_wave_bounce")
-    global LAUNCHES
-    LAUNCHES += 1
+    build.launch("rt_wave_bounce", a, st["o"].device)
 
 
 def wave_bounce(scene, settings, st: dict, dj, raw, inv_len, gauss,

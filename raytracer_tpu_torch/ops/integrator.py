@@ -10,7 +10,7 @@ rays as (3, N) tensors and run one bounce of every lane per step:
   (src/raytracer.cu:71,102);
 - ``regen``: one loop in which a lane whose path ends restarts on its
   pixel's next sample (``_render_regen_soa``); a lane whose samples are
-  all traced is parked and skipped (``LANE_ITERATIONS``);
+  all traced is parked and skipped (``"regen.lane_iterations"``);
 - ``rebin`` / ``lanesort``: regen with the lanes regrouped by origin cell
   and direction octant after every bounce, by 128-lane rows or by ray
   (ops/rebin.py). Random streams are keyed by pixel and ride the
@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from ..config import RenderSettings
-from ..utils.trace import span
+from ..utils.trace import count, span
 from . import film, intersect, rng, wave_graph
 from .bounce import shade_bounce_reference, wave_bounce
 from .intersect_cuda import WaveScene, hit_raw
@@ -65,13 +65,13 @@ BACKENDS = ("pallas", "plain", "xla", "woop")
 # nothing. On the card each look is followed by the replay of one graph of
 # this many iterations (or of the rest up to the cap).
 EXIT_CHECK_EVERY = 8
-# Lane-iterations the regen loop has run or replayed: N x k for every
-# block of k iterations, added on the host with no sync. Over a stretch of
-# frames, 1 - segments / LANE_ITERATIONS is the share of lane-iterations
-# that found their lane finished (``sample_i >= spp``): skipped by the ray
-# set-up, K5 / K6 and the bounce (and parked, so a hit kernel launched
-# without the loop's mask enters no box along it).
-LANE_ITERATIONS = 0
+# The regen loop counts its lane-iterations run or replayed under
+# "regen.lane_iterations" (utils/trace.py): N x k for every block of k
+# iterations, added on the host with no sync. Over a stretch of frames,
+# 1 - segments / that count is the share of lane-iterations that found
+# their lane finished (``sample_i >= spp``): skipped by the ray set-up,
+# K5 / K6 and the bounce (and parked, so a hit kernel launched without the
+# loop's mask enters no box along it).
 # what rebin and lanesort regroup each iteration, besides ``home``
 _REGROUPED = ("o", "d", "thru", "rad", "pixel_sum", "o0p", "d0p",
               "cur_ior", "kd", "bounce_i", "sample_i")
@@ -388,7 +388,6 @@ def _render_regen_soa(ws: WaveScene, settings: RenderSettings, ray_idx,
     On the card (the kernel route) the iterations replay CUDA graphs that
     ``ws`` caches per (N, settings, backend): one of EXIT_CHECK_EVERY
     iterations between two looks for the end, as the eager loop looks."""
-    global LANE_ITERATIONS
     spp = settings.rays_per_pixel
     cap = spp * settings.reflect_limit
     n = o0.shape[1]
@@ -432,7 +431,7 @@ def _render_regen_soa(ws: WaveScene, settings: RenderSettings, ray_idx,
         with span("regen.replay"):
             step(it, k)
         it += k
-        LANE_ITERATIONS += n * k
+        count("regen.lane_iterations", n * k)
 
     with span("regen.finish"):
         pixel_sum = st["pixel_sum"]

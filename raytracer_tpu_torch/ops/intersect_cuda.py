@@ -49,9 +49,11 @@ the wavefront samplers' iteration ``rt_wave_rays`` (ops/rays.py) does
 on K5's and K6's raw outputs (``hit_raw``); there the regen loop hands
 both kernels its lanes' sample indices, and they skip a lane whose
 samples are all traced, as the other two kernels of the iteration do
-(``SKIP_LAUNCHES`` counts those launches). A CUDA tensor launches the
-kernel or raises; the plain versions run on CPU tensors, or on any device
-when ``plain=True`` (how the card holds the kernels against them).
+(utils/trace.py's counts ``rt_hit_resolve.skip`` and
+``rt_hit_resolve_blocked.skip`` count those launches). A CUDA tensor
+launches the kernel or raises; the plain versions run on CPU
+tensors, or on any device when ``plain=True`` (how the card holds the
+kernels against them).
 ``_group`` forces G, for the tests and the sweeps.
 """
 
@@ -63,6 +65,7 @@ import math
 
 import torch
 
+from ..kernels import build
 from ..utils import trace
 from .intersect import HitRecord, ShadeData
 from .sweep import (INF, S_F32_ROWS, S_I32_ROWS, T_F32_ROWS,
@@ -78,14 +81,6 @@ S_CR2 = 3                # sphere row |c|^2 - r^2 (poisoned with INF)
 # The TPU's SMEM budget (sweep.py:304): scenes past it take K6, as in JAX.
 SMEM_BUDGET = 800_000
 
-# Launches of rt_hit_resolve (K5), of those with the counters on, and of
-# rt_hit_resolve_blocked (K6); of K5's and K6's, those that carried the
-# regen loop's sample indices and so skipped its finished lanes.
-LAUNCHES = 0
-STATS_LAUNCHES = 0
-BLOCKED_LAUNCHES = 0
-SKIP_LAUNCHES = 0
-
 # Waves of resident threads the group rules fill: K5's by the scene's gate
 # depth (``sweep.gate_depth``), K6's one number, since the blocked layout
 # always gates by block unions, supers and clusters. From the measured
@@ -97,7 +92,6 @@ BLOCKED_WAVES = 64
 def resolve_group(n: int, ps: PackedScene, group=None) -> int:
     """G for K5 over ``n`` rays of ``ps``: ``group`` when given, else the
     rule's, ``sweep.group_size`` with RESOLVE_WAVES of the gate depth."""
-    from ..kernels import build
     return rule_group(build.KIND_RESOLVE, n,
                       RESOLVE_WAVES[gate_depth(ps)], group)
 
@@ -105,7 +99,6 @@ def resolve_group(n: int, ps: PackedScene, group=None) -> int:
 def blocked_group(n: int, group=None) -> int:
     """G for K6 over ``n`` rays: ``group`` when given, else the rule's,
     ``sweep.group_size`` with BLOCKED_WAVES."""
-    from ..kernels import build
     return rule_group(build.KIND_BLOCKED, n, BLOCKED_WAVES, group)
 
 
@@ -508,7 +501,6 @@ def _hit_resolve_cuda(ps: PackedScene, o, d, with_stats: bool = False,
     """Launch K5 at G = ``resolve_group``; with ``with_stats`` its counting
     arm, whose 13th output is each ray's primitive tests; with
     ``sample_i`` its skip arm (``hit_raw``)."""
-    from ..kernels import build
     n = o.shape[1]
     outs = _outs(n, o.device, _K5_DTYPES + ((_F32,) if with_stats else ()))
     args = build.ResolveArgs(
@@ -517,14 +509,9 @@ def _hit_resolve_cuda(ps: PackedScene, o, d, with_stats: bool = False,
         stats=outs[12].data_ptr() if with_stats else None,
         sample=None if sample_i is None else sample_i.data_ptr(), spp=spp,
         n=n, group=resolve_group(n, ps, group))
-    lib = build.load()
-    rc = lib.rt_hit_resolve(ctypes.byref(args),
-                            ctypes.c_void_p(build.stream(o.device)))
-    build.check(lib, rc, "rt_hit_resolve")
-    global LAUNCHES, STATS_LAUNCHES, SKIP_LAUNCHES
-    LAUNCHES += 1
-    STATS_LAUNCHES += int(with_stats)
-    SKIP_LAUNCHES += int(sample_i is not None)
+    build.launch("rt_hit_resolve", args, o.device)
+    trace.count("rt_hit_resolve.stats", int(with_stats))
+    trace.count("rt_hit_resolve.skip", int(sample_i is not None))
     return outs
 
 
@@ -532,7 +519,6 @@ def _hit_resolve_blocked_cuda(bt: BlockedTables, o, d, group=None,
                               sample_i=None, spp: int = 0):
     """Launch K6 at G = ``blocked_group``; with ``sample_i`` its skip arm
     (``hit_raw``)."""
-    from ..kernels import build
     n = o.shape[1]
     outs = _outs(n, o.device, _K6_DTYPES)
     args = build.BlockedArgs(
@@ -546,13 +532,8 @@ def _hit_resolve_blocked_cuda(bt: BlockedTables, o, d, group=None,
         (ctypes.c_void_p * 9)(*[x.data_ptr() for x in outs]),
         None if sample_i is None else sample_i.data_ptr(), spp, n,
         blocked_group(n, group))
-    lib = build.load()
-    rc = lib.rt_hit_resolve_blocked(ctypes.byref(args),
-                                    ctypes.c_void_p(build.stream(o.device)))
-    build.check(lib, rc, "rt_hit_resolve_blocked")
-    global BLOCKED_LAUNCHES, SKIP_LAUNCHES
-    BLOCKED_LAUNCHES += 1
-    SKIP_LAUNCHES += int(sample_i is not None)
+    build.launch("rt_hit_resolve_blocked", args, o.device)
+    trace.count("rt_hit_resolve_blocked.skip", int(sample_i is not None))
     return outs
 
 

@@ -38,8 +38,10 @@ import numpy as np
 import torch
 
 from ..config import ANTIALIAS_OFFSET_RANGE, RenderSettings
+from ..kernels import build
 from ..models.materials import (MAT_EMISSIVE, MAT_REFRACTIVE,
                                 TEX_CHECKERBOARD, TEX_GRADIENT, TEX_IMAGE)
+from ..utils import trace
 from ..utils.trace import span
 from . import rng, sweep
 
@@ -59,16 +61,6 @@ MEGA_WAVES = {0: 1, 1: 2, 2: 64}
 (_M_TYPE, _M_IOR, _M_EMR, _M_EMG, _M_EMB, _M_TEXTYPE,
  _M_LR, _M_LG, _M_LB, _M_DR, _M_DG, _M_DB, _M_NSQ,
  _M_TW, _M_TH, _M_TROW) = range(16)
-
-# Launches of rt_megakernel by ``render_sample_mean_mega``; of those, the
-# launches whose scene has a texel plane, so that the kernel's image fetch
-# (K4) runs inside them, and the launches of its coherent arm; launches of
-# rt_fetch_image by ``fetch_image``.
-LAUNCHES = 0
-IMAGE_LAUNCHES = 0
-COHERENT_LAUNCHES = 0
-FETCH_LAUNCHES = 0
-
 
 def supports(scene) -> bool:
     """Scenes the port's megakernel renders: all of them, as long as the
@@ -492,7 +484,6 @@ def mega_group(slots: int, ps: sweep.PackedScene, group=None) -> int:
     """G for rt_megakernel over ``slots`` lane slots of ``ps``: ``group``
     when given, else the rule's, ``sweep.group_size`` with MEGA_WAVES of
     the scene's gate depth."""
-    from ..kernels import build
     return sweep.rule_group(build.KIND_MEGAKERNEL, slots,
                             MEGA_WAVES[sweep.gate_depth(ps)], group)
 
@@ -506,7 +497,6 @@ def _mega_cuda(ps, mat, o, d, seed, *, tex, img_rows, pixpack, spp, limit,
     G threads share each lane slot, G by ``mega_group`` over the frame's
     lane slots and the scene's gate depth. ``_group`` forces G, for the
     tests and chip_smoke.py only."""
-    from ..kernels import build
     n_pad = o.shape[1]
     n_tiles = n_pad // (MEGA_TILE * pixpack)
     with span("mega.args"):
@@ -527,14 +517,10 @@ def _mega_cuda(ps, mat, o, d, seed, *, tex, img_rows, pixpack, spp, limit,
             inv_spp=float(np.float32(1.0 / float(spp))),
             sky=(ctypes.c_float * 3)(*sky), group=group)
     with span("mega.launch"):
-        lib = build.load()
-        rc = lib.rt_megakernel(ctypes.byref(args),
-                               ctypes.c_void_p(build.stream(o.device)))
-        build.check(lib, rc, "rt_megakernel")
-    global LAUNCHES, IMAGE_LAUNCHES, COHERENT_LAUNCHES
-    LAUNCHES += 1
-    IMAGE_LAUNCHES += int(img_rows > 0)
-    COHERENT_LAUNCHES += int(coherent)
+        build.launch("rt_megakernel", args, o.device)
+    # the arms: a texel plane, so the image fetch (K4) runs inside; coherent
+    trace.count("rt_megakernel.image", int(img_rows > 0))
+    trace.count("rt_megakernel.coherent", int(coherent))
     return out
 
 
@@ -582,7 +568,6 @@ def fetch_image(ms: MegaScene, u: torch.Tensor, v: torch.Tensor,
             ms.tex, ms.img_rows, u, v, m[_M_TW], m[_M_TH], m[_M_TROW]))
     if u.device.type != "cuda":
         raise ValueError(f"no image fetch for device {u.device}")
-    from ..kernels import build
     out = torch.empty((3, n), dtype=torch.float32, device=u.device)
     u, v, mat_id = u.contiguous(), v.contiguous(), mat_id.contiguous()
     args = build.FetchArgs(
@@ -591,12 +576,7 @@ def fetch_image(ms: MegaScene, u: torch.Tensor, v: torch.Tensor,
         mat_id=mat_id.data_ptr(),
         out=build.row_ptrs(out),
         n=n)
-    lib = build.load()
-    rc = lib.rt_fetch_image(ctypes.byref(args),
-                            ctypes.c_void_p(build.stream(u.device)))
-    build.check(lib, rc, "rt_fetch_image")
-    global FETCH_LAUNCHES
-    FETCH_LAUNCHES += 1
+    build.launch("rt_fetch_image", args, u.device)
     return out
 
 

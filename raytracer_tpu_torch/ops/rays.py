@@ -32,20 +32,18 @@ raises.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
 from ..config import ANTIALIAS_OFFSET_RANGE
+from ..kernels import build
 from .intersect_cuda import unit_rays
 from .rng import (fold_in_tensor, key_data, lane_randoms_reference,
                   tile_randoms_reference)
 from .scatter import antialias_jitter
 
-# Launches of rt_wave_rays.
-LAUNCHES = 0
 # the jitter's scale as the float32 scalar torch multiplies by
 JITTER_SCALE = float(np.float32(2.0 * ANTIALIAS_OFFSET_RANGE))
 # The coherent draw's lanes a tile: rng.tile_randoms' default, the tile the
@@ -159,7 +157,6 @@ def rays_args(d, out: WaveRays, draws, *, keys=None, sample_i=None,
     ``draws`` (the (rows - 3, N) buffer ``out``'s draws view). Checks what
     the kernel reads; the caller keeps the tensors alive across the
     launch."""
-    from ..kernels import build
     _check_count(segs, alive, sample_i, spp)
     n = d.shape[1]
     rows = 8 if with_rr else 7
@@ -198,7 +195,6 @@ def rays_args(d, out: WaveRays, draws, *, keys=None, sample_i=None,
 
 def _wave_rays_cuda(d, **kw) -> WaveRays:
     """Launch rt_wave_rays (``wave_rays``' arguments) into new tensors."""
-    from ..kernels import build
     n, dev = d.shape[1], d.device
     rows = 8 if kw["with_rr"] else 7
     kw = {k: x.contiguous() if isinstance(x, torch.Tensor) and k not in (
@@ -209,13 +205,7 @@ def _wave_rays_cuda(d, **kw) -> WaveRays:
         torch.empty_like(d) if kw["antialias"] else d, torch.empty_like(d),
         torch.empty(n, dtype=torch.float32, device=dev), draws[0:3],
         draws[3], draws[4] if rows == 8 else None)
-    a = rays_args(d, out, draws, **kw)
-    lib = build.load()
-    rc = lib.rt_wave_rays(ctypes.byref(a),
-                          ctypes.c_void_p(build.stream(dev)))
-    build.check(lib, rc, "rt_wave_rays")
-    global LAUNCHES
-    LAUNCHES += 1
+    build.launch("rt_wave_rays", rays_args(d, out, draws, **kw), dev)
     return out
 
 

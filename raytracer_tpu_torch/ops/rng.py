@@ -17,27 +17,22 @@ with russian roulette), one uniform or normal per subkey. With
 is ``fold_in(k, i)`` and a scalar ``random.bits(k)`` is ``x0 ^ x1`` of
 ``threefry2x32(k, (0, 0))``; uniforms take the top 23 bits as a mantissa,
 normals go through XLA's float32 erfinv polynomial (hazard H8: not
-``torch.erfinv``). ``lane_randoms`` launches the fused CUDA kernel
-``rt_lane_randoms`` (csrc/wavefront.cu) on a CUDA tensor and returns the
-rows; its plain version is ``lane_randoms_reference``, int64 torch
-arithmetic. Coherent sampling's per-tile draw ``tile_randoms``
-(``tile_rows``: the rows as one tensor) launches ``rt_tile_randoms``
-(csrc/rays.cu) on the card; its plain version is
-``tile_randoms_reference``. The wavefront iteration itself draws inside
-its ray set-up, ``rt_wave_rays`` (ops/rays.py), with the same device
-functions (csrc/draw.cuh), per lane or per tile, so no row of either
-draw passes through device memory on the paths; ``lane_randoms`` and
-``tile_rows`` stay for callers that want the rows.
+``torch.erfinv``). ``lane_randoms`` returns the per-lane draw's rows,
+``lane_randoms_reference`` in int64 torch arithmetic; coherent sampling's
+per-tile draw ``tile_randoms`` (``tile_rows``: the rows as one tensor) is
+``tile_randoms_reference``. No kernel stands behind either: they run on
+whatever device their tensors are on. The wavefront iteration draws
+inside its ray set-up, ``rt_wave_rays`` (ops/rays.py), with device
+functions of the same arithmetic (csrc/draw.cuh), per lane or per tile,
+so no row of either draw passes through device memory on the paths.
 A replayed CUDA graph (ops/wave_graph.py) cannot take a key from the
 host: there the coherent draw folds the tile key held in device memory
-with the iteration counter held there (``tile_rows_at``;
-``fold_in_tensor`` is that fold in torch), and ``per_ray_keys`` takes its
-key as a device tensor.
+with the iteration counter held there (``fold_in_tensor`` is that fold in
+torch), and ``per_ray_keys`` takes its key as a device tensor.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import numpy as np
@@ -136,11 +131,6 @@ def tile_w1(w1_frame: int, tiles: torch.Tensor) -> torch.Tensor:
 
 # -- the wavefront samplers' streams (raytracer_tpu/ops/rng.py:27-101) -------
 
-# Launches of rt_lane_randoms by ``lane_randoms`` and of rt_tile_randoms
-# by ``tile_randoms``.
-LAUNCHES = 0
-TILE_LAUNCHES = 0
-
 # jax.random.normal draws uniform(nextafter(-1, 0), 1) and takes
 # sqrt(2) * erfinv of it (jax._src.random._normal_real).
 _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
@@ -209,8 +199,8 @@ def fold_in_tensor(k: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     """``fold_in`` on tensors: ``k`` (2,) int64 key words, ``data`` an
     int64 tensor holding values in [0, 2**32); returns the (2,) int64
     words of ``fold_in(k, data)``, bitwise ``rng.fold_in``. The plain
-    version of the fold the tile draws do on the card (``rt_tile_randoms``
-    and ``rt_wave_rays``' coherent arm, csrc/draw.cuh ``tile_key``)."""
+    version of the fold ``rt_wave_rays``' coherent arm does on the card
+    (csrc/draw.cuh ``tile_key``)."""
     y0, y1 = threefry2x32_t(k[0], k[1], 0, data.reshape(()) & _MASK)
     return torch.stack([y0, y1])
 
@@ -246,11 +236,12 @@ def normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
 
 def lane_randoms_reference(keys: torch.Tensor, sample_i, bounce_i,
                            with_rr: bool = False) -> torch.Tensor:
-    """Plain version of ``rt_lane_randoms``: per lane, key
-    ``fold_in(fold_in(k, sample), bounce)`` (or ``fold_in(k, bounce)`` when
-    ``sample_i`` is None), split into 7 (8 with ``with_rr``) subkeys, one
-    draw each. Returns (7|8, N) float32 rows: jitter x, y, z (uniform),
-    gauss x, y, z (normal), Fresnel uniform[, russian-roulette uniform]."""
+    """The per-lane draw (``rt_wave_rays`` draws it in registers): per
+    lane, key ``fold_in(fold_in(k, sample), bounce)`` (or
+    ``fold_in(k, bounce)`` when ``sample_i`` is None), split into 7 (8
+    with ``with_rr``) subkeys, one draw each. Returns (7|8, N) float32
+    rows: jitter x, y, z (uniform), gauss x, y, z (normal), Fresnel
+    uniform[, russian-roulette uniform]."""
     k0, k1 = keys[0], keys[1]
     if sample_i is not None:
         k0, k1 = threefry2x32_t(k0, k1, 0, sample_i.to(torch.int64) & _MASK)
@@ -265,44 +256,21 @@ def lane_randoms_reference(keys: torch.Tensor, sample_i, bounce_i,
     return torch.stack(rows)
 
 
-def _lane_randoms_cuda(keys, sample_i, bounce_i, with_rr) -> torch.Tensor:
-    from ..kernels import build
-    n = keys.shape[1]
-    rows = 8 if with_rr else 7
-    out = torch.empty((rows, n), dtype=torch.float32, device=keys.device)
-    keys = keys.contiguous()
-    bounce_i = bounce_i.to(torch.int32).contiguous()
-    if sample_i is not None:
-        sample_i = sample_i.to(torch.int32).contiguous()
-    args = build.LaneArgs(
-        keys=keys.data_ptr(),
-        sample=0 if sample_i is None else sample_i.data_ptr(),
-        bounce=bounce_i.data_ptr(), out=out.data_ptr(), n=n, rows=rows)
-    lib = build.load()
-    rc = lib.rt_lane_randoms(ctypes.byref(args),
-                             ctypes.c_void_p(build.stream(keys.device)))
-    build.check(lib, rc, "rt_lane_randoms")
-    global LAUNCHES
-    LAUNCHES += 1
-    return out
-
-
 def _split_rows(out: torch.Tensor, with_rr: bool):
     drawn = (out[0:3], out[3:6], out[6])
     return drawn + (out[7],) if with_rr else drawn
 
 
 def lane_randoms(keys: torch.Tensor, sample_i, bounce_i,
-                 with_rr: bool = False, plain: bool = False):
+                 with_rr: bool = False):
     """Per-lane randoms of the regeneration sampler (rng.py:75-101).
 
     ``keys``: (2, N) int64 key words (``per_ray_keys``); ``sample_i``:
     (N,) sample index or None (no sample fold, as ``bounce_randoms``);
-    ``bounce_i``: (N,) bounce index. CPU tensors, or ``plain=True`` on any
-    device, take ``lane_randoms_reference``; CUDA tensors launch
-    ``rt_lane_randoms`` (or raise). Returns (jitter_u3 (3, N), gauss
-    (3, N), fresnel_u (N,)) and, with ``with_rr``, the russian-roulette
-    uniform (N,)."""
+    ``bounce_i``: (N,) bounce index. No kernel stands behind it: it is
+    ``lane_randoms_reference`` on the keys' device. Returns (jitter_u3
+    (3, N), gauss (3, N), fresnel_u (N,)) and, with ``with_rr``, the
+    russian-roulette uniform (N,)."""
     if keys.dim() != 2 or keys.shape[0] != 2 or keys.dtype != torch.int64:
         raise ValueError(f"keys must be (2, N) int64, got "
                          f"{tuple(keys.shape)} {keys.dtype}")
@@ -311,20 +279,16 @@ def lane_randoms(keys: torch.Tensor, sample_i, bounce_i,
         if x is not None and (x.shape != (n,) or x.device != keys.device):
             raise ValueError("sample_i / bounce_i must be (N,) on the keys' "
                              "device")
-    if keys.device.type == "cpu" or plain:
-        out = lane_randoms_reference(keys, sample_i, bounce_i, with_rr)
-    elif keys.device.type == "cuda":
-        out = _lane_randoms_cuda(keys, sample_i, bounce_i, with_rr)
-    else:
-        raise ValueError(f"no lane randoms for device {keys.device}")
-    return _split_rows(out, with_rr)
+    return _split_rows(lane_randoms_reference(keys, sample_i, bounce_i,
+                                              with_rr), with_rr)
 
 
 def tile_randoms_reference(it_key: np.ndarray, n: int, tile: int = 1024,
                            with_rr: bool = False,
                            device="cuda") -> torch.Tensor:
-    """Plain version of ``rt_tile_randoms``: ``split(it_key, 3|4)`` gives
-    the subkeys; each draws a (3, nt) or (nt,) ``jax.random.bits`` block,
+    """Coherent sampling's tile draw (``rt_wave_rays``' coherent arm draws
+    it in shared memory): ``split(it_key, 3|4)`` gives the subkeys; each
+    draws a (3, nt) or (nt,) ``jax.random.bits`` block,
     whose element j is ``x0 ^ x1`` of ``threefry2x32(subkey, (0, j))``,
     nt = ceil(n / tile). Returns (7|8, n) float32 rows on ``device`` (the
     rows of ``lane_randoms_reference``), each tile's value repeated over
@@ -344,85 +308,28 @@ def tile_randoms_reference(it_key: np.ndarray, n: int, tile: int = 1024,
     return rows[:, :, None].expand(-1, nt, tile).reshape(-1, nt * tile)[:, :n]
 
 
-def _tile_randoms_cuda(it_key, n, tile, with_rr, device,
-                       key_dev=None, iter_dev=None) -> torch.Tensor:
-    """Launch rt_tile_randoms under ``it_key``, or, with ``key_dev`` and
-    ``iter_dev``, under the fold of the key words and the counter that
-    the kernel reads from device memory."""
-    from ..kernels import build
-    rows = 8 if with_rr else 7
-    out = torch.empty((rows, n), dtype=torch.float32, device=device)
-    if key_dev is None:
-        kd = key_data(it_key)
-        args = build.TileArgs(key0=int(kd[0]), key1=int(kd[1]),
-                              out=out.data_ptr(), n=n, rows=rows, tile=tile)
-    else:
-        args = build.TileArgs(out=out.data_ptr(), n=n, rows=rows, tile=tile,
-                              key_dev=key_dev.data_ptr(),
-                              iter_dev=iter_dev.data_ptr())
-    lib = build.load()
-    rc = lib.rt_tile_randoms(ctypes.byref(args),
-                             ctypes.c_void_p(build.stream(device)))
-    build.check(lib, rc, "rt_tile_randoms")
-    global TILE_LAUNCHES
-    TILE_LAUNCHES += 1
-    return out
-
-
 def tile_rows(it_key: np.ndarray, n: int, tile: int = 1024,
-              with_rr: bool = False, device="cuda",
-              plain: bool = False) -> torch.Tensor:
+              with_rr: bool = False, device="cuda") -> torch.Tensor:
     """Coherent sampling's draw (rng.py:104-127): one bundle per ``tile``
     consecutive lanes, keyed by the caller's per-iteration key, as one
     (7|8, n) float32 tensor (the rows of ``lane_randoms_reference``), each
     row repeated over ``tile`` lanes and cut at ``n``. ``device`` defaults
-    to the card (utils/device.py) and raises without one. On a CUDA
-    ``device`` it launches ``rt_tile_randoms`` (or raises); on the CPU, or
-    with ``plain=True`` on any device, it takes
-    ``tile_randoms_reference``."""
-    device = resolve_device(device)
-    if device.type == "cpu" or plain:
-        return tile_randoms_reference(it_key, n, tile, with_rr, device)
-    return _tile_randoms_cuda(it_key, n, tile, with_rr, device)
+    to the card (utils/device.py) and raises without one. No kernel
+    stands behind it: it is ``tile_randoms_reference`` on ``device``."""
+    return tile_randoms_reference(it_key, n, tile, with_rr, device)
 
 
 def tile_randoms(it_key: np.ndarray, n: int, tile: int = 1024,
-                 with_rr: bool = False, device="cuda", plain: bool = False):
+                 with_rr: bool = False, device="cuda"):
     """``tile_rows`` split as ``lane_randoms`` returns its rows."""
-    return _split_rows(tile_rows(it_key, n, tile, with_rr, device, plain),
-                       with_rr)
-
-
-def tile_rows_at(key_dev: torch.Tensor, iter_dev: torch.Tensor, n: int,
-                 tile: int = 1024, with_rr: bool = False) -> torch.Tensor:
-    """``tile_rows`` under ``fold_in(key, it)`` with the key words
-    (``key_dev``, (2,) int64) and ``it`` (``iter_dev``, (1,) int64) on the
-    device: on a CUDA tensor ``rt_tile_randoms`` reads and folds them when
-    it runs, so that a replayed CUDA graph draws each iteration under its
-    own key. CPU tensors take the plain version: ``fold_in_tensor``, then
-    ``tile_randoms_reference``."""
-    for name, x, size in (("key_dev", key_dev, 2), ("iter_dev", iter_dev, 1)):
-        if (x.dtype != torch.int64 or x.shape != (size,)
-                or x.device != key_dev.device or not x.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous ({size},) int64 "
-                             f"tensor on one device, got {tuple(x.shape)} "
-                             f"{x.dtype} on {x.device}")
-    dev = key_dev.device
-    if dev.type == "cpu":
-        it_key = np.array(fold_in_tensor(key_dev, iter_dev).tolist(),
-                          np.uint32)
-        return tile_randoms_reference(it_key, n, tile, with_rr, dev)
-    if dev.type == "cuda":
-        return _tile_randoms_cuda(None, n, tile, with_rr, dev,
-                                  key_dev=key_dev, iter_dev=iter_dev)
-    raise ValueError(f"no tile randoms for device {dev}")
+    return _split_rows(tile_rows(it_key, n, tile, with_rr, device), with_rr)
 
 
 def bounce_randoms(ray_keys: torch.Tensor, bounce_idx: int,
-                   with_rr: bool = False, plain: bool = False):
+                   with_rr: bool = False):
     """All randoms one bounce of the scan sampler needs (rng.py:42-72):
     ``lane_randoms`` with every lane on bounce ``bounce_idx`` and no
     sample fold (the sample is already in the key)."""
     bounce = torch.full((ray_keys.shape[1],), int(bounce_idx),
                         dtype=torch.int32, device=ray_keys.device)
-    return lane_randoms(ray_keys, None, bounce, with_rr, plain)
+    return lane_randoms(ray_keys, None, bounce, with_rr)

@@ -40,6 +40,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels import build
+
 EPS = 1e-6
 INF = 1e30
 LANES = 128
@@ -58,9 +60,6 @@ T_CULL = 15       # 3 rows: one-way cull normal (zero = two-sided)
 T_UV = 18         # 6 rows: uv0.x uv0.y uv1.x uv1.y uv2.x uv2.y
 T_F32_ROWS = 24
 T_I32_ROWS = 2
-
-# Launches of the rt_nearest_hit kernel by ``nearest_hit``.
-LAUNCHES = 0
 
 # Threads that share one ray in rt_nearest_hit and one lane slot in
 # rt_megakernel (the kernels' template instances).
@@ -102,7 +101,6 @@ def rule_group(kind: int, slots: int, waves: float, group=None) -> int:
     check_group(group)
     if group is not None:
         return group
-    from ..kernels import build
     resident = {g: build.resident_threads(kind, g) for g in GROUPS}
     return group_size(slots, resident, waves)
 
@@ -110,7 +108,6 @@ def rule_group(kind: int, slots: int, waves: float, group=None) -> int:
 def nearest_group(n: int, ps, group=None) -> int:
     """G for rt_nearest_hit over ``n`` rays of ``ps``: ``group`` when
     given, else the rule's, with NEAREST_WAVES of the gate depth."""
-    from ..kernels import build
     return rule_group(build.KIND_NEAREST, n, NEAREST_WAVES[gate_depth(ps)],
                       group)
 
@@ -463,7 +460,6 @@ def nearest_hit(ps: PackedScene, o: torch.Tensor, d: torch.Tensor, *,
     if o.device.type != "cuda" or ps.device != o.device:
         raise ValueError(f"rays on {o.device}, scene on {ps.device}: "
                          "rt_nearest_hit needs both on one CUDA device")
-    from ..kernels import build
     n = o.shape[1]
     o = o.contiguous()
     d = d.contiguous()
@@ -474,15 +470,10 @@ def nearest_hit(ps: PackedScene, o: torch.Tensor, d: torch.Tensor, *,
             torch.empty(n, **f32), torch.empty(n, **f32),
             torch.empty(n, **f32), torch.empty(n, **i32),
             torch.empty(n, **i32))
-    lib = build.load()
     args = build.HitArgs(
         scene=build.scene_args(ps),
         o=build.row_ptrs(o), d=build.row_ptrs(d),
         out=(ctypes.c_void_p * 9)(*[x.data_ptr() for x in outs]), n=n,
         group=nearest_group(n, ps, _group))
-    rc = lib.rt_nearest_hit(ctypes.byref(args),
-                            ctypes.c_void_p(build.stream(o.device)))
-    build.check(lib, rc, "rt_nearest_hit")
-    global LAUNCHES
-    LAUNCHES += 1
+    build.launch("rt_nearest_hit", args, o.device)
     return outs

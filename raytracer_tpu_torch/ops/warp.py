@@ -11,21 +11,20 @@ quantized as JAX packs it into one int32 per pixel (``pack_history``):
 9-bit sqrt-encoded RGB over [0, HIST_MAX) and the capped frame weight in
 the low 5 bits.
 
-Three kernels, all in csrc/warp.cu, load at a clamped index:
+Two kernels, both in csrc/warp.cu, load at a clamped index:
 - ``warp_gather``: K7's contract ``where(valid, values[idx], 0)`` on int32;
-- ``gather_history``: the pack and the whole reprojection of
-  ``_gather_history`` fused per pixel (project, floor, validity, the load
-  of the old pixel, its pack and decode, the velocity-limited weight); the
-  pack runs only on the pixels read, so no packed plane is made;
 - ``temporal_frame``: the temporal frame's epilogue after the megakernel,
   as JAX's temporal step fuses it (renderer.py:355-391): the per-pixel
   weight blend and, on the first frame after a move, the history gather
-  before it, from rays made from the camera basis in the kernel. This is
-  what the temporal ``Renderer`` runs; the other two stay for callers
-  that want their outputs.
+  before it (the pack and the whole reprojection of ``_gather_history``
+  fused per pixel: project, floor, validity, the load of the old pixel,
+  its pack and decode, the velocity-limited weight), from rays made from
+  the camera basis in the kernel. This is what the temporal ``Renderer``
+  runs.
 CPU tensors take the plain versions (``warp_gather_reference``,
-``gather_history_reference``, ``temporal_frame_reference``); CUDA tensors
-launch the kernel or raise.
+``temporal_frame_reference``); CUDA tensors launch the kernel or raise.
+``gather_history``, the history gather alone, has no kernel: it is its
+plain version, ``gather_history_reference``, on any device.
 
 Only the scanline (identity) pixel order is served: current pixel i is
 screen pixel (i % width, i // width), and the packed plane is in pixel
@@ -36,12 +35,12 @@ only as ``hist * w`` with ``w = 0`` there, so the blend is the same.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
+from ..kernels import build
 from ..models.camera import CameraArrays, f3, primary_rays
 from . import film
 
@@ -50,12 +49,6 @@ HIST_MAX = 8.0
 _SCALE = float(np.float32(HIST_MAX / (511.0 * 511.0)))
 _INT_MAX = 2147483647
 _INT_MIN = -2147483648
-
-# Launches of rt_warp_gather by ``warp_gather``, of rt_gather_history by
-# ``gather_history`` and of rt_temporal_frame by ``temporal_frame``.
-GATHER_LAUNCHES = 0
-HISTORY_LAUNCHES = 0
-FRAME_LAUNCHES = 0
 
 
 def pack_history(accum: torch.Tensor, wpix: torch.Tensor,
@@ -133,7 +126,6 @@ def _check_gather(values, idx, valid) -> None:
 def _gather_args(values, idx, valid, out):
     """rt_warp_gather's arguments over contiguous CUDA tensors (the caller
     keeps them alive across the launch)."""
-    from ..kernels import build
     return build.WarpGatherArgs(
         values=values.data_ptr(), idx=idx.data_ptr(), valid=valid.data_ptr(),
         out=out.data_ptr(), m=values.shape[0], n=idx.shape[0])
@@ -150,16 +142,10 @@ def warp_gather(values: torch.Tensor, idx: torch.Tensor,
         return warp_gather_reference(values, idx, valid)
     if values.device.type != "cuda":
         raise ValueError(f"no warp gather for device {values.device}")
-    from ..kernels import build
     values, idx, valid = (x.contiguous() for x in (values, idx, valid))
     out = torch.empty(idx.shape, dtype=torch.int32, device=idx.device)
-    args = _gather_args(values, idx, valid, out)
-    lib = build.load()
-    rc = lib.rt_warp_gather(ctypes.byref(args),
-                            ctypes.c_void_p(build.stream(idx.device)))
-    build.check(lib, rc, "rt_warp_gather")
-    global GATHER_LAUNCHES
-    GATHER_LAUNCHES += 1
+    build.launch("rt_warp_gather", _gather_args(values, idx, valid, out),
+                 idx.device)
     return out
 
 
@@ -167,9 +153,10 @@ def gather_history_reference(width: int, height: int, o: torch.Tensor,
                              d: torch.Tensor, depth: torch.Tensor,
                              accum: torch.Tensor, wpix: torch.Tensor,
                              history: float, pos, tl, du, dv):
-    """Plain version of ``rt_gather_history``: ``pack_history`` over the
-    whole old plane, then ``_gather_history`` (renderer.py:71-122) in the
-    identity order, with every dot product written out unfused and every
+    """Plain version of the history gather in ``rt_temporal_frame``'s
+    warp arm: ``pack_history`` over the whole old plane, then
+    ``_gather_history`` (renderer.py:71-122) in the identity order, with
+    every dot product written out unfused and every
     division a true division of two device tensors (torch divides by a
     host scalar as a multiply by its reciprocal on the card). Returns
     (hist (N, 3), w (N,))."""
@@ -209,22 +196,6 @@ def gather_history_reference(width: int, height: int, o: torch.Tensor,
     return (hist * hist) * _SCALE, w
 
 
-def _history_args(width, height, o, d, depth, accum, wpix, history, hist,
-                  w, pos, tl, du, dv):
-    """rt_gather_history's arguments over contiguous CUDA tensors (the
-    caller keeps them alive across the launch). The basis scalars come
-    from ``projection_basis``, as in the plain version."""
-    from ..kernels import build
-    nrm, focal, dudu, dvdv = projection_basis(pos, tl, du, dv)
-    return build.HistoryArgs(
-        o=o.data_ptr(), d=d.data_ptr(), depth=depth.data_ptr(),
-        accum=accum.data_ptr(), wpix=wpix.data_ptr(), hist=hist.data_ptr(),
-        w=w.data_ptr(), pos=f3(pos), tl=f3(tl), du=f3(du), dv=f3(dv),
-        nrm=f3(nrm.numpy()), focal=float(focal), dudu=float(dudu),
-        dvdv=float(dvdv), history=float(history), scale=_SCALE,
-        width=width, height=height)
-
-
 def gather_history(width: int, height: int, o: torch.Tensor,
                    d: torch.Tensor, depth: torch.Tensor,
                    accum: torch.Tensor, wpix: torch.Tensor, history: float,
@@ -241,8 +212,10 @@ def gather_history(width: int, height: int, o: torch.Tensor,
     scanline order, N = width * height; ``depth``: (N,) primary-hit t
     (>= 1e29 on a miss); ``accum`` (N, 3) and ``wpix`` (N,) float32: the
     old view's accumulation and per-pixel weights, finite. Returns
-    (hist (N, 3) float32, w (N,) float32). CPU tensors take the plain
-    version; CUDA tensors launch ``rt_gather_history`` (or raise)."""
+    (hist (N, 3) float32, w (N,) float32). No kernel stands behind it
+    (``rt_temporal_frame`` runs the same gather per pixel inside the
+    temporal frame): it is ``gather_history_reference``, on the tensors'
+    device."""
     n = width * height
     for name, x, shape in (("o", o, (n, 3)), ("d", d, (n, 3)),
                            ("depth", depth, (n,)), ("accum", accum, (n, 3)),
@@ -253,25 +226,8 @@ def gather_history(width: int, height: int, o: torch.Tensor,
         if x.device != o.device:
             raise ValueError("o, d, depth, accum and wpix must share one "
                              "device")
-    if o.device.type == "cpu":
-        return gather_history_reference(width, height, o, d, depth, accum,
-                                        wpix, history, pos, tl, du, dv)
-    if o.device.type != "cuda":
-        raise ValueError(f"no history gather for device {o.device}")
-    from ..kernels import build
-    o, d, depth, accum, wpix = (x.contiguous()
-                                for x in (o, d, depth, accum, wpix))
-    hist = torch.empty((n, 3), dtype=torch.float32, device=o.device)
-    w = torch.empty((n,), dtype=torch.float32, device=o.device)
-    args = _history_args(width, height, o, d, depth, accum, wpix, history,
-                         hist, w, pos, tl, du, dv)
-    lib = build.load()
-    rc = lib.rt_gather_history(ctypes.byref(args),
-                               ctypes.c_void_p(build.stream(o.device)))
-    build.check(lib, rc, "rt_gather_history")
-    global HISTORY_LAUNCHES
-    HISTORY_LAUNCHES += 1
-    return hist, w
+    return gather_history_reference(width, height, o, d, depth, accum, wpix,
+                                    history, pos, tl, du, dv)
 
 
 # -- the temporal frame's epilogue --------------------------------------------
@@ -330,7 +286,6 @@ _SEG_ACC: dict = {}
 
 
 def _seg_acc(device: torch.device) -> torch.Tensor:
-    from ..kernels import build
     key = (device.index, build.stream(device))
     if key not in _SEG_ACC:
         _SEG_ACC[key] = torch.zeros(2, dtype=torch.int64, device=device)
@@ -344,7 +299,6 @@ def _frame_args(out, n, accum, wpix, accum_out, w_out, segs, src, cam,
     ``wpix`` and writes ``accum_out`` and ``w_out``; the warp arm reads
     ``src``'s planes and basis and ``cam``'s. Both write the segments to
     the float64 scalar ``segs``."""
-    from ..kernels import build
     zero = np.zeros(3, np.float32)
     cur = (zero,) * 4 if cam is None else (
         cam.position, cam.tl_pixel, cam.delta_u, cam.delta_v)
@@ -415,7 +369,6 @@ def temporal_frame(out: torch.Tensor, n: int, accum: torch.Tensor,
                                         width, height)
     if out.device.type != "cuda":
         raise ValueError(f"no temporal frame for device {out.device}")
-    from ..kernels import build
     if src is None:
         accum_out, w_out = accum, wpix
     else:
@@ -423,10 +376,5 @@ def temporal_frame(out: torch.Tensor, n: int, accum: torch.Tensor,
     segs = torch.empty((), dtype=torch.float64, device=out.device)
     args = _frame_args(out, n, accum, wpix, accum_out, w_out, segs, src,
                        cam, width, height)
-    lib = build.load()
-    rc = lib.rt_temporal_frame(ctypes.byref(args),
-                               ctypes.c_void_p(build.stream(out.device)))
-    build.check(lib, rc, "rt_temporal_frame")
-    global FRAME_LAUNCHES
-    FRAME_LAUNCHES += 1
+    build.launch("rt_temporal_frame", args, out.device)
     return accum_out, w_out, segs

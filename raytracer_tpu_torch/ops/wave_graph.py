@@ -21,58 +21,42 @@ replayed: one launch from the host per block of iterations
   on one WaveScene capture once and replay after that; a new camera,
   frame key or tile offset is written into the runner's static tensors,
   not recaptured.
-- Launch accounting: the kernel wrappers count a launch when Python
-  issues it, which a replay does not do. A capture counts the launches
-  its body issued (``COUNTERS``), takes them back off the counters (a
-  capture runs nothing), and each replay adds them again; ``REPLAYS``
-  counts the graph launches the host issued, ``CAPTURES`` the captures.
+- Launch accounting: ``build.launch`` counts a launch when Python issues
+  it, which a replay does not do. A capture takes the program counts
+  (utils/trace.py) before and after its body, keeps the difference as the
+  graph's launches and takes it back off (a capture runs nothing); each
+  replay adds it again. ``"graph.replay"`` counts the graph launches the
+  host issued, ``"graph.capture"`` the captures.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import bounce, intersect_cuda, rays, rng
-
-# The kernels' launch counters a graph holds launches of.
-COUNTERS = ((intersect_cuda, "LAUNCHES"), (intersect_cuda, "STATS_LAUNCHES"),
-            (intersect_cuda, "BLOCKED_LAUNCHES"),
-            (intersect_cuda, "SKIP_LAUNCHES"), (rng, "LAUNCHES"),
-            (rng, "TILE_LAUNCHES"), (bounce, "LAUNCHES"),
-            (rays, "LAUNCHES"))
-REPLAYS = 0
-CAPTURES = 0
-
-
-def counts() -> list:
-    return [getattr(mod, name) for mod, name in COUNTERS]
-
-
-def _set_counts(values) -> None:
-    for (mod, name), v in zip(COUNTERS, values):
-        setattr(mod, name, v)
+from ..kernels import build
+from ..utils import trace
+from . import intersect_cuda
 
 
 class Graph:
-    """A captured body and the kernel launches (per counter of
-    ``COUNTERS``) one replay of it makes."""
+    """A captured body and the kernel launches (a Counter of entry point
+    and arm names) one replay of it makes."""
 
     def __init__(self, graph, launches):
         self.graph = graph
         self.launches = launches
 
     def replay(self) -> None:
-        global REPLAYS
         self.graph.replay()
-        _set_counts([c + k for c, k in zip(counts(), self.launches)])
-        REPLAYS += 1
+        for name, k in self.launches.items():
+            trace.count(name, k)
+        trace.count("graph.replay")
 
 
 def warm_up(ws, n: int) -> None:
     """What must not happen inside a capture: load the kernel library and
     query the resident threads the group rule of ``ws``'s hit kernel
     reads (cached per group and device). Launches nothing."""
-    from ..kernels import build
     build.load()
     if ws.blocked:
         intersect_cuda.blocked_group(n)
@@ -83,16 +67,16 @@ def warm_up(ws, n: int) -> None:
 def capture(ws, n: int, body) -> Graph:
     """Capture ``body()`` (the launches of ``n``-lane iterations over
     ``ws``) into a CUDA graph, after ``warm_up``. Raises if the capture
-    fails; the counters are left as they were."""
-    global CAPTURES
+    fails; the counts are left as they were."""
     warm_up(ws, n)
-    before = counts()
+    before = trace.counts()
     graph = torch.cuda.CUDAGraph()
     try:
         with torch.cuda.graph(graph):
             body()
-        launches = [a - b for a, b in zip(counts(), before)]
     finally:
-        _set_counts(before)
-    CAPTURES += 1
+        launches = trace.counts() - before
+        for name, k in launches.items():
+            trace.count(name, -k)
+    trace.count("graph.capture")
     return Graph(graph, launches)

@@ -10,10 +10,27 @@ no torch call. ``take`` hands the recorded spans over and clears them;
 ``write_jsonl`` writes them out (``render --spans PATH``).
 
 The spans and what reads them are listed in PERF.md §3.
+
+Beside the spans, one registry of program counts, always on:
+``count(name, k)`` adds ``k`` under ``name`` and ``counts()`` returns a
+copy. The names:
+
+- ``"rt_X"``: launches of entry point ``rt_X`` that Python issued or a
+  replayed CUDA graph held (``kernels/build.py`` ``launch`` counts them);
+- ``"rt_X.arm"``: of those, the launches of one arm, counted by the
+  wrapper that picks it: ``rt_megakernel.image`` (a texel plane, so K4
+  runs inside), ``rt_megakernel.coherent``, ``rt_hit_resolve.stats`` (the
+  counting arm) and ``rt_hit_resolve.skip`` / ``rt_hit_resolve_blocked.skip``
+  (the regen loop's skip of finished lanes);
+- ``"graph.capture"`` / ``"graph.replay"``: CUDA graphs captured and
+  replays issued (ops/wave_graph.py);
+- ``"regen.lane_iterations"``: N x k for every block of k regen
+  iterations (ops/integrator.py).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import time
@@ -71,3 +88,16 @@ def write_jsonl(path: str, spans) -> None:
                                 "start_us": start / 1e3,
                                 "dur_us": (end - start) / 1e3,
                                 "parent": parent}) + "\n")
+
+
+_counts: collections.Counter = collections.Counter()
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add ``k`` to the program count ``name``."""
+    _counts[name] += k
+
+
+def counts() -> collections.Counter:
+    """A copy of the program counts."""
+    return _counts.copy()

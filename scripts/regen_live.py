@@ -15,11 +15,14 @@ One JSON line a frame: ``timed``: frame ms and segments (``stats_log``);
 ``live_share`` = segments / (lanes x iterations), its complement
 ``finished_share``, the live lanes after each block (a host read of
 ``sample_i`` between replays, so these frames are not timed), the growth
-of ``integrator.LANE_ITERATIONS`` over the frame and the share of those
-lane-iterations the kernels skipped, 1 - segments / lane-iterations, and
-the growth of ``intersect_cuda.SKIP_LAUNCHES`` (the K5 / K6 launches
-that skipped finished lanes), each where the tree has the counter (else
-null). Imports no JAX.
+of the ``regen.lane_iterations`` count over the frame and the share of
+those lane-iterations the kernels skipped, 1 - segments / lane-iterations,
+and the growth of the ``rt_hit_resolve.skip`` and
+``rt_hit_resolve_blocked.skip`` counts summed (the K5 / K6 launches that
+skipped finished lanes). The counts are the program's (utils/trace.py);
+on an older tree, which kept them as module counters
+(``integrator.LANE_ITERATIONS``, ``intersect_cuda.SKIP_LAUNCHES``), those
+are read, and null where the tree has neither. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -31,6 +34,17 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _counts(trace, integrator, intersect_cuda):
+    """(lane-iterations, skipping hit launches) so far: the program counts,
+    else an older tree's module counters, else None for each."""
+    if hasattr(trace, "counts"):
+        c = trace.counts()
+        return (c["regen.lane_iterations"], c["rt_hit_resolve.skip"]
+                + c["rt_hit_resolve_blocked.skip"])
+    return (getattr(integrator, "LANE_ITERATIONS", None),
+            getattr(intersect_cuda, "SKIP_LAUNCHES", None))
 
 
 def main() -> int:
@@ -46,6 +60,7 @@ def main() -> int:
 
     from raytracer_tpu_torch.ops import integrator, intersect_cuda
     from raytracer_tpu_torch.runtime.renderer import Renderer
+    from raytracer_tpu_torch.utils import trace
 
     cell = spec.load(ROOT, args.workload)
     dev = torch.device("cuda", 0)
@@ -76,14 +91,13 @@ def main() -> int:
     integrator._RegenGraphs.step = counted
     for _ in range(args.frames):
         blocks.clear()
-        before = getattr(integrator, "LANE_ITERATIONS", None)
-        skips = getattr(intersect_cuda, "SKIP_LAUNCHES", None)
+        before, skips = _counts(trace, integrator, intersect_cuda)
         t = time.perf_counter()
         r.render_frame(block=True)
         wall = time.perf_counter() - t
         segs = r.stats_log[-1]["segments"]
         iters = blocks[-1][0] if blocks else 0
-        after = getattr(integrator, "LANE_ITERATIONS", None)
+        after, skips_after = _counts(trace, integrator, intersect_cuda)
         grown = None if before is None else after - before
         live = segs / (lanes * iters) if iters else None
         lines.append({"workload": args.workload, "frame": r.frame_num,
@@ -97,7 +111,7 @@ def main() -> int:
                           "skipped_share": 1.0 - segs / grown
                           if grown else None,
                           "skip_launches": None if skips is None
-                          else intersect_cuda.SKIP_LAUNCHES - skips,
+                          else skips_after - skips,
                           "wall_ms_with_reads": wall * 1e3}})
     integrator._RegenGraphs.step = step
     for line in lines:

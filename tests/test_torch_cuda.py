@@ -17,6 +17,7 @@ stress10k tiles, a two-block field and the exact-tie scenes of
 test_torch_tie_scene.py (K6 on its blocked variant).
 """
 
+import collections
 import dataclasses
 import functools
 
@@ -34,6 +35,7 @@ from raytracer_tpu_torch.models.scenes import procedural_earth_texture
 from raytracer_tpu_torch.ops import megakernel as tmk
 from raytracer_tpu_torch.ops import rng as trng
 from raytracer_tpu_torch.ops import sweep as tsweep
+from raytracer_tpu_torch.utils import trace
 
 PIXEL_ABS = 1e-4
 PIXEL_SHARE_MIN = 0.99
@@ -58,6 +60,11 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _since(before):
+    """The program counts added since ``before`` (a ``trace.counts()``)."""
+    return trace.counts() - before
+
+
 def _rays(dev, width=128, height=64, **cam):
     cfg = rtt.CameraConfig(width=width, height=height, **cam)
     o, d = tcam.primary_rays(tcam.build_camera(cfg), width, height,
@@ -77,10 +84,10 @@ def test_nearest_hit_kernel_matches_plain(dev, group):
     d = g.standard_normal((3, n)).astype(np.float32)
     d /= np.linalg.norm(d, axis=0, keepdims=True)
     o, d = torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
-    before = tsweep.LAUNCHES
+    before = trace.counts()
     got = tsweep.nearest_hit(ps, o, d, _group=group)
     torch.cuda.synchronize()
-    assert tsweep.LAUNCHES == before + 1
+    assert _since(before) == {"rt_nearest_hit": 1}
     want = tsweep.nearest_hit_reference(ps, o, d)
     same = got[1] == want[1]
     assert float((~same).float().mean()) <= 1e-4
@@ -144,10 +151,10 @@ def test_fetch_image_kernel_matches_plain(dev):
     v[5:10] = [np.nan, np.inf, -np.inf, 1e9, 1.0]
     mid = g.integers(0, ms.mat.shape[1] + 1, n).astype(np.int32)
     u, v, mid = (torch.as_tensor(x, device=dev) for x in (u, v, mid))
-    before = tmk.FETCH_LAUNCHES
+    before = trace.counts()
     got = tmk.fetch_image(ms, u, v, mid)
     torch.cuda.synchronize()
-    assert tmk.FETCH_LAUNCHES == before + 1
+    assert _since(before) == {"rt_fetch_image": 1}
     m = ms.mat[:, mid.long().clamp(0, ms.mat.shape[1] - 1)]
     want = torch.stack(tmk.fetch_image_reference(
         ms.tex, ms.img_rows, u, v, m[tmk._M_TW], m[tmk._M_TH],
@@ -168,12 +175,12 @@ def test_megakernel_matches_plain(dev, pixpack, num, group, monkeypatch):
     s = rtt.RenderSettings(rays_per_pixel=4, reflect_limit=5).with_sky(sky)
     o, d = _rays(dev)
     key = trng.fold_in(trng.key(0), 1)
-    before = (tmk.LAUNCHES, tmk.IMAGE_LAUNCHES)
+    before = trace.counts()
     mean, segs, depth = tmk.render_sample_mean_mega(
         ms, s, o, d, key, want_depth=True, pixpack=pixpack)
     torch.cuda.synchronize()
-    assert (tmk.LAUNCHES, tmk.IMAGE_LAUNCHES) == (
-        before[0] + 1, before[1] + int(num == 2))
+    assert _since(before) == collections.Counter(
+        {"rt_megakernel": 1, "rt_megakernel.image": int(num == 2)})
     o_p, d_p, seed, kw = tmk.mega_inputs(ms, s, o, d, key, pixpack=pixpack)
     ref = tmk.mega_reference(ms.packed, ms.mat, o_p, d_p, seed, **kw)
     n = o.shape[1]
@@ -201,11 +208,12 @@ def test_coherent_megakernel_matches_plain(dev, pixpack, rr, group,
                            russian_roulette=rr).with_sky(sky)
     o, d = _rays(dev, 256, 128)
     key = trng.fold_in(trng.key(0), 2)
-    before = tmk.LAUNCHES
+    before = trace.counts()
     mean, segs = tmk.render_sample_mean_mega(ms, s, o, d, key,
                                              pixpack=pixpack)
     torch.cuda.synchronize()
-    assert tmk.LAUNCHES == before + 1
+    assert _since(before) == {"rt_megakernel": 1,
+                              "rt_megakernel.coherent": 1}
     o_p, d_p, seed, kw = tmk.mega_inputs(ms, s, o, d, key, pixpack=pixpack)
     assert kw["coherent"]
     ref = tmk.mega_reference(ms.packed, ms.mat, o_p, d_p, seed, **kw)
@@ -271,7 +279,7 @@ def test_cuda_renderer_checkpoint_is_bitwise(dev, tmp_path):
     assert r.image().shape == (64, 96, 3)
 
 
-# -- the wavefront samplers' kernels: rt_lane_randoms, K5, K6 ---------------
+# -- the wavefront samplers' hit kernels: K5, K6 -----------------------------
 
 def _field_scene(dev, n_sph=6000, n_tri=40, seed=3):
     """Random spheres, a few textured triangles and a one-way quad: more
@@ -303,75 +311,6 @@ def _field_rays(dev, n, seed=4):
     return torch.as_tensor(o, device=dev), torch.as_tensor(d, device=dev)
 
 
-def test_lane_randoms_kernel_matches_plain(dev):
-    """rt_lane_randoms: key folds and uniforms bitwise, normals too (the
-    same float32 operations and CUDA's log1pf on both sides)."""
-    from raytracer_tpu_torch.ops import rng
-    n = 1 << 16
-    g = np.random.default_rng(9)
-    keys = rng.per_ray_keys(rng.key(5), torch.arange(n, device=dev))
-    s = torch.as_tensor(g.integers(0, 64, n).astype(np.int32), device=dev)
-    b = torch.as_tensor(g.integers(0, 6, n).astype(np.int32), device=dev)
-    for sample, rr in ((s, False), (s, True), (None, False)):
-        before = rng.LAUNCHES
-        got = rng.lane_randoms(keys, sample, b, with_rr=rr)
-        torch.cuda.synchronize()
-        assert rng.LAUNCHES == before + 1
-        want = rng.lane_randoms_reference(keys, sample, b, with_rr=rr)
-        got = torch.cat([got[0], got[1], got[2][None]] +
-                        ([got[3][None]] if rr else []))
-        uni = [0, 1, 2, 6] + ([7] if rr else [])
-        assert torch.equal(got[uni], want[uni])
-        assert torch.equal(got[3:6], want[3:6])
-
-
-@pytest.mark.parametrize("tile", [1024, 1, 300])
-@pytest.mark.parametrize("n", [200_000, 4101, 8195])
-def test_tile_randoms_arms_match_plain(dev, n, tile):
-    """The redesigned rt_tile_randoms bitwise with tile_randoms_reference
-    at n % 4 = 0, 1 and 3 (16-byte or scalar stores), in its shared arm
-    (tile 1024: each block draws its tile's bundle once) and its general
-    arm (tiles of 1 and 300: each lane draws its own tile's values), keyed
-    from the host and, as a replayed graph keys it, from device memory."""
-    from raytracer_tpu_torch.ops import rng
-    k = rng.fold_in(rng.key(6), 2)
-    key_dev = torch.zeros(2, dtype=torch.int64, device=dev)
-    rng.set_key(key_dev, k)
-    it = torch.tensor([9], dtype=torch.int64, device=dev)
-    for rr in (False, True):
-        want = rng.tile_randoms_reference(rng.fold_in(k, 9), n, tile,
-                                          with_rr=rr, device=dev)
-        before = rng.TILE_LAUNCHES
-        got = rng.tile_rows(rng.fold_in(k, 9), n, tile, with_rr=rr,
-                            device=dev)
-        at = rng.tile_rows_at(key_dev, it, n, tile, with_rr=rr)
-        torch.cuda.synchronize()
-        assert rng.TILE_LAUNCHES == before + 2
-        assert got.shape == at.shape == (8 if rr else 7, n)
-        assert torch.equal(got, want) and torch.equal(at, want)
-        assert int(it) == 9     # rt_tile_randoms reads the counter only
-
-
-def test_tile_randoms_kernel_matches_plain(dev):
-    """rt_tile_randoms: every row bitwise with the plain version on the
-    card, normals too, over a partial last tile, with and without the
-    russian-roulette row."""
-    from raytracer_tpu_torch.ops import rng
-    key = rng.fold_in(rng.fold_in(rng.key(5), 2), 7)
-    for n, rr in ((4101, False), (4101, True), (200_000, True)):
-        before = rng.TILE_LAUNCHES
-        got = rng.tile_randoms(key, n, with_rr=rr, device=dev)
-        torch.cuda.synchronize()
-        assert rng.TILE_LAUNCHES == before + 1
-        want = rng.tile_randoms(key, n, with_rr=rr, device=dev, plain=True)
-        assert rng.TILE_LAUNCHES == before + 1
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
-        tile0, tile1 = got[1][:, :1024], got[1][:, 1024:2048]
-        assert torch.equal(tile0, tile0[:, :1].expand_as(tile0))
-        assert (tile1[:, 0] != tile0[:, 0]).all()
-
-
 def _bitwise(got, want):
     assert len(got) == len(want)
     for a, b in zip(got, want):
@@ -388,10 +327,10 @@ def test_hit_resolve_kernel_matches_plain(dev, group):
                   _field_scene(dev, n_sph=300)):
         ws = ic.WaveScene(scene, blocked=False)
         o, d = _field_rays(dev, 1 << 15)
-        before = ic.LAUNCHES
+        before = trace.counts()
         got = ic.hit_resolve_unit(ws, o, d, _group=group)
         torch.cuda.synchronize()
-        assert ic.LAUNCHES == before + 1
+        assert _since(before) == {"rt_hit_resolve": 1}
         _bitwise(got, ic.hit_resolve_unit(ws, o, d, plain=True))
 
 
@@ -406,11 +345,11 @@ def test_counting_hit_resolve_matches_plain(dev, group):
                   _field_scene(dev, n_sph=3000)):
         ps = tsweep.pack(scene)
         o, d = _field_rays(dev, 1 << 15)
-        before = (ic.LAUNCHES, ic.STATS_LAUNCHES)
+        before = trace.counts()
         got = ic.hit_resolve_counted(ps, o, d, _group=group)
         torch.cuda.synchronize()
-        assert (ic.LAUNCHES, ic.STATS_LAUNCHES) == (before[0] + 1,
-                                                    before[1] + 1)
+        assert _since(before) == {"rt_hit_resolve": 1,
+                                  "rt_hit_resolve.stats": 1}
         _bitwise(got, ic.hit_resolve_counted(ps, o, d, plain=True))
         assert float(got[12].mean()) < scene.num_spheres + \
             scene.num_triangles
@@ -441,10 +380,10 @@ def test_hit_resolve_blocked_kernel_matches_plain(dev, group):
     wb = ic.WaveScene(scene, blocked=True)
     assert wb.tables.nblocks == 2
     o, d = _field_rays(dev, 1 << 15)
-    before = ic.BLOCKED_LAUNCHES
+    before = trace.counts()
     got = ic.hit_resolve_unit(wb, o, d, _group=group)
     torch.cuda.synchronize()
-    assert ic.BLOCKED_LAUNCHES == before + 1
+    assert _since(before) == {"rt_hit_resolve_blocked": 1}
     _bitwise(got, ic.hit_resolve_unit(wb, o, d, plain=True))
     k5 = ic.hit_resolve_unit(ic.WaveScene(scene, blocked=False), o, d)
     differ = got[1] != k5[1]
@@ -476,21 +415,19 @@ def test_hit_resolve_blocked_kernel_exact_ties(dev, group):
 @pytest.mark.parametrize("sampler", ["regen", "scan", "rebin", "lanesort"])
 def test_wavefront_frame_matches_plain_route(dev, sampler):
     """One small frame of each wavefront sampler through a Renderer on the
-    card (the ray set-up and K5 launched, not the lane randoms) against
-    the plain route (every kernel replaced by its plain version) on the
+    card (the ray set-up and K5 launched, as many of one as of the other)
+    against the plain route (every kernel replaced by its plain version) on the
     same rays and key."""
-    from raytracer_tpu_torch.ops import intersect_cuda as ic
     from raytracer_tpu_torch.ops import integrator as tint
-    from raytracer_tpu_torch.ops import rays as trays
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
     s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=5,
                            sampler=sampler).with_sky(sky)
     cam = rtt.CameraConfig(width=64, height=32, position=(0.0, 0.5, -6.0))
     r = rtt.Renderer(scene, cam, s, device=dev)
-    before = (ic.LAUNCHES, trays.LAUNCHES, trng.LAUNCHES)
+    before = trace.counts()
     r.render_frame(block=True)
-    assert ic.LAUNCHES - before[0] == trays.LAUNCHES - before[1] > 0
-    assert trng.LAUNCHES == before[2]
+    c = _since(before)
+    assert c["rt_hit_resolve"] == c["rt_wave_rays"] > 0
     assert r.accum.device.type == "cuda"
     ref, ref_segs = tint.render_sample_mean(
         r.packed_scene, s, r._o, r._d, trng.frame_key(r.base_key, 0),
@@ -503,22 +440,18 @@ def test_wavefront_frame_matches_plain_route(dev, sampler):
 
 def test_coherent_regen_frame_matches_plain_route(dev):
     """A coherent regen Renderer frame on the card (K5 and the ray set-up
-    once an iteration, the set-up drawing the tile bundles itself: no tile
-    draws, no lane randoms) against the plain route on the same rays and
-    key."""
-    from raytracer_tpu_torch.ops import intersect_cuda as ic
+    once an iteration, the set-up drawing the tile bundles itself) against
+    the plain route on the same rays and key."""
     from raytracer_tpu_torch.ops import integrator as tint
-    from raytracer_tpu_torch.ops import rays as trays
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
     s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=5,
                            sampler="regen", coherent=True).with_sky(sky)
     cam = rtt.CameraConfig(width=64, height=32, position=(0.0, 0.5, -6.0))
     r = rtt.Renderer(scene, cam, s, device=dev)
-    before = (ic.LAUNCHES, trng.LAUNCHES, trng.TILE_LAUNCHES, trays.LAUNCHES)
+    before = trace.counts()
     r.render_frame(block=True)
-    assert ic.LAUNCHES > before[0] and trng.LAUNCHES == before[1]
-    assert trng.TILE_LAUNCHES == before[2]
-    assert trays.LAUNCHES - before[3] == ic.LAUNCHES - before[0]
+    c = _since(before)
+    assert c["rt_hit_resolve"] == c["rt_wave_rays"] > 0
     ref, ref_segs = tint.render_sample_mean(
         r.packed_scene, s, r._o, r._d, trng.frame_key(r.base_key, 0),
         ray_idx=r._ray_idx, backend="plain")
@@ -528,7 +461,7 @@ def test_coherent_regen_frame_matches_plain_route(dev):
         SEGS_REL * float(ref_segs)
 
 
-# -- temporal mode: K7 and the history gather --------------------------------
+# -- temporal mode: K7 and the temporal frame ---------------------------------
 
 def test_warp_gather_kernel_matches_plain(dev):
     """rt_warp_gather (K7) bitwise: a coherent band, full-range random
@@ -543,10 +476,10 @@ def test_warp_gather_kernel_matches_plain(dev):
     for idx in (band, g.integers(0, m, n), g.integers(-m, 2 * m, n)):
         idx = torch.as_tensor(idx.astype(np.int32), device=dev)
         valid = torch.as_tensor(g.uniform(size=n) < 0.8, device=dev)
-        before = warp.GATHER_LAUNCHES
+        before = trace.counts()
         got = warp.warp_gather(values, idx, valid)
         torch.cuda.synchronize()
-        assert warp.GATHER_LAUNCHES == before + 1
+        assert _since(before) == {"rt_warp_gather": 1}
         assert torch.equal(got, warp.warp_gather_reference(values, idx,
                                                            valid))
 
@@ -576,27 +509,10 @@ def _history_inputs(dev, width, height):
             ob.delta_u, ob.delta_v)
 
 
-def test_gather_history_kernel_matches_plain(dev):
-    """rt_gather_history (the pack fused) bitwise with its plain version
-    (pack_history over the plane, then the gather): the weight, which is
-    > 0 exactly where the gather is valid, and the history, which is
-    random per old pixel and so names the source pixel."""
-    from raytracer_tpu_torch.ops import warp
-    args = _history_inputs(dev, 512, 256)
-    before = warp.HISTORY_LAUNCHES
-    hist, w = warp.gather_history(512, 256, *args)
-    torch.cuda.synchronize()
-    assert warp.HISTORY_LAUNCHES == before + 1
-    rh, rw = warp.gather_history_reference(512, 256, *args)
-    assert torch.equal(w, rw) and torch.equal(hist, rh)
-    assert 0.2 < float((w > 0).float().mean()) < 1.0
-    assert not hist[w == 0].any()
-
-
 def test_temporal_renderer_matches_plain_steps(dev):
     """A 256x128 temporal Renderer frame, a move and a frame on the card
     (each frame rt_camera_rays, the megakernel and rt_temporal_frame; no
-    rt_gather_history) against the same steps composed from the plain
+    K7) against the same steps composed from the plain
     versions on the same keys, bitwise."""
     from raytracer_tpu_torch.ops import warp
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
@@ -605,14 +521,14 @@ def test_temporal_renderer_matches_plain_steps(dev):
     moved = rtt.CameraConfig(width=256, height=128,
                              position=(0.0, 0.5, -5.75), y_rot=0.02)
     r = rtt.Renderer(scene, cam, s, device=dev, temporal=True)
-    before = _temporal_launches()
+    before = trace.counts()
     r.render_frame(block=True)
     r.move_camera(moved)
     r.render_frame(block=True)
     assert _launched_since(before) == {"rt_megakernel": 2,
                                        "rt_camera_rays": 2,
                                        "rt_temporal_frame": 2,
-                                       "rt_gather_history": 0}
+                                       "rt_warp_gather": 0}
 
     accum = torch.zeros((256 * 128, 3), device=dev)
     wpix = torch.zeros(256 * 128, device=dev)
@@ -634,15 +550,12 @@ def test_temporal_renderer_matches_plain_steps(dev):
     r.check_health()
 
 
-def _temporal_launches() -> dict:
-    from raytracer_tpu_torch.ops import warp
-    return {"rt_megakernel": tmk.LAUNCHES, "rt_camera_rays": tcam.LAUNCHES,
-            "rt_temporal_frame": warp.FRAME_LAUNCHES,
-            "rt_gather_history": warp.HISTORY_LAUNCHES}
-
-
-def _launched_since(before: dict) -> dict:
-    return {k: v - before[k] for k, v in _temporal_launches().items()}
+def _launched_since(before) -> dict:
+    """The temporal frame's launches since ``before`` (a
+    ``trace.counts()``), K7 among them."""
+    c = _since(before)
+    return {k: c[k] for k in ("rt_megakernel", "rt_camera_rays",
+                              "rt_temporal_frame", "rt_warp_gather")}
 
 
 @pytest.mark.parametrize("width,height,pixpack",
@@ -655,10 +568,10 @@ def test_camera_rays_kernel_matches_plain(dev, width, height, pixpack):
     cam = tcam.build_camera(rtt.CameraConfig(
         width=width, height=height, position=(0.0, 0.5, -5.5), y_rot=0.04,
         x_rot=-0.02))
-    before = tcam.LAUNCHES
+    before = trace.counts()
     got = tcam.camera_rays(cam, width, height, pixpack, dev)
     torch.cuda.synchronize()
-    assert tcam.LAUNCHES == before + 1
+    assert _since(before) == {"rt_camera_rays": 1}
     want = tcam.camera_rays_reference(cam, width, height, pixpack, dev)
     assert torch.equal(got.o, want.o) and torch.equal(got.d, want.d)
     n = width * height
@@ -694,10 +607,10 @@ def test_temporal_frame_kernel_matches_plain(dev, arm):
                                          wpix.clone(), *extra)
     for _ in range(2):      # the segment accumulator is left zero
         a, w = accum.clone(), wpix.clone()
-        before = warp.FRAME_LAUNCHES
+        before = trace.counts()
         got = warp.temporal_frame(out, n, a, w, *extra)
         torch.cuda.synchronize()
-        assert warp.FRAME_LAUNCHES == before + 1
+        assert _since(before) == {"rt_temporal_frame": 1}
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert float(got[2]) == float(want[2]) > 0
     assert (got[0] is a) == (arm == "static")
@@ -709,7 +622,7 @@ def test_temporal_frame_kernel_matches_plain(dev, arm):
 def test_warp_frame_launches_three_kernels(dev):
     """A 4K temporal Renderer's warp frames: each move and frame is one
     rt_camera_rays, one megakernel and one rt_temporal_frame launch, no
-    rt_gather_history or K7; static frames reuse the rays."""
+    K7; static frames reuse the rays."""
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
     s = rtt.RenderSettings(rays_per_pixel=1, reflect_limit=5,
                            antialias=True).with_sky(sky)
@@ -718,19 +631,19 @@ def test_warp_frame_launches_three_kernels(dev):
                              y_rot=0.02 * i) for i in range(4)]
     r = rtt.Renderer(scene, cams[0], s, device=dev, temporal=True)
     r.render_frame(block=True)
-    before = _temporal_launches()
+    before = trace.counts()
     for cam in cams[1:]:
         r.move_camera(cam)
         r.render_frame()
     torch.cuda.synchronize()
     assert _launched_since(before) == {
         "rt_megakernel": 3, "rt_camera_rays": 3, "rt_temporal_frame": 3,
-        "rt_gather_history": 0}
-    before = _temporal_launches()
+        "rt_warp_gather": 0}
+    before = trace.counts()
     r.render_frame(block=True)
     assert _launched_since(before) == {
         "rt_megakernel": 1, "rt_camera_rays": 0, "rt_temporal_frame": 1,
-        "rt_gather_history": 0}
+        "rt_warp_gather": 0}
     hits = r._depth < tmk.INF
     assert float((r._wpix[hits] > 1).float().mean()) > 0.5
     r.check_health()
@@ -805,9 +718,9 @@ def test_one_rank_nccl_renderer_matches_unsharded(dev, nccl_group,
     placement = mesh.pixel_sharding(mesh.make_mesh())
     rs = rtt.Renderer(scene, cam, s, device=dev, sharding=placement)
     ru = rtt.Renderer(scene, cam, s, device=dev)
-    before = tmk.LAUNCHES
+    before = trace.counts()
     rs.render_frames(2)
-    assert tmk.LAUNCHES == before + 2
+    assert _since(before)["rt_megakernel"] == 2
     ru.render_frames(2)
     assert torch.equal(torch.as_tensor(gather_image(rs.accum, placement)),
                        ru.accum.cpu())
@@ -825,10 +738,7 @@ def test_one_rank_nccl_renderer_matches_unsharded(dev, nccl_group,
 
 def test_trace_kernel_route_matches_plain(dev):
     """``trace`` through the ray set-up and K5 (one launch of each a
-    bounce, no lane randoms) against its plain route on the same rays and
-    key, bitwise."""
-    from raytracer_tpu_torch.ops import intersect_cuda as ic
-    from raytracer_tpu_torch.ops import rays as trays
+    bounce) against its plain route on the same rays and key, bitwise."""
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
     s = rtt.RenderSettings(rays_per_pixel=1, reflect_limit=5).with_sky(sky)
     w, h = 256, 128
@@ -837,10 +747,10 @@ def test_trace_kernel_route_matches_plain(dev):
         width=w, height=h, position=(0.0, 0.5, -6.0))), w, h,
         pixel_order=order, device=dev)
     idx = torch.as_tensor(order, device=dev)
-    before = (ic.LAUNCHES, trays.LAUNCHES, trng.LAUNCHES)
+    before = trace.counts()
     rad, segs = rtt.trace(scene, s, o, d, trng.key(5), ray_idx=idx)
-    assert (ic.LAUNCHES - before[0], trays.LAUNCHES - before[1],
-            trng.LAUNCHES - before[2]) == (5, 5, 0)
+    c = _since(before)
+    assert (c["rt_hit_resolve"], c["rt_wave_rays"]) == (5, 5)
     ref, ref_segs = rtt.trace(scene, s, o, d, trng.key(5), ray_idx=idx,
                               backend="plain")
     assert rad.device.type == "cuda" and torch.equal(rad, ref)
@@ -856,9 +766,9 @@ def test_profile_frame_trace_names_the_megakernel(dev, tmp_path):
     r = rtt.Renderer(scene, rtt.CameraConfig(width=96, height=64), s,
                      device=dev)
     r.render_frame(block=True)
-    before = tmk.LAUNCHES
+    before = trace.counts()
     path = r.profile_frame(str(tmp_path / "trace"))
-    assert tmk.LAUNCHES == before + 1 and r.frame_num == 2
+    assert _since(before)["rt_megakernel"] == 1 and r.frame_num == 2
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "kernel" and "megakernel" in e.get("name", "")
@@ -937,10 +847,10 @@ def _bounce_vs_plain(dev, scene, s, pos, regen, blocked=None, bounces=4):
         assert len(raw) == (9 if ws.blocked else 12)
         args = (scene, s, st, rays.dj, raw, rays.inv_len, rays.gauss,
                 rays.fresnel, rays.rr)
-        before = tb.LAUNCHES
+        before = trace.counts()
         got = tb.wave_bounce(*args, regen=regen, bounce=b)
         torch.cuda.synchronize()
-        assert tb.LAUNCHES == before + 1
+        assert _since(before) == {"rt_wave_bounce": 1}
         want = tb.wave_bounce_reference(*args, regen=regen, bounce=b)
         assert sorted(got) == sorted(want)
         for k in want:
@@ -1028,14 +938,14 @@ def test_wave_rays_kernel_matches_plain(dev, antialias, with_rr, coherent):
     for kw in arms:
         segs = [torch.zeros((), dtype=torch.int64, device=dev)
                 for _ in range(2)]
-        before = trays.LAUNCHES
+        before = trace.counts()
         got = trays.wave_rays(d, antialias=antialias, with_rr=with_rr,
                               segs=segs[0], **kw)
         torch.cuda.synchronize()
-        assert trays.LAUNCHES == before + 1
+        assert _since(before) == {"rt_wave_rays": 1}
         want = trays.wave_rays(d, antialias=antialias, with_rr=with_rr,
                                segs=segs[1], plain=True, **kw)
-        assert trays.LAUNCHES == before + 1
+        assert _since(before) == {"rt_wave_rays": 1}
         done = s >= 20 if "spp" in kw else None
         _rays_equal(got, want, done)
         assert int(segs[0]) == int(segs[1]) > 0
@@ -1086,7 +996,6 @@ def test_graph_replay_matches_plain_route(dev, sampler, coherent):
     frame: a block of 8 and one of 4), each running mean bitwise the
     plain route's (every kernel replaced by its plain version, eager)."""
     from raytracer_tpu_torch.ops import integrator as tint
-    from raytracer_tpu_torch.ops import wave_graph as twg
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
     s = rtt.RenderSettings(rays_per_pixel=3, reflect_limit=4,
                            sampler=sampler, coherent=coherent,
@@ -1094,13 +1003,13 @@ def test_graph_replay_matches_plain_route(dev, sampler, coherent):
     cam = rtt.CameraConfig(width=64, height=32, position=(0.0, 0.5, -6.0))
     r = rtt.Renderer(scene, cam, s, device=dev)
     accum = rtt.film.new_accumulator(64 * 32, dev)
-    replays = twg.REPLAYS
+    before = trace.counts()
     for frame in range(2):
         r.render_frame(block=True)
         tint.render_frame(r.packed_scene, s, r._o, r._d, accum, frame,
                           r.base_key, ray_idx=r._ray_idx, backend="plain")
         assert torch.equal(r.accum, accum)
-    assert twg.REPLAYS > replays and r.packed_scene.graphs
+    assert _since(before)["graph.replay"] > 0 and r.packed_scene.graphs
 
 
 def test_camera_change_replays_without_recapture(dev):
@@ -1109,14 +1018,13 @@ def test_camera_change_replays_without_recapture(dev):
     graph), every frame bitwise the plain route's, and ``trace`` on the
     same WaveScene captures its own graph once."""
     from raytracer_tpu_torch.ops import integrator as tint
-    from raytracer_tpu_torch.ops import wave_graph as twg
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
     s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=4,
                            sampler="regen").with_sky(sky)
     r = rtt.Renderer(scene, rtt.CameraConfig(
         width=64, height=32, position=(0.0, 0.5, -6.0)), s, device=dev)
     r.render_frame(block=True)
-    captures = twg.CAPTURES
+    before = trace.counts()
     for pos in ((0.2, 0.6, -5.5), (-0.4, 0.4, -6.5)):
         r.set_camera(rtt.CameraConfig(width=64, height=32, position=pos))
         r.render_frame(block=True)
@@ -1124,26 +1032,22 @@ def test_camera_change_replays_without_recapture(dev):
             r.packed_scene, s, r._o, r._d, trng.frame_key(r.base_key, 0),
             ray_idx=r._ray_idx, backend="plain")
         assert torch.equal(r.accum, want)
-    assert twg.CAPTURES == captures
+    assert _since(before)["graph.capture"] == 0
     for key in (3, 4):
         rad, _ = rtt.trace(r.packed_scene, s, r._o, r._d, trng.key(key),
                            ray_idx=r._ray_idx)
         want, _ = rtt.trace(r.packed_scene, s, r._o, r._d, trng.key(key),
                             ray_idx=r._ray_idx, backend="plain")
         assert torch.equal(rad, want)
-    assert twg.CAPTURES == captures + 1
+    assert _since(before)["graph.capture"] == 1
 
 
 def test_graph_launch_counts_add_up(dev):
-    """The counters stay truthful under replay: a regen frame of 8
+    """The counts stay truthful under replay: a regen frame of 8
     iterations (one replay) counts 8 launches of K5, the ray set-up and
-    rt_wave_bounce and none of the lane randoms; a trace of 5 bounces 5
-    of each in one replay."""
-    from raytracer_tpu_torch.ops import bounce as tb
+    rt_wave_bounce; a trace of 5 bounces 5 of each in one replay."""
     from raytracer_tpu_torch.ops import integrator as tint
     from raytracer_tpu_torch.ops import intersect_cuda as ic
-    from raytracer_tpu_torch.ops import rays as trays
-    from raytracer_tpu_torch.ops import wave_graph as twg
     scene, sky = rtt.build_scene(4, seed=0, device=dev)
     ws = ic.WaveScene(scene)
     o, d = _rays(dev, 64, 32, position=(0.0, 0.5, -6.0))
@@ -1153,14 +1057,13 @@ def test_graph_launch_counts_add_up(dev):
                     (rtt.RenderSettings(rays_per_pixel=1, reflect_limit=5,
                                         sampler="scan").with_sky(sky), 5)):
         for _ in range(2):      # the first call captures, both replay
-            before = (ic.LAUNCHES, trays.LAUNCHES, tb.LAUNCHES,
-                      twg.REPLAYS, trng.LAUNCHES)
+            before = trace.counts()
             tint.render_sample_mean(ws, s, o, d, trng.key(1))
             torch.cuda.synchronize()
-            after = (ic.LAUNCHES, trays.LAUNCHES, tb.LAUNCHES, twg.REPLAYS,
-                     trng.LAUNCHES)
-            assert [a - b for a, b in zip(after, before)] == \
-                [want] * 3 + [1, 0]
+            c = _since(before)
+            assert [c[k] for k in ("rt_hit_resolve", "rt_wave_rays",
+                                   "rt_wave_bounce", "graph.replay")] == \
+                [want] * 3 + [1]
 
 
 @pytest.mark.parametrize("num", [4, "stress"])
@@ -1168,11 +1071,8 @@ def test_regen_frame_launches_three_kernels_an_iteration(dev, num):
     """A regen Renderer frame at 128x64, 2 spp, 4 bounces (8 iterations,
     one replay after the capture): the ray set-up, the hit kernel (K5 on
     scene 4, K6 on a scene past the resident budget) and rt_wave_bounce
-    once an iteration each, no lane randoms, no tile draws."""
+    once an iteration each."""
     from raytracer_tpu_torch.models import bench_scenes
-    from raytracer_tpu_torch.ops import bounce as tb
-    from raytracer_tpu_torch.ops import intersect_cuda as ic
-    from raytracer_tpu_torch.ops import rays as trays
     if num == "stress":
         scene, sky = bench_scenes.stress_10k_scene(num=100000, seed=1)
         scene = scene.to(dev)
@@ -1185,13 +1085,13 @@ def test_regen_frame_launches_three_kernels_an_iteration(dev, num):
     r = rtt.Renderer(scene, rtt.CameraConfig(width=128, height=64,
                                              position=pos), s, device=dev)
     r.render_frame(block=True)       # captures
-    names = ("BLOCKED_LAUNCHES" if r.packed_scene.blocked else "LAUNCHES")
-    before = (getattr(ic, names), trays.LAUNCHES, tb.LAUNCHES,
-              trng.LAUNCHES, trng.TILE_LAUNCHES)
+    hit = ("rt_hit_resolve_blocked" if r.packed_scene.blocked
+           else "rt_hit_resolve")
+    before = trace.counts()
     r.render_frame(block=True)
-    after = (getattr(ic, names), trays.LAUNCHES, tb.LAUNCHES,
-             trng.LAUNCHES, trng.TILE_LAUNCHES)
-    assert [a - b for a, b in zip(after, before)] == [8, 8, 8, 0, 0]
+    c = _since(before)
+    assert [c[k] for k in (hit, "rt_wave_rays", "rt_wave_bounce")] == \
+        [8, 8, 8]
     assert r.packed_scene.blocked == (num == "stress")
 
 
@@ -1285,7 +1185,7 @@ def test_graph_frame_lanes_match_plain_route(dev, monkeypatch, sampler,
     of 8 iterations and one of 4) against the eager plain route: the
     film bitwise, the segments equal, every lane's final ``sample_i``
     equal and every finished lane parked in both, and
-    ``LANE_ITERATIONS`` grown by N x 12 on each."""
+    ``regen.lane_iterations`` grown by N x 12 on each."""
     from raytracer_tpu_torch.ops import bounce as tb
     from raytracer_tpu_torch.ops import integrator as tint
     from raytracer_tpu_torch.ops.intersect_cuda import WaveScene
@@ -1306,12 +1206,12 @@ def test_graph_frame_lanes_match_plain_route(dev, monkeypatch, sampler,
                         or states[-1])
     out = {}
     for route in ("graph", "plain"):
-        before = tint.LANE_ITERATIONS
+        before = trace.counts()
         mean, segs = tint.render_sample_mean(
             ws, s, o, d, fkey, ray_idx=idx,
             backend="pallas" if route == "graph" else "plain")
         torch.cuda.synchronize()
-        assert tint.LANE_ITERATIONS - before == n * 12
+        assert _since(before)["regen.lane_iterations"] == n * 12
         st = (ws.graphs[("regen", n, s, "pallas")].st if route == "graph"
               else states[-1])
         out[route] = (mean.clone(), float(segs), st["sample_i"].clone(),
@@ -1368,11 +1268,11 @@ def test_megakernel_tetra6_matches_plain(dev, group, monkeypatch):
     o = o[:, mid:mid + 64 * 48].contiguous()
     d = d[:, mid:mid + 64 * 48].contiguous()
     key = trng.fold_in(trng.key(0), 1)
-    before = tmk.LAUNCHES
+    before = trace.counts()
     mean, segs, depth = tmk.render_sample_mean_mega(ms, s, o, d, key,
                                                     want_depth=True)
     torch.cuda.synchronize()
-    assert tmk.LAUNCHES == before + 1
+    assert _since(before) == {"rt_megakernel": 1}
     o_p, d_p, seed, kw = tmk.mega_inputs(ms, s, o, d, key)
     ref = tmk.mega_reference(ms.packed, ms.mat, o_p, d_p, seed, **kw)
     n = o.shape[1]
@@ -1397,10 +1297,10 @@ def test_hit_resolve_blocked_tetra6_matches_plain(dev, group):
     from raytracer_tpu_torch.ops import intersect_cuda as ic
     ws, o, d, want = _tetra6_k6_plain(dev)
     assert ws.blocked and ws.tables.nblocks == 16
-    before = ic.BLOCKED_LAUNCHES
+    before = trace.counts()
     got = ic.hit_resolve_unit(ws, o, d, _group=group)
     torch.cuda.synchronize()
-    assert ic.BLOCKED_LAUNCHES == before + 1
+    assert _since(before) == {"rt_hit_resolve_blocked": 1}
     assert float((got[0] < tsweep.INF).float().mean()) > 0.2
     _bitwise(got, want)
 
@@ -1410,8 +1310,6 @@ def test_regen_tetra6_graph_replay_matches_eager(dev, monkeypatch):
     iterations with K6; each running mean is bitwise the eager kernel
     route's (every launch as a plain call, no graph)."""
     from raytracer_tpu_torch.ops import integrator as tint
-    from raytracer_tpu_torch.ops import intersect_cuda as ic
-    from raytracer_tpu_torch.ops import wave_graph as twg
     scene, sky = _tetra6(dev)
     s = rtt.RenderSettings(rays_per_pixel=2, reflect_limit=5,
                            sampler="regen").with_sky(sky)
@@ -1419,7 +1317,7 @@ def test_regen_tetra6_graph_replay_matches_eager(dev, monkeypatch):
                      device=dev)
     assert r.packed_scene.blocked
     accum = rtt.film.new_accumulator(64 * 48, dev)
-    replays, blocked = twg.REPLAYS, ic.BLOCKED_LAUNCHES
+    before = trace.counts()
     for frame in range(2):
         r.render_frame(block=True)
         with monkeypatch.context() as m:
@@ -1428,7 +1326,8 @@ def test_regen_tetra6_graph_replay_matches_eager(dev, monkeypatch):
                               r.base_key, ray_idx=r._ray_idx)
         torch.cuda.synchronize()
         assert torch.equal(r.accum, accum)
-    assert twg.REPLAYS > replays and ic.BLOCKED_LAUNCHES > blocked
+    c = _since(before)
+    assert c["graph.replay"] > 0 and c["rt_hit_resolve_blocked"] > 0
 
 
 # -- the hit kernels skip finished regen lanes --------------------------------
@@ -1471,8 +1370,8 @@ def test_hit_kernels_skip_finished_lanes(dev, monkeypatch, name, group):
     pyramid, 32,768 rays into it) launched with the regen loop's mask at
     every G: a live lane's rows bitwise the unmasked launch's, a finished
     lane's rows still the sentinel its output buffers were filled with
-    (the kernel wrote nothing there), the launch counted in
-    ``SKIP_LAUNCHES``; the plain route with the mask computes every row,
+    (the kernel wrote nothing there), the launch counted under the
+    kernel's ``.skip``; the plain route with the mask computes every row,
     the unmasked launch's."""
     from raytracer_tpu_torch.ops import intersect_cuda as ic
     scene, _, pos, blocked = _skip_scene(dev, name)
@@ -1488,12 +1387,11 @@ def test_hit_kernels_skip_finished_lanes(dev, monkeypatch, name, group):
     assert bool((want[0][~done] < tsweep.INF).any())
     monkeypatch.setattr(ic, "_outs", lambda n, device, dtypes: [
         torch.full((n,), -7, dtype=dt, device=device) for dt in dtypes])
-    counters = ("BLOCKED_LAUNCHES" if blocked else "LAUNCHES",
-                "SKIP_LAUNCHES")
-    before = [getattr(ic, c) for c in counters]
+    kernel = "rt_hit_resolve_blocked" if blocked else "rt_hit_resolve"
+    before = trace.counts()
     got = ic.hit_raw(ws, o, d, sample_i=sample, spp=spp, _group=group)
     torch.cuda.synchronize()
-    assert [getattr(ic, c) - b for c, b in zip(counters, before)] == [1, 1]
+    assert _since(before) == {kernel: 1, kernel + ".skip": 1}
     assert len(got) == len(want) == (9 if blocked else 12)
     for a, w in zip(got, want):
         assert a.dtype == w.dtype
@@ -1513,8 +1411,8 @@ def test_masked_graph_frame_matches_plain_route(dev, monkeypatch, sampler,
                                                 coherent, name):
     """A graph-replayed frame whose hit launches carry the regen loop's
     mask (64x32, 3 spp, 4 bounces; K5 on scene 4, K6 on the blocked
-    level-4 pyramid; every hit launch of the replays counted in
-    ``SKIP_LAUNCHES``) gives the plain route's film (the pixel sums over
+    level-4 pyramid; every hit launch of the replays counted under the
+    kernel's ``.skip``) gives the plain route's film (the pixel sums over
     spp) and segments bitwise, and so does a fresh capture whose hit
     launches carry no mask."""
     from raytracer_tpu_torch.ops import integrator as tint
@@ -1527,18 +1425,17 @@ def test_masked_graph_frame_matches_plain_route(dev, monkeypatch, sampler,
     o, d = o.T.contiguous(), d.T.contiguous()
     idx = torch.as_tensor(tcam.morton_order(64, 32), device=dev)
     fkey = trng.frame_key(trng.key(1), 0)
-    launches = "BLOCKED_LAUNCHES" if blocked else "LAUNCHES"
+    kernel = "rt_hit_resolve_blocked" if blocked else "rt_hit_resolve"
 
     def frame(backend):
-        before = (getattr(ic, launches), ic.SKIP_LAUNCHES,
-                  tint.LANE_ITERATIONS)
+        before = trace.counts()
         mean, segs = tint.render_sample_mean(
             ic.WaveScene(scene, blocked=blocked), s, o, d, fkey,
             ray_idx=idx, backend=backend)
         torch.cuda.synchronize()
-        grown = (getattr(ic, launches) - before[0],
-                 ic.SKIP_LAUNCHES - before[1],
-                 (tint.LANE_ITERATIONS - before[2]) // o.shape[0])
+        c = _since(before)
+        grown = (c[kernel], c[kernel + ".skip"],
+                 c["regen.lane_iterations"] // o.shape[0])
         return mean.clone(), float(segs), grown
     masked = frame("pallas")
     assert masked[2][0] == masked[2][1] == masked[2][2] > 0

@@ -23,6 +23,7 @@ from raytracer_tpu.ops import intersect_pallas as jip
 from raytracer_tpu.ops import sweep as jsweep
 from raytracer_tpu_torch.ops import intersect_cuda as ic
 from raytracer_tpu_torch.runtime import loader as tloader
+from raytracer_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
 
@@ -273,9 +274,9 @@ def test_wrappers_check_inputs_and_count_nothing_on_cpu():
     ts, _ = rtt.build_scene(4, seed=0, device="cpu")
     ws = ic.WaveScene(ts)
     o, d = (torch.from_numpy(a) for a in _rays(300, 5, 2.0))
-    before = (ic.LAUNCHES, ic.BLOCKED_LAUNCHES)
+    before = trace.counts()
     rec, shade = ic.hit_and_resolve(ws, o, d)
-    assert (ic.LAUNCHES, ic.BLOCKED_LAUNCHES) == before
+    assert trace.counts() == before
     assert rec.t.shape == (300,) and shade.normal.shape == (3, 300)
     assert shade.mat_id.dtype == torch.int32
     # scaled directions: t comes back in the caller's parameterisation
@@ -306,14 +307,12 @@ def test_wavefront_kernel_sources_and_binding_without_nvcc(tmp_path,
     srcs = {name: (CSRC / name).read_text() for name in build.SOURCES}
     assert "wavefront.cu" in srcs
     for name, entry in (("megakernel.cu", "rt_hit_resolve"),
-                        ("wavefront.cu", "rt_hit_resolve_blocked"),
-                        ("wavefront.cu", "rt_lane_randoms")):
+                        ("wavefront.cu", "rt_hit_resolve_blocked")):
         assert re.search(r"\bint %s\(" % entry, srcs[name])
     for name, c_name, py in (("megakernel.cu", "RtResolveArgs",
                               build.ResolveArgs),
                              ("wavefront.cu", "RtBlockedArgs",
-                              build.BlockedArgs),
-                             ("wavefront.cu", "RtLaneArgs", build.LaneArgs)):
+                              build.BlockedArgs)):
         assert _c_struct_fields(srcs[name], c_name) == [
             f[0] for f in py._fields_]
     for py in (build.ResolveArgs, build.BlockedArgs):

@@ -32,6 +32,7 @@ from raytracer_tpu.models import camera as jcam
 from raytracer_tpu.ops import megakernel as jmk
 from raytracer_tpu_torch.ops import megakernel as tmk
 from raytracer_tpu_torch.ops import rng as trng
+from raytracer_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
 
@@ -131,7 +132,7 @@ def test_mesh_scene0_matches_jax_interpret():
 
 
 def test_cpu_render_launches_no_kernel():
-    before = (tmk.LAUNCHES, tmk.IMAGE_LAUNCHES)
+    before = trace.counts()
     _render_pair(64, 64, 1, True)
     ts, sky = rtt.build_scene(4, seed=0, device="cpu")
     s = rtt.RenderSettings(rays_per_pixel=1, reflect_limit=2).with_sky(sky)
@@ -143,7 +144,7 @@ def test_cpu_render_launches_no_kernel():
     s2, _ = rtt.build_scene(2, device="cpu")
     mean, _ = tmk.render_sample_mean_mega(s2, s, o, d, trng.key(0))
     assert torch.isfinite(mean).all()
-    assert (tmk.LAUNCHES, tmk.IMAGE_LAUNCHES) == before
+    assert trace.counts() == before
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -31,6 +31,7 @@ from raytracer_tpu_torch.models import materials as tmat
 from raytracer_tpu_torch.models import scene as tscene
 from raytracer_tpu_torch.ops import intersect_cuda as ic
 from raytracer_tpu_torch.ops import sweep as tsweep
+from raytracer_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
 
@@ -147,13 +148,13 @@ def test_counted_launch_outputs_match_k5():
     ts, _ = rtt.build_scene(4, seed=0, device="cpu")
     ws = ic.WaveScene(ts)
     o, d = (torch.from_numpy(x) for x in _rays(N_RAYS, 4, spread=2.0))
-    before = (ic.LAUNCHES, ic.STATS_LAUNCHES)
+    before = trace.counts()
     out = ic.hit_resolve_counted(ws.packed, o, d)
     assert len(out) == 13 and out[12].dtype == torch.float32
     plain = ic.hit_resolve_unit(ws, o, d)
     for a, b in zip(out[:12], plain):
         assert torch.equal(a, b)
-    assert (ic.LAUNCHES, ic.STATS_LAUNCHES) == before
+    assert trace.counts() == before
 
 
 def test_stats_raise_past_fits_smem():

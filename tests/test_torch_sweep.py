@@ -24,6 +24,7 @@ import raytracer_tpu_torch as rtt
 from raytracer_tpu.ops import intersect as jint
 from raytracer_tpu_torch.ops import sweep as tsweep
 from raytracer_tpu_torch.runtime import loader as tloader
+from raytracer_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
 
@@ -138,9 +139,9 @@ def test_nearest_hit_wrapper_checks_and_counts():
     ts, _ = rtt.build_scene(4, seed=0, device="cpu")
     ps = tsweep.pack(ts)
     o, d = (torch.from_numpy(a) for a in _rays(n=256))
-    before = tsweep.LAUNCHES
+    before = trace.counts()
     out = tsweep.nearest_hit(ps, o, d)
-    assert tsweep.LAUNCHES == before   # CPU tensors take the plain version
+    assert trace.counts() == before   # CPU tensors take the plain version
     assert [x.dtype for x in out] == [torch.float32, torch.int32] + [
         torch.float32] * 5 + [torch.int32] * 2
     assert all(x.shape == (256,) for x in out)

@@ -42,6 +42,7 @@ from raytracer_tpu_torch.ops import film, warp
 from raytracer_tpu_torch.ops import megakernel as tmk
 from raytracer_tpu_torch.ops import rng as trng
 from raytracer_tpu_torch.runtime.renderer import Renderer
+from raytracer_tpu_torch.utils import trace
 from test_torch_megakernel import CSRC, _c_struct_fields
 
 torch.set_num_threads(2)
@@ -81,10 +82,10 @@ def test_camera_rays_reference_is_pad_rays_of_primary_rays(width, height,
     assert (got.n, got.pixpack) == (width * height, pixpack)
     assert got.o.shape == got.d.shape == (3, -(-width * height // tile)
                                           * tile)
-    before = tcam.LAUNCHES
+    before = trace.counts()
     wrapped = tcam.camera_rays(cam, width, height, pixpack, device="cpu")
     assert torch.equal(wrapped.o, got.o) and torch.equal(wrapped.d, got.d)
-    assert tcam.LAUNCHES == before       # CPU tensors launch nothing
+    assert trace.counts() == before       # CPU tensors launch nothing
 
 
 def _jax_padded_rays(cfg, pixpack):
@@ -218,11 +219,11 @@ def test_temporal_frame_reference_is_todays_epilogue(width, height,
                                         src, cam, width, height)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert got[2].dtype == torch.float64 and float(got[2]) == float(segs)
-    before = warp.FRAME_LAUNCHES
+    before = trace.counts()
     a = accum.clone()
     wrapped = warp.temporal_frame(out, n, a, wpix.clone(), src, cam, width,
                                   height)
-    assert warp.FRAME_LAUNCHES == before      # CPU tensors launch nothing
+    assert trace.counts() == before      # CPU tensors launch nothing
     assert torch.equal(wrapped[0], want[0])
     assert torch.equal(wrapped[1], want[1])
     assert float(wrapped[2]) == float(segs)
@@ -404,5 +405,6 @@ def test_camera_and_frame_structs_match_ctypes():
     assert '#include "warp.cuh"' in srcs["warp.cu"]
     assert re.search(r"__device__[^;{]*\bcamera_ray\(", srcs["camera.cuh"])
     assert re.search(r"__device__[^;{]*\bgather_pixel\(", srcs["warp.cuh"])
-    # both history kernels run the one gather
-    assert len(re.findall(r"\bgather_pixel\(", srcs["warp.cu"])) == 2
+    # the temporal frame's warp arm runs the one gather, defined in warp.cuh
+    assert len(re.findall(r"\bgather_pixel\(", srcs["warp.cu"])) == 1
+    assert not re.search(r"__device__[^;{]*\bgather_pixel\(", srcs["warp.cu"])

@@ -38,6 +38,7 @@ from raytracer_tpu_torch.models.materials import Material, Texture
 from raytracer_tpu_torch.models.scene import SceneBuilder
 from raytracer_tpu_torch.ops import megakernel as tmk
 from raytracer_tpu_torch.ops import rng as trng
+from raytracer_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
 
@@ -159,11 +160,11 @@ def test_plain_fetch_matches_jax_fetches(regime, width, monkeypatch):
     np.testing.assert_array_equal(got[:, is_img], gather[:, is_img])
 
     # the wrapper's CPU path is the plain version, with no launch
-    before = tmk.FETCH_LAUNCHES
+    before = trace.counts()
     out = tmk.fetch_image(tmk.MegaScene(ts), torch.from_numpy(u),
                           torch.from_numpy(v), torch.from_numpy(mid))
     np.testing.assert_array_equal(out.numpy(), got)
-    assert tmk.FETCH_LAUNCHES == before
+    assert trace.counts() == before
 
 
 def test_fetch_image_wrapper_checks_inputs():

@@ -2,8 +2,10 @@
 off it records nothing, reads no clock and allocates nothing; on it
 records names, nesting and frame ids; a CPU Renderer's frames emit the
 spans of PERF.md §3 in order, and render bitwise as with spans off; the
-CLI's ``--spans`` writes them out."""
+CLI's ``--spans`` writes them out. And its program counts as
+``kernels/build.py``'s ``launch`` keeps them."""
 
+import collections
 import json
 import time
 import tracemalloc
@@ -214,3 +216,39 @@ def test_cli_writes_spans(tmp_path):
     assert all(r["dur_us"] >= 0 for r in rows)
     assert len(stats.read_text().splitlines()) == 2
     assert trace.span("x") is trace.span("y")   # the CLI turned it off
+
+
+def test_launch_calls_the_entry_point_and_counts_it(monkeypatch):
+    """``build.launch`` calls entry point ``name`` with its argument
+    struct and the device's stream and counts ``name``; a nonzero return
+    raises with the name and the error string and counts nothing. A stub
+    stands in for the kernel library: no nvcc, no card."""
+    from raytracer_tpu_torch.kernels import build
+
+    class _Lib:
+        rc = 0
+
+        def __init__(self):
+            self.calls = []
+
+        def rt_fetch_image(self, args, stream):
+            self.calls.append((args._obj, stream.value))
+            return self.rc
+
+        def rt_error_string(self, rc):
+            return b"invalid argument"
+    lib = _Lib()
+    monkeypatch.setattr(build, "_lib", lib)
+    monkeypatch.setattr(build, "stream", lambda device: 1234)
+    monkeypatch.setattr(trace, "_counts", collections.Counter())
+    args = build.FetchArgs(n=7)
+    build.launch("rt_fetch_image", args, torch.device("cpu"))
+    assert lib.calls == [(args, 1234)]
+    assert trace.counts() == {"rt_fetch_image": 1}
+    trace.counts()["rt_fetch_image"] += 1       # a copy
+    lib.rc = 1
+    with pytest.raises(RuntimeError, match=r"rt_fetch_image launch failed: "
+                       r"cudaError 1 \(invalid argument\)"):
+        build.launch("rt_fetch_image", args, torch.device("cpu"))
+    assert len(lib.calls) == 2
+    assert trace.counts() == {"rt_fetch_image": 1}

@@ -23,6 +23,7 @@ ops/wave_graph.py), on the CPU.
   the card and raise without one.
 """
 
+import collections
 import dataclasses
 
 import jax
@@ -56,6 +57,7 @@ from raytracer_tpu_torch.ops.rebin import (LANES, apply_lane_permutation,
 from raytracer_tpu_torch.ops.scatter import antialias_jitter, scatter
 from raytracer_tpu_torch.ops.tables import lookup_material
 from raytracer_tpu_torch.ops.textures import sample_texture
+from raytracer_tpu_torch.utils import trace
 from test_torch_wavefront import PIXEL_ABS, PIXEL_BOUNDS, SEGS_REL
 
 torch.set_num_threads(2)
@@ -179,8 +181,7 @@ def _todays_trace(ws, settings, ray_idx, o, d, key, backend):
     segs = torch.zeros((), dtype=torch.int64)
     for bounce_i in range(settings.reflect_limit):
         segs = segs + alive.sum()
-        drawn = trng.bounce_randoms(ray_keys, bounce_i, use_rr,
-                                    plain=backend == "plain")
+        drawn = trng.bounce_randoms(ray_keys, bounce_i, use_rr)
         o, d, thru, rad, cur_ior, alive = _todays_bounce(
             ws, settings, backend, sky, o, d, thru, rad, alive, cur_ior,
             *drawn[:3], rr_u=drawn[3] if use_rr else None,
@@ -220,11 +221,9 @@ def _todays_regen(ws, settings, ray_idx, o0, d0, frame_key, backend,
         segs = segs + active.sum()
         if tile_key is not None:
             drawn = trng.tile_randoms(trng.fold_in(tile_key, it - 1), n,
-                                      with_rr=use_rr, device="cpu",
-                                      plain=backend == "plain")
+                                      with_rr=use_rr, device="cpu")
         else:
-            drawn = trng.lane_randoms(kd, sample_i, bounce_i, use_rr,
-                                      plain=backend == "plain")
+            drawn = trng.lane_randoms(kd, sample_i, bounce_i, use_rr)
         o, d, thru, rad, cur_ior, continues = _todays_bounce(
             ws, settings, backend, sky, o, d, thru, rad, active, cur_ior,
             *drawn[:3], rr_u=drawn[3] if use_rr else None,
@@ -471,7 +470,8 @@ def test_samplers_match_jax_interpret(sampler):
 
 @pytest.mark.parametrize("seed", [0, 123456789])
 def test_fold_in_tensor_is_fold_in(seed):
-    """The plain version of the fold rt_tile_randoms does on the card."""
+    """The plain version of the fold rt_wave_rays' coherent arm does on
+    the card."""
     k = trng.fold_in(trng.key(seed), 4)
     kt = torch.tensor([int(w) for w in k], dtype=torch.int64)
     for it in range(100):
@@ -480,19 +480,12 @@ def test_fold_in_tensor_is_fold_in(seed):
 
 
 def test_device_key_draws_are_the_host_key_draws():
-    """``tile_rows_at`` (key and iteration in tensors) is bitwise
-    ``tile_rows`` under the host's fold; ``per_ray_keys`` from a key
-    tensor is bitwise the numpy key's; ``set_key`` writes the words."""
+    """``per_ray_keys`` from a key tensor is bitwise the numpy key's;
+    ``set_key`` writes the words."""
     k = trng.fold_in(trng.key(3), 9)
     buf = torch.zeros(2, dtype=torch.int64)
     trng.set_key(buf, k)
     assert buf.tolist() == [int(w) for w in k]
-    for it, rr in ((0, False), (5, True)):
-        got = trng.tile_rows_at(buf, torch.tensor([it]), 2100, with_rr=rr)
-        want = trng.tile_rows(trng.fold_in(k, it), 2100, with_rr=rr,
-                              device="cpu")
-        assert got.shape == (8 if rr else 7, 2100)
-        assert torch.equal(got, want)
     idx = torch.arange(300, dtype=torch.int32) * 7919
     assert torch.equal(trng.per_ray_keys(buf, idx),
                        trng.per_ray_keys(k, idx))
@@ -513,13 +506,15 @@ class _EagerGraph:
 @pytest.fixture
 def eager_graphs(monkeypatch):
     """Route the kernel route's CPU tensors through the graph route, its
-    captures replaced by ``_EagerGraph`` (the launches a replay adds fixed
-    at one per counter); returns the list of captures, (id(ws), N)."""
+    captures replaced by ``_EagerGraph`` (a replay adds one launch of
+    each kernel of the iteration); returns the list of captures,
+    (id(ws), N)."""
     captured = []
 
     def capture(ws, n, body):
         captured.append((id(ws), n))
-        return twg.Graph(_EagerGraph(body), [1] * len(twg.COUNTERS))
+        return twg.Graph(_EagerGraph(body), collections.Counter(
+            ("rt_wave_rays", "rt_hit_resolve", "rt_wave_bounce")))
     monkeypatch.setattr(tint, "_replays",
                         lambda backend, o: backend == "pallas")
     monkeypatch.setattr(twg, "capture", capture)
@@ -590,10 +585,9 @@ def test_graph_cache_key(eager_graphs):
 
 def test_replay_adds_the_captured_launches(monkeypatch):
     """A capture counts the launches its body issued and takes them back
-    off the counters (a capture runs nothing); each replay adds them and
-    one to REPLAYS; a body that raises leaves the counters as they were."""
-    from raytracer_tpu_torch.ops import intersect_cuda as ic
-
+    off the program counts (a capture runs nothing); each replay adds them
+    and one to ``graph.replay``; a body that raises leaves the counts as
+    they were."""
     class _Stub:
         def __init__(self):
             self.replays = 0
@@ -614,31 +608,33 @@ def test_replay_adds_the_captured_launches(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: stub)
     monkeypatch.setattr(torch.cuda, "graph", _Capturing)
     monkeypatch.setattr(twg, "warm_up", lambda ws, n: None)
-    for mod, name in twg.COUNTERS:
-        monkeypatch.setattr(mod, name, 10)
-    monkeypatch.setattr(twg, "REPLAYS", 0)
+    iteration = ("rt_wave_rays", "rt_hit_resolve", "rt_wave_bounce")
+    start = collections.Counter(
+        {name: 10 for name in iteration + ("rt_hit_resolve_blocked",)})
+    monkeypatch.setattr(trace, "_counts", start.copy())
 
     def body():
         for _ in range(8):
-            ic.LAUNCHES += 1
-            trng.LAUNCHES += 1
-            tb.LAUNCHES += 1
+            for name in iteration:
+                trace.count(name)
+            trace.count("rt_hit_resolve.skip")
     g = twg.capture(None, 4096, body)
-    assert twg.counts() == [10] * len(twg.COUNTERS)
-    assert (ic.LAUNCHES, ic.BLOCKED_LAUNCHES, trng.TILE_LAUNCHES) == (
-        10, 10, 10)
+    assert trace.counts() == start + collections.Counter(
+        {"graph.capture": 1})
     for _ in range(15):
         g.replay()
-    assert stub.replays == 15 and twg.REPLAYS == 15
-    assert (ic.LAUNCHES, trng.LAUNCHES, tb.LAUNCHES) == (130, 130, 130)
-    assert (ic.BLOCKED_LAUNCHES, trng.TILE_LAUNCHES) == (10, 10)
+    c = trace.counts()
+    assert stub.replays == 15 and c["graph.replay"] == 15
+    assert [c[name] for name in iteration] == [130, 130, 130]
+    assert c["rt_hit_resolve.skip"] == 120
+    assert c["rt_hit_resolve_blocked"] == 10
 
     def bad():
-        ic.LAUNCHES += 1
+        trace.count("rt_hit_resolve")
         raise RuntimeError("capture failed")
     with pytest.raises(RuntimeError, match="capture failed"):
         twg.capture(None, 4096, bad)
-    assert ic.LAUNCHES == 130
+    assert trace.counts() == c
 
 
 # -- the repair: the tile draws default to the card --------------------------
@@ -715,10 +711,10 @@ def test_finished_lanes_keep_their_state(sampler):
 @pytest.mark.parametrize("sampler", ["regen", "rebin", "lanesort"])
 def test_lane_iterations_count_the_loop(monkeypatch, eager_graphs, sampler,
                                         route):
-    """``integrator.LANE_ITERATIONS`` grows by N x the iterations the loop
-    runs (eager, the plain route) or replays (the graph route, its capture
-    stubbed as above), and the frame's segments are fewer: the share
-    skipped, 1 - segments / lane-iterations, is above 0 on scene 4."""
+    """The ``regen.lane_iterations`` count grows by N x the iterations the
+    loop runs (eager, the plain route) or replays (the graph route, its
+    capture stubbed as above), and the frame's segments are fewer: the
+    share skipped, 1 - segments / lane-iterations, is above 0 on scene 4."""
     scene, sky = _scene(4)
     s = rtt.RenderSettings(rays_per_pixel=3, reflect_limit=4,
                            sampler=sampler).with_sky(sky)
@@ -727,11 +723,11 @@ def test_lane_iterations_count_the_loop(monkeypatch, eager_graphs, sampler,
     iteration = tint._regen_iteration
     monkeypatch.setattr(tint, "_regen_iteration",
                         lambda *a: ran.append(1) or iteration(*a))
-    before = tint.LANE_ITERATIONS
+    before = trace.counts()["regen.lane_iterations"]
     _, segs = tint.render_sample_mean(
         WaveScene(scene), s, o, d, trng.frame_key(trng.key(1), 0),
         ray_idx=idx, backend="pallas" if route == "graph" else "plain")
-    grown = tint.LANE_ITERATIONS - before
+    grown = trace.counts()["regen.lane_iterations"] - before
     assert len(ran) > 0 and grown == o.shape[0] * len(ran)
     assert 0 < float(segs) < grown
     assert bool(eager_graphs) == (route == "graph")
@@ -814,10 +810,11 @@ class _FakeHitLib:
 def test_skip_launches_grow_per_replay(monkeypatch, blocked):
     """The K5 / K6 wrappers put the regen mask into the kernel's arguments
     (``sample_i``'s pointer and spp; null and 0 without one) and count a
-    launch that carried it in ``SKIP_LAUNCHES``. A capture of 8 masked
-    launches and 2 without takes its counts back off the counters, and
-    each of 5 replays adds 8 to ``SKIP_LAUNCHES`` and 10 to the kernel's
-    launches (``torch.cuda.CUDAGraph`` and the library stubbed)."""
+    launch that carried it under the kernel's ``.skip`` count. A capture
+    of 8 masked launches and 2 without takes its counts back off the
+    program counts, and each of 5 replays adds 8 to ``.skip`` and 10 to
+    the kernel's launches (``torch.cuda.CUDAGraph`` and the library
+    stubbed)."""
     from raytracer_tpu_torch.kernels import build
 
     class _Capturing:
@@ -836,8 +833,7 @@ def test_skip_launches_grow_per_replay(monkeypatch, blocked):
                         lambda: _EagerGraph(lambda: None))
     monkeypatch.setattr(torch.cuda, "graph", _Capturing)
     monkeypatch.setattr(twg, "warm_up", lambda ws, n: None)
-    for mod, name in twg.COUNTERS:
-        monkeypatch.setattr(mod, name, 0)
+    monkeypatch.setattr(trace, "_counts", collections.Counter())
     scene, _, num = _hit_scene(blocked)
     ws = WaveScene(scene, blocked=blocked)
     o, d, _ = _rays(num)
@@ -858,13 +854,14 @@ def test_skip_launches_grow_per_replay(monkeypatch, blocked):
             launch()
     g = twg.capture(ws, n, body)
     assert lib.masks == [(sample_i.data_ptr(), 3)] * 8 + [(None, 0)] * 2
-    assert twg.counts() == [0] * len(twg.COUNTERS)
+    assert trace.counts() == collections.Counter({"graph.capture": 1})
     for _ in range(5):
         g.replay()
-    assert tic.SKIP_LAUNCHES == 40
-    launched = (tic.BLOCKED_LAUNCHES, tic.LAUNCHES)
-    assert launched == ((50, 0) if blocked else (0, 50))
-    assert tic.STATS_LAUNCHES == 0
+    c = trace.counts()
+    kernel = "rt_hit_resolve_blocked" if blocked else "rt_hit_resolve"
+    other = "rt_hit_resolve" if blocked else "rt_hit_resolve_blocked"
+    assert c[kernel + ".skip"] == 40 and c[kernel] == 50 and c[other] == 0
+    assert c["rt_hit_resolve.stats"] == 0
 
 
 @pytest.mark.parametrize("blocked", [False, True])

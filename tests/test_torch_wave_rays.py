@@ -25,6 +25,8 @@ and the bounce on the hit kernels' raw outputs (ops/bounce.py), on the CPU.
   mirrors; the wrapper's checks.
 """
 
+import collections
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,6 +41,7 @@ from raytracer_tpu_torch.ops import rays as trays
 from raytracer_tpu_torch.ops import rng as trng
 from raytracer_tpu_torch.ops.intersect_cuda import WaveScene
 from raytracer_tpu_torch.ops.scatter import antialias_jitter
+from raytracer_tpu_torch.utils import trace
 from test_torch_megakernel import CSRC, _c_struct_fields
 from test_torch_wave_bounce import (SAMPLER_CASES, _rays, _scene,
                                     _todays_mean, _todays_trace,
@@ -236,9 +239,9 @@ def test_wave_rays_checks_inputs():
                                              device="meta"))
     with pytest.raises(ValueError, match=r"\(3, N\) float32"):
         trays.wave_rays(d.double(), keys=keys, bounce=b)
-    before = trays.LAUNCHES
+    before = trace.counts()
     trays.wave_rays(d, keys=keys, bounce=b)
-    assert trays.LAUNCHES == before     # CPU tensors take the plain version
+    assert trace.counts() == before     # CPU tensors take the plain version
 
 
 @pytest.mark.parametrize("arm", ["scan", "regen"])
@@ -269,7 +272,8 @@ def eager_graphs(monkeypatch):
 
     def capture(ws, n, body):
         captured.append((id(ws), n))
-        return twg.Graph(_EagerGraph(body), [1] * len(twg.COUNTERS))
+        return twg.Graph(_EagerGraph(body), collections.Counter(
+            ("rt_wave_rays", "rt_hit_resolve", "rt_wave_bounce")))
     monkeypatch.setattr(tint, "_replays",
                         lambda backend, o: backend == "pallas")
     monkeypatch.setattr(twg, "capture", capture)
@@ -319,9 +323,9 @@ def test_graph_trace_is_todays_trace(eager_graphs, num):
 
 def test_rays_and_bounce_structs_match_ctypes():
     """rt_wave_rays (csrc/rays.cu) and rt_wave_bounce (csrc/bounce.cu):
-    entry points, argument structs field by field (rt_tile_randoms' too),
-    rays.cu built, the draw's device functions shared from draw.cuh with
-    rt_lane_randoms and rt_tile_randoms."""
+    entry points, argument structs field by field, rays.cu built, the
+    draw's device functions defined once, in draw.cuh, and defined again
+    in no source."""
     import re
 
     from raytracer_tpu_torch.kernels import build
@@ -332,15 +336,13 @@ def test_rays_and_bounce_structs_match_ctypes():
     assert re.search(r"\bint rt_wave_bounce\(", srcs["bounce.cu"])
     for name, c_name, py in (("rays.cu", "RtRaysArgs", build.RaysArgs),
                              ("bounce.cu", "RtBounceArgs",
-                              build.BounceArgs),
-                             ("rays.cu", "RtTileArgs", build.TileArgs)):
+                              build.BounceArgs)):
         assert _c_struct_fields(srcs[name], c_name) == [
             f[0] for f in py._fields_]
-    for name in ("rays.cu", "wavefront.cu"):
-        assert '#include "draw.cuh"' in srcs[name]
+    assert '#include "draw.cuh"' in srcs["rays.cu"]
     draw = (CSRC / "draw.cuh").read_text()
     for fn in ("threefry", "lane_key", "lane_draw", "erfinv_xla",
                "tile_key", "tile_value"):
         assert re.search(r"\b%s\(" % fn, draw)
-        assert not re.search(r"__device__[^;{]*\b%s\(" % fn,
-                             srcs["wavefront.cu"])
+        for src in srcs.values():
+            assert not re.search(r"__device__[^;{]*\b%s\(" % fn, src)
